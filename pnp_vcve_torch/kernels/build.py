@@ -1,0 +1,130 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so a
+build takes seconds, not minutes). The build runs at first use and is cached
+under ``build/pnp_vcve_torch/<hash of sources and flags>/`` at the root of
+the checkout; ``nvcc -Xptxas -v`` output (registers, shared memory, spills
+per kernel) is kept beside the library in ``build.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+__all__ = ["Library", "library", "nvcc_path", "CSRC", "BUILD_ROOT"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pnp_vcve_torch"
+LIB_NAME = "libpnp_vcve_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argument types (all return a cudaError_t as int);
+# pnp_<kernel>_smem() return a block's dynamic shared memory in bytes
+SIGNATURES = {
+    "pnp_warp": [_I, _P, _P, _P, _I, _I, _I, _P],
+    "pnp_input_conv": [_I] + [_P] * 10 + [_I, _I, _I, _I, _P],
+    "pnp_drt_block": [_I] + [_P] * 8 + [_I, _I, _I, _P],
+    "pnp_head": [_I] + [_P] * 6 + [_I, _I, _I, _P],
+}
+
+
+@dataclass
+class Library:
+    """The loaded kernels: ``lib`` (ctypes handle), where it came from, the
+    compiler's report and the build's wall time (0 when it was cached)."""
+
+    lib: ctypes.CDLL
+    path: Path
+    log: str
+    build_seconds: float
+
+    def check(self, rc: int, name: str):
+        """Raise if a launch returned a CUDA error."""
+        if rc != 0:
+            msg = self.lib.pnp_error_string(rc).decode()
+            raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def nvcc_path() -> str | None:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    return str(cand) if cand.exists() else None
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _key(cu, cuh) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(out_dir: Path, cu) -> tuple[str, float]:
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels build "
+            "only where the CUDA toolkit is installed"
+        )
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # build under a temporary name, then rename: concurrent builders never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, out_dir / LIB_NAME)
+    (out_dir / "build.log").write_text(log)
+    return log, time.perf_counter() - t0
+
+
+@functools.cache
+def library() -> Library:
+    """Build (at first use) and load the kernels' shared library."""
+    cu, cuh = _sources()
+    out_dir = BUILD_ROOT / _key(cu, cuh)
+    so = out_dir / LIB_NAME
+    if so.exists():
+        log_file = out_dir / "build.log"
+        log, seconds = (log_file.read_text() if log_file.exists() else ""), 0.0
+    else:
+        log, seconds = _build(out_dir, cu)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    for name in ("input_conv", "drt_block", "head"):
+        fn = getattr(lib, f"pnp_{name}_smem")
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    lib.pnp_error_string.argtypes = [ctypes.c_int]
+    lib.pnp_error_string.restype = ctypes.c_char_p
+    return Library(lib=lib, path=so, log=log, build_seconds=seconds)

@@ -1,0 +1,162 @@
+// K3: one fused DRT block (channel_first, one_layer, with_se):
+//   h   = relu(conv3x3(x; W2[b] * gamma[b]) + b2[b] * gamma[b] + sum_r par_r * (x @ PK_r))
+//   out = x + conv3x3(h; W1) + b1
+// with h zero outside the image (conv1's zero padding). Out of place: the
+// caller ping-pongs buffers because neighbouring tiles read x's halo.
+//
+// Replaces the TPU kernel pnp_vcve_tpu/kernels/drt_stack.py: _drt_block_pf
+// (:305, body _kernel_body :187). As there, h never leaves the chip: stage 1
+// computes it on the output tile plus a 1-pixel halo into shared memory
+// (the TPU kernel's VMEM `hmid`), stage 2 convolves it with W1. The per-sample
+// gain gamma is folded into W2 and b2 by the wrapper (gamma * (conv + b2) ==
+// conv(.; W2 * gamma) + b2 * gamma). The partition side path runs as three
+// more "taps" of stage 1 that read the centre pixel scaled by par_r.
+//
+// Bound: CUDA-core float32 FMAs. The block needs ~158 GFLOP per 720p frame;
+// recomputing stage 1 on the 10 x 18 halo region of each 8 x 16 output tile
+// adds ~23% to that. Shared memory sets the tile: the 12 x 20 x 64 input tile
+// (61 KB in float) is reused for h once stage 1 is done, the weights stream
+// through 16 KB one tap at a time, so two blocks fit on an SM.
+#include "common.cuh"
+
+namespace pnp {
+
+constexpr int DB_HR = TH + 2, DB_HC = TW + 2, DB_NH = DB_HR * DB_HC;  // h region 10 x 18
+constexpr int DB_XR = TH + 4, DB_XC = TW + 4, DB_NX = DB_XR * DB_XC;  // x tile 12 x 20
+constexpr int DB_PM1 = (DB_NH + PG - 1) / PG;                         // 6 h pixels per thread
+constexpr int DB_PM2 = TH * TW / PG;                                  // 4 out pixels per thread
+constexpr size_t DB_SMEM = sizeof(float) * (C * DB_NX + C * C + 3 * DB_NH);
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 2)
+    drt_block_kernel(const T* __restrict__ x, const T* __restrict__ par,
+                     const float* __restrict__ w2g, const float* __restrict__ b2g,
+                     const float* __restrict__ pk, const float* __restrict__ w1,
+                     const float* __restrict__ b1, T* __restrict__ out, int h, int w) {
+  extern __shared__ float smem[];
+  float* xs = smem;            // C x DB_NX input tile; C x DB_NH h tile after stage 1
+  float* ws = xs + C * DB_NX;  // one tap of weights
+  float* ps = ws + C * C;      // 3 x DB_NH partition gates
+
+  const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const int tn = threadIdx.x % CG, pg = threadIdx.x / CG;
+  const size_t img = (size_t)b * h * w;
+
+  // ---- stage 1 on the h region: rows y0-1 .. y0+TH, cols x0-1 .. x0+TW
+  load_tile<T>(xs, DB_NX, x + img * C, h, w, y0 - 2, x0 - 2, DB_XR, DB_XC);
+  for (int i = threadIdx.x; i < 3 * DB_NH; i += NT) {
+    const int p = i % DB_NH, r = i / DB_NH;
+    const int y = y0 - 1 + p / DB_HC, xx = x0 - 1 + p % DB_HC;
+    const bool in = y >= 0 && y < h && xx >= 0 && xx < w;
+    ps[i] = in ? to_f(par[(img + (size_t)y * w + xx) * 3 + r]) : 0.f;
+  }
+  int base1[DB_PM1];
+  tile_bases<DB_PM1>(base1, DB_NH, DB_HC, DB_XC);
+  float acc[DB_PM1][PN];
+  zero(acc);
+  conv3x3<DB_PM1>(acc, xs, DB_NX, DB_XC, base1, w2g + (size_t)b * 9 * C * C, ws, C, tn);
+
+  // partition side path: par_r * x at the h pixel itself (tile offset
+  // DB_XC + 1 from the top-left tap), times PK_r
+  for (int r = 0; r < 3; ++r) {
+    __syncthreads();
+    copy_weights(ws, pk + (size_t)r * C * C, C * C);
+    __syncthreads();
+    float gate[DB_PM1];
+#pragma unroll
+    for (int j = 0; j < DB_PM1; ++j) {
+      const int p = pg + PG * j;
+      gate[j] = p < DB_NH ? ps[r * DB_NH + p] : 0.f;
+    }
+#pragma unroll 4
+    for (int ci = 0; ci < C; ++ci) {
+      const float* row = xs + ci * DB_NX + DB_XC + 1;
+      const float4 wa = *reinterpret_cast<const float4*>(ws + ci * C + tn * PN);
+      const float4 wb = *reinterpret_cast<const float4*>(ws + ci * C + tn * PN + 4);
+      const float wv[PN] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+      for (int j = 0; j < DB_PM1; ++j) {
+        const float a = row[base1[j]] * gate[j];
+#pragma unroll
+        for (int n = 0; n < PN; ++n) acc[j][n] = fmaf(a, wv[n], acc[j][n]);
+      }
+    }
+  }
+
+  float bv[PN];
+#pragma unroll
+  for (int n = 0; n < PN; ++n) bv[n] = b2g[(size_t)b * C + tn * PN + n];
+  __syncthreads();  // every thread is done reading x before h overwrites it
+#pragma unroll
+  for (int j = 0; j < DB_PM1; ++j) {
+    const int p = pg + PG * j;
+    if (p >= DB_NH) continue;
+    const int y = y0 - 1 + p / DB_HC, xx = x0 - 1 + p % DB_HC;
+    const bool in = y >= 0 && y < h && xx >= 0 && xx < w;
+#pragma unroll
+    for (int n = 0; n < PN; ++n) {
+      // zero outside the image: conv1's zero padding; h is held in the
+      // feature type, as the reference stores it
+      const float v = in ? fmaxf(acc[j][n] + bv[n], 0.f) : 0.f;
+      xs[(tn * PN + n) * DB_NH + p] = round_to<T>(v);
+    }
+  }
+
+  // ---- stage 2: conv1 over h, + b1 + x
+  int base2[DB_PM2];
+  tile_bases<DB_PM2>(base2, TH * TW, TW, DB_HC);
+  float acc2[DB_PM2][PN];
+  zero(acc2);
+  conv3x3<DB_PM2>(acc2, xs, DB_NH, DB_HC, base2, w1, ws, C, tn);
+
+#pragma unroll
+  for (int n = 0; n < PN; ++n) bv[n] = b1[tn * PN + n];
+#pragma unroll
+  for (int j = 0; j < DB_PM2; ++j) {
+    const int p = pg + PG * j;
+    const int y = y0 + p / TW, xx = x0 + p % TW;
+    if (y >= h || xx >= w) continue;
+    const size_t o = (img + (size_t)y * w + xx) * C + tn * PN;
+    float xv[PN], ov[PN];
+    load8(x + o, xv);
+#pragma unroll
+    for (int n = 0; n < PN; ++n) ov[n] = xv[n] + (acc2[j][n] + bv[n]);
+    store8(out + o, ov);
+  }
+}
+
+template <typename T>
+cudaError_t launch_drt_block(const void* x, const void* par, const void* w2g, const void* b2g,
+                             const void* pk, const void* w1, const void* b1, void* out, int b,
+                             int h, int w, cudaStream_t stream) {
+  if ((size_t)b * h * w == 0) return cudaSuccess;
+  auto k = drt_block_kernel<T>;
+  cudaError_t e = allow_smem(k, DB_SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, b);
+  k<<<grid, NT, DB_SMEM, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(par), static_cast<const float*>(w2g),
+      static_cast<const float*>(b2g), static_cast<const float*>(pk),
+      static_cast<const float*>(w1), static_cast<const float*>(b1), static_cast<T*>(out), h, w);
+  return cudaGetLastError();
+}
+
+}  // namespace pnp
+
+// dtype: 0 float32, 1 bfloat16. x, out: (b, h, w, 64); par: (b, h, w, 3);
+// w2g: (b, 9, 64, 64) and b2g: (b, 64), gamma folded in; pk: (3, 64, 64);
+// w1: (9, 64, 64); b1: (64,). Weights float32.
+extern "C" int pnp_drt_block(int dtype, const void* x, const void* par, const void* w2g,
+                             const void* b2g, const void* pk, const void* w1, const void* b1,
+                             void* out, int b, int h, int w, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)pnp::launch_drt_block<float>(x, par, w2g, b2g, pk, w1, b1, out, b, h, w, s);
+  if (dtype == 1)
+    return (int)pnp::launch_drt_block<__nv_bfloat16>(x, par, w2g, b2g, pk, w1, b1, out, b, h,
+                                                     w, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dynamic shared memory of one block, for the build report
+extern "C" int pnp_drt_block_smem() { return (int)pnp::DB_SMEM; }

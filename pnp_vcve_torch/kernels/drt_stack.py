@@ -1,0 +1,194 @@
+"""K2-K4: the BAE input conv, the DRT block and the reconstruction head
+(csrc/input_conv.cu, csrc/drt_block.cu, csrc/head.cu), and the expert premix.
+
+They replace, in ``pnp_vcve_tpu/kernels/drt_stack.py``:
+
+- ``input_conv_pf`` (:649) -> :func:`input_conv` (K2);
+- ``_drt_block_pf`` (:305), chained 8x per step -> :func:`drt_block` (K3);
+- ``head_pf`` (:1058) -> :func:`head` (K4).
+
+The TPU kernels' pixel-pair packed layout and band DMAs are not carried
+over: the kernels take the NHWC tensors as they are, for any h and w, at the
+flagship width of 64 channels, in float32 or bfloat16 with float32 sums.
+Each is bound by CUDA-core float32 FMAs; the source notes in ``csrc/`` say
+how each tiles its work.
+
+Each wrapper has a plain PyTorch version beside it (``*_plain``), the XLA
+composition of the JAX package written in PyTorch (``_xla_input_stack_compose``
+:861, ``_xla_block_compose`` :780, ``_xla_head`` :1116). Weights are given as
+in the JAX package: HWIO 3x3 kernels, per-sample ones with a leading batch
+axis, the partition kernel as ``(c, 3, c)``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from pnp_vcve_torch.ops.dynamic_conv import (
+    conv2d_f32,
+    conv2d_nhwc,
+    dynamic_conv2d,
+    per_sample_conv,
+)
+from .launch import check_cuda_args, launch, on_cpu
+
+__all__ = [
+    "premix_block_params",
+    "part_kernels",
+    "input_conv",
+    "input_conv_plain",
+    "drt_block",
+    "drt_block_plain",
+    "head",
+    "head_plain",
+]
+
+C = 64  # the kernels' feature width
+
+
+def premix_block_params(weights_t, gammas_t, bank, bias_bank):
+    """One block's expert-mixed dynamic conv for all frames at once, hoisted
+    out of both sweeps (JAX ``premix_block_params`` :1345, without the PF
+    packing): ``weights_t (t, b, E)`` routing, ``gammas_t (t, b, c)`` gains,
+    ``bank (E, c_out, c_in, 3, 3)`` and ``bias_bank (E, c_out)`` as stored
+    under the reference names -> ``{w2 (t, b, 3, 3, c_in, c_out), b2 (t, b, c),
+    g (t, b, c)}`` in float32."""
+    w2 = torch.einsum("tbe,eoiyx->tbyxio", weights_t.float(), bank.float())
+    b2 = torch.einsum("tbe,eo->tbo", weights_t.float(), bias_bank.float())
+    return dict(w2=w2, b2=b2, g=gammas_t.float())
+
+
+def part_kernels(kernel, part_channels: Sequence[int], b: int, gate=None):
+    """Per-part, per-sample slices ``(b, 3, 3, c_p, c_out)`` float32 of the
+    input conv's HWIO ``kernel (3, 3, sum(c_p), c_out)``.
+
+    ``gate (b,)`` (0/1) is the align_key select of the BAE part layout
+    (lr, key_warp, neighbour[, cur]): the neighbour slot is
+    ``where(gate, key_warp, neighbour)``. A select commutes with the conv, so
+    it becomes kernel gains (JAX ``_part_specs_for_gate`` :822):
+    key_warp gets ``K_kw + g K_nb`` and the neighbour ``(1 - g) K_nb``."""
+    kernel = kernel.float()
+    offs = [0]
+    for cp in part_channels:
+        offs.append(offs[-1] + cp)
+    if offs[-1] != kernel.shape[2]:
+        raise ValueError(f"parts sum to {offs[-1]} channels, kernel has {kernel.shape[2]}")
+    ks = [
+        kernel[:, :, a:z].unsqueeze(0).expand(b, -1, -1, -1, -1)
+        for a, z in zip(offs[:-1], offs[1:])
+    ]
+    if gate is not None:
+        g = gate.float().reshape(b, 1, 1, 1, 1)
+        ks[1] = ks[1] + g * ks[2]
+        ks[2] = (1.0 - g) * ks[2]
+    return [k.contiguous() for k in ks]
+
+
+# ---- K2: input conv ---------------------------------------------------------
+
+
+def input_conv_plain(parts, kernels, bias):
+    """``lrelu_0.1(sum_p conv3x3(part_p; kernels[p][b]) + bias)``."""
+    acc = None
+    for part, k in zip(parts, kernels):
+        term = per_sample_conv(part, k)
+        acc = term if acc is None else acc + term
+    return F.leaky_relu(acc + bias.float(), 0.1).to(parts[0].dtype)
+
+
+def input_conv(parts, kernels, bias):
+    """K2. ``parts``: the lr frame ``(b, h, w, 3)`` then 1-3 features
+    ``(b, h, w, 64)``; ``kernels``: per-part ``(b, 3, 3, c_p, 64)`` float32
+    (from :func:`part_kernels`); ``bias (64,)``. Returns ``(b, h, w, 64)``."""
+    if on_cpu(parts[0]):
+        return input_conv_plain(parts, kernels, bias)
+    lr, wide = parts[0], list(parts[1:])
+    b, h, w, clr = lr.shape
+    if clr != 3 or not 1 <= len(wide) <= 3 or len(kernels) != len(parts):
+        raise ValueError("input_conv: need lr (b,h,w,3) + 1-3 features and one kernel each")
+    for p in wide:
+        if p.shape != (b, h, w, C):
+            raise ValueError(f"input_conv: feature {tuple(p.shape)} != {(b, h, w, C)}")
+    ks = [k.reshape(b, 9, k.shape[3], k.shape[4]) for k in kernels]
+    if ks[0].shape != (b, 9, 3, C) or any(k.shape != (b, 9, C, C) for k in ks[1:]):
+        raise ValueError("input_conv: kernels must be (b,3,3,c_p,64)")
+    bias = bias.float().contiguous()
+    check_cuda_args("input_conv", parts, (*ks, bias))
+    out = torch.empty((b, h, w, C), dtype=lr.dtype, device=lr.device)
+    pad = [None] * (3 - len(wide))
+    return launch(
+        "input_conv", "pnp_input_conv", out, lr, *wide, *pad, ks[0], *ks[1:], *pad,
+        bias, out, b, h, w, len(wide),
+    )
+
+
+# ---- K3: DRT block ------------------------------------------------------------
+
+
+def drt_block_plain(x, par, w2, b2, g, pk, w1, b1):
+    """One DRT block (JAX ``_xla_block_compose``; channel_first, one_layer):
+    ``h = relu(g * (conv3x3(x; w2[b]) + b2[b]) + sum_r (x * par_r) @ pk[:, r])``,
+    ``out = x + conv3x3(h; w1) + b1``."""
+    dtype = x.dtype
+    dyres = None
+    for r in range(3):
+        gated = x * par[..., r : r + 1].to(dtype)
+        term = torch.einsum("bhwi,io->bhwo", gated, pk[:, r].to(dtype)).float()
+        dyres = term if dyres is None else dyres + term
+    dyn = dynamic_conv2d(x, w2, b2, gamma=g).float()
+    hmid = torch.relu(dyn + dyres).to(dtype)
+    return x + conv2d_nhwc(hmid, w1, b1)
+
+
+def drt_block(x, par, w2, b2, g, pk, w1, b1):
+    """K3. ``x (b, h, w, 64)``, ``par (b, h, w, 3)`` of x's type; per-sample
+    ``w2 (b, 3, 3, 64, 64)``, ``b2 (b, 64)``, ``g (b, 64)``; static
+    ``pk (64, 3, 64)``, ``w1 (3, 3, 64, 64)``, ``b1 (64,)``. Out of place."""
+    if on_cpu(x):
+        return drt_block_plain(x, par, w2, b2, g, pk, w1, b1)
+    b, h, w, c = x.shape
+    if c != C or par.shape != (b, h, w, 3):
+        raise ValueError(f"drt_block: need x (b,h,w,64), par (b,h,w,3); got "
+                         f"{tuple(x.shape)}, {tuple(par.shape)}")
+    if w2.shape != (b, 3, 3, C, C) or pk.shape != (C, 3, C) or w1.shape != (3, 3, C, C):
+        raise ValueError("drt_block: weight shapes do not match 64 channels")
+    gf = g.float()
+    w2g = (w2.float() * gf[:, None, None, None, :]).reshape(b, 9, C, C).contiguous()
+    b2g = (b2.float() * gf).contiguous()
+    pkr = pk.float().permute(1, 0, 2).contiguous()
+    w1r = w1.float().reshape(9, C, C).contiguous()
+    b1f = b1.float().contiguous()
+    check_cuda_args("drt_block", (x, par), (w2g, b2g, pkr, w1r, b1f))
+    out = torch.empty_like(x)
+    return launch("drt_block", "pnp_drt_block", out, x, par, w2g, b2g, pkr, w1r, b1f,
+                  out, b, h, w)
+
+
+# ---- K4: head -------------------------------------------------------------------
+
+
+def head_plain(x, hr_k, hr_b, last_k, last_b):
+    """``conv3x3(lrelu_0.1(conv3x3(x; hr_k) + hr_b); last_k) + last_b``
+    (JAX ``_xla_head``); the caller adds lr."""
+    y = conv2d_f32(x, hr_k) + hr_b.float()
+    y = F.leaky_relu(y, 0.1).to(x.dtype)
+    return (conv2d_f32(y, last_k) + last_b.float()).to(x.dtype)
+
+
+def head(x, hr_k, hr_b, last_k, last_b):
+    """K4. ``x (b, h, w, 64)``; ``hr_k (3, 3, 64, 64)``, ``hr_b (64,)``,
+    ``last_k (3, 3, 64, 3)``, ``last_b (3,)``. Returns ``(b, h, w, 3)``."""
+    if on_cpu(x):
+        return head_plain(x, hr_k, hr_b, last_k, last_b)
+    b, h, w, c = x.shape
+    if c != C or hr_k.shape != (3, 3, C, C) or last_k.shape != (3, 3, C, 3):
+        raise ValueError("head: need x (b,h,w,64) and 64->64->3 kernels")
+    whr = hr_k.float().reshape(9, C, C).contiguous()
+    wl = last_k.float().reshape(9, C, 3).contiguous()
+    bhr, bl = hr_b.float().contiguous(), last_b.float().contiguous()
+    check_cuda_args("head", (x,), (whr, bhr, wl, bl))
+    out = torch.empty((b, h, w, 3), dtype=x.dtype, device=x.device)
+    return launch("head", "pnp_head", out, x, whr, bhr, wl, bl, out, b, h, w)

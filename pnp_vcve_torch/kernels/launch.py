@@ -1,0 +1,72 @@
+"""What the kernel wrappers share: argument checks, the launch counters and
+the call into the built library.
+
+A wrapper given CPU tensors runs its kernel's plain PyTorch version; given
+CUDA tensors it launches the kernel or raises. ``LAUNCHES[name]`` counts the
+kernel's launches (and nothing else), so a run can show that it went through
+the kernels: zero the counts with :func:`reset_launches`, run, read them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .build import library
+
+__all__ = ["LAUNCHES", "reset_launches", "on_cpu", "check_cuda_args", "launch"]
+
+LAUNCHES = {"warp": 0, "input_conv": 0, "drt_block": 0, "head": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def on_cpu(x: torch.Tensor) -> bool:
+    """True routes a wrapper to its plain version. Devices other than the
+    CPU and CUDA are refused."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {x.device}")
+    return False
+
+
+def check_cuda_args(name: str, features, weights=()):
+    """Device, dtype, contiguity and alignment checks for a launch. Feature
+    tensors share one device and one dtype (float32 or bfloat16); weight
+    tensors are float32. All are contiguous and 16-byte aligned (the kernels
+    read 16-byte vectors)."""
+    dev = features[0].device
+    dtype = features[0].dtype
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: features must be float32 or bfloat16, got {dtype}")
+    for t in features:
+        if t.device != dev or t.dtype != dtype:
+            raise TypeError(
+                f"{name}: features on {t.device}/{t.dtype}, expected {dev}/{dtype}"
+            )
+    for t in weights:
+        if t.device != dev or t.dtype != torch.float32:
+            raise TypeError(f"{name}: weights must be float32 on {dev}")
+    for t in (*features, *weights):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+
+
+def launch(name: str, entry: str, out: torch.Tensor, *args):
+    """Call C entry point ``entry`` with the dtype code of ``out`` first and
+    the current stream of its device last; count the launch."""
+    lib = library()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+        rc = getattr(lib.lib, entry)(_DTYPE_CODE[out.dtype], *ptrs, stream)
+    lib.check(rc, name)
+    LAUNCHES[name] += 1
+    return out

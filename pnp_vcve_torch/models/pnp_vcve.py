@@ -1,0 +1,212 @@
+"""PnP-VCVE flagship generator: CAA predictors + bidirectional BAE
+(counterpart of pnp_vcve_tpu/models/pnp_vcve.py, ``sweep='full'``).
+
+Reference model ``IconVSR_restore_wo_refill_mv_ipb_fast_domain_dynamic_with_par``
+with deform='vos' and vsr=False. As in the JAX package:
+
+- keyframes come from the slice codes (73 'I' and 80 'P', first and last
+  frame forced), through cumulative scans (:func:`keyframe_indices`);
+- each sweep carries only ``(prev_out, last_key, prev_was_key)``: in sweep
+  order the nearest keyframe is the last one processed, so no feature store
+  is carried; the backward sweep's outputs feed the forward sweep as ``cur``;
+- the expert mixing of every block is hoisted out of both sweeps (premix);
+- the align_key select rides the input conv as per-sample kernel gains;
+- inputs whose size is not a multiple of 4 are reflect-padded (MVs and
+  partitions zero-padded) and the output cropped back.
+
+The sweeps are Python loops over t. Each step runs the four kernels of
+``self.ops`` (``pnp_vcve_torch.kernels.KERNELS`` by default): the warp, the
+input conv, ``num_blocks`` DRT blocks and, in the forward sweep, the head.
+
+Inputs are NHWC: ``lrs (b,t,h,w,3)``, ``mvs (b,t,h,w,4)`` (fwd x,y, bwd x,y),
+``par_map (b,t,h,w,3)``, scalars ``qps/slices/base_qps (b,t)``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pnp_vcve_torch.kernels import KERNELS
+from .bae import ResidualBlocksWithInputConvDynamicDRT, hwio
+from .caa import BasePredictor, BiasPredictor, SEModule
+from .init import torch_default_
+
+__all__ = ["PnPVCVE", "keyframe_indices"]
+
+I_SLICE = 73.0  # ord('I')
+P_SLICE = 80.0  # ord('P')
+
+
+def keyframe_indices(slices: torch.Tensor):
+    """``slices (b, t)`` codes -> ``(keyframe (b,t) bool, key_fwd, key_bwd)``
+    where ``key_fwd[b, i]`` is the nearest keyframe strictly before i (valid
+    for i >= 1) and ``key_bwd[b, i]`` the nearest strictly after (valid for
+    i <= t-2)."""
+    b, t = slices.shape
+    keyframe = (slices == I_SLICE) | (slices == P_SLICE)
+    keyframe[:, 0] = True
+    keyframe[:, -1] = True
+    iota = torch.arange(t, device=slices.device).expand(b, t)
+    before = torch.cummax(torch.where(keyframe, iota, -1), dim=1).values
+    key_fwd = torch.cat([torch.zeros_like(before[:, :1]), before[:, :-1]], dim=1)
+    after = torch.cummin(torch.where(keyframe, iota, t).flip(1), dim=1).values.flip(1)
+    key_bwd = torch.cat([after[:, 1:], torch.full_like(after[:, :1], t - 1)], dim=1)
+    return keyframe, key_fwd, key_bwd
+
+
+def _pad_hw(x: torch.Tensor, pad_h: int, pad_w: int, mode: str) -> torch.Tensor:
+    """Pad (b, t, h, w, c) at the bottom and right."""
+    b, t, h, w, c = x.shape
+    y = F.pad(x.reshape(b * t, h, w, c).permute(0, 3, 1, 2), (0, pad_w, 0, pad_h), mode=mode)
+    return y.permute(0, 2, 3, 1).reshape(b, t, h + pad_h, w + pad_w, c)
+
+
+def _time_major(x: torch.Tensor, dtype) -> torch.Tensor:
+    """(b, t, ...) -> contiguous (t, b, ...) in ``dtype``, one frame per index."""
+    return x.to(dtype).transpose(0, 1).contiguous()
+
+
+class PnPVCVE(nn.Module):
+    """Flagship generator (config configs/HR_davis_LR_128x128.py)."""
+
+    def __init__(
+        self,
+        mid_channels: int = 64,
+        num_blocks: int = 8,
+        num_experts: int = 6,
+        expert_softmax: bool = True,
+        use_base_qp: bool = True,
+        with_bias: bool = True,
+        with_se: bool = True,
+        with_cat: bool = True,
+        align_key: bool = True,
+        feature_dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        c = mid_channels
+        self.mid_channels = c
+        self.use_base_qp = use_base_qp
+        self.with_bias = with_bias
+        self.with_se = with_se
+        self.with_cat = with_cat
+        self.align_key = align_key
+        self.feature_dtype = feature_dtype
+        # the four kernels every sweep step runs (kernels.KERNELS or PLAIN)
+        self.ops = KERNELS
+
+        self.BasePredictor = BasePredictor(c, num_experts, expert_softmax)
+        if with_bias:
+            self.BiasePredictor = (
+                SEModule(c) if with_se
+                else BiasPredictor(c)
+            )
+        n_feat = 2 if with_cat else 1  # key warp (+ neighbour)
+        self.backward_resblocks = ResidualBlocksWithInputConvDynamicDRT(
+            3 + c * n_feat, c, num_blocks, num_experts
+        )
+        self.forward_resblocks = ResidualBlocksWithInputConvDynamicDRT(
+            3 + c * (n_feat + 1), c, num_blocks, num_experts
+        )
+        self.conv_hr = nn.Conv2d(c, c, 3, 1, 1)
+        self.conv_last = nn.Conv2d(c, 3, 3, 1, 1)
+
+    def reset_parameters(self, generator: torch.Generator):
+        """Random init from ``generator`` (the reference's init for the
+        expert banks and DRT convs, PyTorch's default elsewhere)."""
+        self.BasePredictor.reset_parameters(generator)
+        if self.with_bias:
+            self.BiasePredictor.reset_parameters(generator)
+        self.backward_resblocks.reset_parameters(generator)
+        self.forward_resblocks.reset_parameters(generator)
+        torch_default_(self.conv_hr, generator)
+        torch_default_(self.conv_last, generator)
+
+    def _sweep(self, resblocks, lrs, flows, par, keyframe, mixed, cur=None):
+        """One propagation sweep over the frames in list order; returns the
+        per-step block-stack outputs (and, with ``cur``, the heads' outputs)."""
+        ops = self.ops
+        prev_out = torch.zeros(lrs[0].shape[:3] + (self.mid_channels,),
+                               dtype=lrs.dtype, device=lrs.device)
+        last_key = prev_out
+        prev_was_key = torch.zeros(lrs.shape[1], dtype=torch.bool, device=lrs.device)
+        outs, ys = [], []
+        for i in range(lrs.shape[0]):
+            # the zero carry warps to zero: no masking of the first step
+            key_warp = ops.flow_warp(last_key, flows[i])
+            parts = [lrs[i], key_warp]
+            if self.with_cat:
+                parts.append(prev_out)
+            if cur is not None:
+                parts.append(cur[i])
+            gate = prev_was_key.float() if (self.align_key and self.with_cat) else None
+            out = resblocks(parts, par[i], [{k: v[i] for k, v in m.items()} for m in mixed],
+                            ops, gate)
+            is_key = keyframe[i]
+            last_key = torch.where(is_key[:, None, None, None], out, last_key)
+            prev_out, prev_was_key = out, is_key
+            outs.append(out)
+            if cur is not None:
+                y = ops.head(out, hwio(self.conv_hr.weight), self.conv_hr.bias,
+                             hwio(self.conv_last.weight), self.conv_last.bias)
+                ys.append(y + lrs[i])
+        return outs, ys
+
+    def forward(self, lrs, qps, slices, mvs, base_qps, par_map,
+                is_mirror_extended: bool = False):
+        b, t, h_in, w_in, _ = lrs.shape
+        # pad to x4 (reference spatial_padding: reflect lrs bottom/right); the
+        # priors are zero-padded (zero motion, no partition), output cropped
+        pad_h, pad_w = (4 - h_in % 4) % 4, (4 - w_in % 4) % 4
+        if pad_h or pad_w:
+            lrs = _pad_hw(lrs, pad_h, pad_w, "reflect")
+            mvs = _pad_hw(mvs, pad_h, pad_w, "constant")
+            par_map = _pad_hw(par_map, pad_h, pad_w, "constant")
+        c = self.mid_channels
+
+        weights = self.BasePredictor(base_qps if self.use_base_qp else qps)
+        if self.with_bias and self.with_se:
+            gammas = self.BiasePredictor(qps)[0]
+        else:  # the gain applies only to the with_se block form
+            gammas = torch.ones((b, t, c), device=lrs.device)
+
+        # forward step i warps with mvs[:, i, ..., 0:2], backward step i with
+        # mvs[:, i, ..., 2:4]
+        flows_fwd = mvs[..., 0:2]
+        flows_bwd = mvs[..., 2:4]
+        if is_mirror_extended:
+            if t > 2:
+                raise NotImplementedError(
+                    "mirror-extended clips of more than 2 frames: the JAX package's "
+                    "mirrored flow layout has t // 2 + 1 forward flows "
+                    "(ROADMAP Queue C)"
+                )
+            # forward step i uses the backward flows of the mirrored frame
+            th = t // 2
+            fwd_tail = flows_fwd[:, th:].flip(1)
+            flows_fwd = torch.cat([flows_bwd[:, :1] * 0, fwd_tail[:, : t - 1]], 1)
+
+        keyframe = keyframe_indices(slices)[0].transpose(0, 1)  # (t, b)
+        dtype = self.feature_dtype
+        lrs_t = _time_major(lrs, dtype)
+        par_t = _time_major(par_map, dtype)
+        # flows in the feature type before the warp, as the JAX path casts them
+        fwd_t = _time_major(flows_fwd, dtype)
+        bwd_t = _time_major(flows_bwd, dtype)
+        wt = weights.float().transpose(0, 1)
+        gt = gammas.float().transpose(0, 1)
+        mixed_b = self.backward_resblocks.premix(wt, gt)
+        mixed_f = self.forward_resblocks.premix(wt, gt)
+
+        rev = torch.arange(t - 1, -1, -1, device=lrs.device)
+        bwd_outs, _ = self._sweep(
+            self.backward_resblocks, lrs_t[rev], bwd_t[rev], par_t[rev], keyframe[rev],
+            [{k: v[rev] for k, v in m.items()} for m in mixed_b],
+        )
+        bwd_feats = bwd_outs[::-1]  # back to time order
+        _, ys = self._sweep(
+            self.forward_resblocks, lrs_t, fwd_t, par_t, keyframe, mixed_f, cur=bwd_feats
+        )
+        out = torch.stack(ys, dim=1).float()
+        return out[:, :, :h_in, :w_in]

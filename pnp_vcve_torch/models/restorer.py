@@ -1,0 +1,53 @@
+"""Restorer: generator + the eval metric protocol (counterpart of
+pnp_vcve_tpu/models/restorer.py:60-102): per-frame metrics on
+uint8-quantised images, averaged over the clip, then over the dataset. The
+metric functions are the JAX package's shared, JAX-free ones."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Dict
+
+import numpy as np
+from torch import nn
+
+from pnp_vcve_tpu.metrics import l1_evaluation, mae, niqe, psnr, ssim, tensor2img
+
+__all__ = ["Restorer", "ALLOWED_METRICS", "average_clip_metrics"]
+
+ALLOWED_METRICS: Dict[str, Callable] = {
+    "PSNR": psnr,
+    "SSIM": ssim,
+    "MAE": mae,
+    "L1Evaluation": l1_evaluation,
+    "NIQE": lambda out, gt, crop_border=0: niqe(out, crop_border=crop_border),
+}
+
+
+@dataclass
+class Restorer:
+    """The generator and the test config's metric protocol."""
+
+    generator: nn.Module
+    test_cfg: dict = field(default_factory=lambda: {"metrics": ["PSNR", "SSIM"], "crop_border": 0})
+
+    def evaluate_clip(self, output: np.ndarray, gt: np.ndarray) -> Dict[str, float]:
+        """Per-frame metrics averaged over the clip; ``output``, ``gt``:
+        ``(t, h, w, 3)`` floats in [0, 1]."""
+        crop_border = int(self.test_cfg.get("crop_border", 0))
+        metrics = self.test_cfg.get("metrics", ["PSNR", "SSIM"])
+        sums = {m: 0.0 for m in metrics}
+        t = output.shape[0]
+        for i in range(t):
+            out_img = tensor2img(output[i])
+            gt_img = tensor2img(gt[i])
+            for m in metrics:
+                sums[m] += ALLOWED_METRICS[m](out_img, gt_img, crop_border=crop_border)
+        return {m: v / t for m, v in sums.items()}
+
+
+def average_clip_metrics(per_clip: list[Dict[str, float]]) -> Dict[str, float]:
+    """Dataset mean over clips."""
+    if not per_clip:
+        return {}
+    return {k: float(np.mean([c[k] for c in per_clip])) for k in per_clip[0]}

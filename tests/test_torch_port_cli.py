@@ -1,0 +1,130 @@
+"""tools/torch_test.py, the port's eval entry point, on the CPU; and the
+port's builder on the shipped configs."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+REPO = Path(__file__).resolve().parent.parent
+T_FRAMES, H, W = 4, 24, 32
+
+
+@pytest.fixture
+def fixture_root(tmp_path):
+    """One clip of PNG frames with empty MV sidecars and a qp.json."""
+    rng = np.random.default_rng(0)
+    png = tmp_path / "crf25" / "png" / "000"
+    mv = tmp_path / "crf25" / "mv" / "000"
+    png.mkdir(parents=True)
+    mv.mkdir(parents=True)
+    entries = {}
+    for i in range(T_FRAMES):
+        Image.fromarray(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)).save(png / f"{i:08d}.png")
+        np.save(mv / f"{i:08d}.npy", np.zeros((0, 10), np.float32))
+        entries[str(i)] = {"QP": 27.0, "slice": "I" if i == 0 else ("P" if i % 2 else "B")}
+    (tmp_path / "qp.json").write_text(json.dumps({"crf25": {"000": entries}}))
+    return tmp_path
+
+
+def _write_cfg(tmp_path, root):
+    cfg = tmp_path / "port_cfg.py"
+    cfg.write_text(f"""
+model = dict(
+    type="BasicVSR",
+    generator=dict(
+        type="IconVSR_restore_wo_refill_mv_ipb_fast_domain_dynamic_with_par",
+        mid_channels=8, num_blocks=1, num_experts=2,
+    ),
+    pixel_loss=dict(type="CharbonnierLoss", loss_weight=1.0),
+)
+test_cfg = dict(metrics=["PSNR", "SSIM"], crop_border=0)
+data = dict(
+    test=dict(
+        type="SRFolderMultipleGTDataset",
+        lq_folder=r"{root}/crf25/png",
+        gt_folder=r"{root}/crf25/png",
+        num_input_frames={T_FRAMES},
+        pipeline=[dict(type="LoadImageFromFileList_ipb", qp_slice_file=r"{root}/qp.json")],
+    ),
+)
+""")
+    return cfg
+
+
+def test_cli_enhances_and_saves_without_jax(fixture_root, tmp_path):
+    """The CPU drive prints per-clip PSNR/SSIM and the mean, writes
+    {clip}/{i:08d}.png, and never imports JAX."""
+    cfg = _write_cfg(tmp_path, fixture_root)
+    out_dir = tmp_path / "out"
+    code = (
+        "import runpy, sys; "
+        f"sys.argv = ['torch_test.py', {str(cfg)!r}, '-', '--device', 'cpu', "
+        f"'--save-path', {str(out_dir)!r}, '--save-image', "
+        f"'--out', {str(tmp_path / 'm.pkl')!r}]; "
+        f"runpy.run_path({str(REPO / 'tools' / 'torch_test.py')!r}, run_name='__main__'); "
+        "print('JAX_IMPORTED', 'jax' in sys.modules)"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=tmp_path, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "[eval] 000: PSNR=" in proc.stdout and "SSIM=" in proc.stdout
+    assert "dataset mean" in proc.stdout
+    assert "JAX_IMPORTED False" in proc.stdout
+    frames = sorted(p.name for p in (out_dir / "000").iterdir())
+    assert frames == [f"{i:08d}.png" for i in range(T_FRAMES)]
+    assert np.asarray(Image.open(out_dir / "000" / frames[0])).shape == (H, W, 3)
+    assert (tmp_path / "m.pkl").exists()
+
+
+def _cli():
+    sys.path.insert(0, str(REPO / "tools"))
+    import torch_test
+
+    return torch_test
+
+
+def test_cli_refuses_cuda_without_a_card(fixture_root, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _cli().main([str(_write_cfg(tmp_path, fixture_root)), "-", "--device", "cuda"])
+
+
+@pytest.mark.parametrize("flag", [["--cascade"], ["--frame-parallel", "exact"], ["--multihost"]])
+def test_cli_unported_flags_name_their_roadmap_item(fixture_root, tmp_path, flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _cli().main([str(_write_cfg(tmp_path, fixture_root)), "-", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("name", ["HR_davis_LR_128x128.py", "HR_davis_LR_128x128_serving_tpu.py"])
+def test_shipped_configs_build_port_generator(name):
+    """Both flagship configs load unchanged through the port's builder, at
+    the flagship widths, under the reference's parameter names."""
+    from pnp_vcve_tpu.core.config import Config
+    from pnp_vcve_torch.core.builder import build_restorer
+    from pnp_vcve_torch.models.pnp_vcve import PnPVCVE
+
+    cfg = Config.fromfile(REPO / "configs" / name)
+    gen = build_restorer(cfg.model, cfg.get("test_cfg"), device="cpu").generator
+    assert isinstance(gen, PnPVCVE)
+    with np.load(REPO / "tests" / "fixtures" / "parity" / "state_dict.npz") as z:
+        ref = {k: z[k].shape for k in z.files}
+    assert {k: tuple(v.shape) for k, v in gen.state_dict().items()} == ref
+
+
+@pytest.mark.parametrize("override", [
+    dict(vsr=True), dict(deform="basic"), dict(blocktype="drt_woqp"),
+    dict(one_layer=False), dict(channel_first=False),
+])
+def test_unported_generator_variants_raise(override):
+    from pnp_vcve_torch.core.builder import build_generator
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_generator(dict(type="PnPVCVE", mid_channels=8, num_blocks=1, **override),
+                        device="cpu")
