@@ -13,28 +13,55 @@ Phases (any failure raises and the script exits non-zero):
    (TF32 off; max|diff| <= 1e-4 std) and bfloat16 (max < 0.02 std,
    mean < 0.002 std; warp 0.08 / 0.01; input conv max 0.04 std, see
    BF16_BOUNDS); at 720p both are timed with CUDA events in turns (plain,
-   kernel, kernel, plain);
-4. the main path: ``tools/torch_test.py`` with the flagship serving config
-   and the parity fixture's weights on a REDS4-layout fixture of 4 clips x
-   8 frames at 720x1280 (PNG frames, MV sidecars, qp.json) that
+   kernel, kernel, plain), beside one PyTorch call that computes the same
+   function where there is one (``F.grid_sample`` for the warp, one
+   ``F.conv2d`` over the concatenated parts for the input conv) and the
+   card's bound for the work (bytes over 3.35 TB/s or float32 operations
+   over 67 TFLOP/s, whichever is larger);
+4. the main path: ``tools/torch_test.py`` with the port's flagship serving
+   config and the parity fixture's weights on a REDS4-layout fixture of
+   4 clips x 8 frames at 720x1280 (PNG frames, MV sidecars, qp.json) that
    tools/data/make_protocol_fixture.py writes under build/chip_smoke/; the
    kernels' launch counts must equal 2 warps, 2 input convs, 16 DRT blocks
    and 1 head per frame;
 5. the whole model's kernel path against its plain path on one clip of
-   8 frames at 256x448 (max|diff| <= 3e-3, float32).
+   8 frames at 256x448 (max|diff| <= 3e-3, float32);
+6. gradients at the flagship width (64 channels, 8 blocks, 6 experts): one
+   Charbonnier loss on b=2 clips of 4 frames at 192x256, backpropagated
+   through the kernels and through the plain path (float32, TF32 off);
+   every parameter's gradient within 1e-3 of its largest plain entry, the
+   losses within 1e-5 relative. The frames are not smaller because the
+   partition 1x1 convs' weight gradients (sums of x * par / 255 over a third
+   of the pixels, gated by a ReLU) shift with the float rounding of the
+   forward by an amount that falls with the pixel count: at 64x96 it
+   reached 1.2e-3 of the largest entry;
+7. training: ``tools/torch_train.py`` with the port's flagship training
+   config (b=5, 15 frames, 128x128 crops, Adam, cosine restart, remat) on a
+   DAVIS-layout fixture of 2 clips x 20 frames at 256x256 (CRF 15/25/35 and
+   sharp) under build/chip_smoke/train: 4 iterations with a checkpoint at 2,
+   then a resume from 2 for 2 more, with cuDNN and PyTorch held to
+   deterministic algorithms; the loss must be finite, the launch counts
+   those of the forward and the remat recompute, and the resumed weights
+   equal to the uninterrupted run's. Seconds per iteration, iterations/s
+   and peak device memory are printed, and ``torch.profiler``'s split of
+   the resumed run's last iteration: device time by kernel, the share of
+   K1-K4 and the device's idle share.
 
 The line before the last is a JSON object with each kernel's launches on the
-main path, its error and its time beside the plain version's; the last line
-is ``{"ok": true, "device": {...}}``.
+main path and in training, its error, its time beside the plain version's,
+the library call's and the bound; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+CONFIGS = ROOT / "pnp_vcve_torch" / "configs"
 
 SEED = 0
 MAIN_HW = (720, 1280)
@@ -55,6 +82,11 @@ FLOP_PER_PIXEL = {
     "drt_block": 2 * (9 * 64 * 64 + 3 * 64 * 64 + 9 * 64 * 64),
     "head": 2 * 9 * 64 * (64 + 3),
 }
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM3, float32 on
+# the CUDA cores, dense bf16 on the tensor cores
+HBM_BYTES_S, F32_FLOP_S, BF16_TC_FLOP_S = 3.35e12, 67e12, 989e12
+GRAD_TOL, LOSS_RTOL = 1e-3, 1e-5
+TRAIN_FRAMES, TRAIN_HW, TRAIN_ITERS = 20, (256, 256), 4
 
 KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
     "warp": ("pnp_vcve_torch/kernels/csrc/warp.cu", "pnp_vcve_tpu/kernels/warp_pf.py:488"),
@@ -78,7 +110,7 @@ def phase_device():
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", 0), smi
 
 
 def phase_build():
@@ -133,9 +165,12 @@ def _compare(name, got, ref, dtype, bounds):
 
 
 def _cases(dev, dtype, b, h, w, gen):
-    """(label, kernel name, kernel call, plain call in float32 on the same
-    values, plain call in the working type, reps for timing) per case."""
+    """One dict per case: label, kernel name, the kernel call, the plain
+    call in float32 on the same values, the plain call in the working type,
+    the library call (or None), reps for timing, and the bytes the function
+    must move (each input read once, the output written once)."""
     import torch
+    import torch.nn.functional as F
 
     from pnp_vcve_torch.kernels import KERNELS, PLAIN
     from pnp_vcve_torch.kernels.drt_stack import part_kernels
@@ -146,42 +181,65 @@ def _cases(dev, dtype, b, h, w, gen):
     def wt(shape, scale):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
 
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
     f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
     x = feat(64)
     # block-constant motion vectors as the rasterizer emits them, +-24 px
     fb = torch.rand((b, -(-h // 8), -(-w // 8), 2), generator=gen) * 48 - 24
     flow = fb.repeat_interleave(8, 1).repeat_interleave(8, 2)[:, :h, :w].contiguous()
     flow = flow.to(dev, dtype)
-    cases = [("warp", "warp", lambda: KERNELS.flow_warp(x, flow),
-              lambda: PLAIN.flow_warp(x.float(), flow.float()),
-              lambda: PLAIN.flow_warp(x, flow), 20)]
+    # grid_sample's normalised grid for the same flow (align_corners=True)
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
+                            indexing="ij")
+    grid = torch.stack([(xs + flow[..., 0].float()) * 2 / (w - 1) - 1,
+                        (ys + flow[..., 1].float()) * 2 / (h - 1) - 1], -1).to(dtype)
+    x_nchw = x.permute(0, 3, 1, 2).contiguous()
+    cases = [dict(
+        label="warp", name="warp", kern=lambda: KERNELS.flow_warp(x, flow),
+        ref32=lambda: PLAIN.flow_warp(x.float(), flow.float()),
+        plain=lambda: PLAIN.flow_warp(x, flow),
+        library=lambda: F.grid_sample(x_nchw, grid, mode="bilinear", padding_mode="zeros",
+                                      align_corners=True),
+        reps=20, bytes=nbytes(x, flow, x))]
     gate = torch.ones(b, device=dev)
     for n_parts, tag in ((3, "backward"), (4, "forward")):
         parts = [feat(3)] + [feat(64) for _ in range(n_parts - 1)]
         kernel = wt((3, 3, 3 + 64 * (n_parts - 1), 64), 0.03)
         bias = wt((64,), 0.1)
         ks = part_kernels(kernel, [p.shape[-1] for p in parts], b, gate)
-        cases.append((
-            f"input_conv ({tag}, {n_parts} parts)", "input_conv",
-            lambda p=parts, k=ks, bb=bias: KERNELS.input_conv(p, k, bb),
-            lambda p=parts, k=ks, bb=bias: PLAIN.input_conv(f32(p), k, bb),
-            lambda p=parts, k=ks, bb=bias: PLAIN.input_conv(p, k, bb), 5))
+        cat = torch.cat(parts, -1).permute(0, 3, 1, 2).contiguous()
+        w_oihw = kernel.permute(3, 2, 0, 1).contiguous().to(dtype)
+        cases.append(dict(
+            label=f"input_conv ({tag}, {n_parts} parts)", name="input_conv",
+            kern=lambda p=parts, k=ks, bb=bias: KERNELS.input_conv(p, k, bb),
+            ref32=lambda p=parts, k=ks, bb=bias: PLAIN.input_conv(f32(p), k, bb),
+            plain=lambda p=parts, k=ks, bb=bias: PLAIN.input_conv(p, k, bb),
+            library=lambda c=cat, k=w_oihw, bb=bias.to(dtype): F.conv2d(c, k, bb, padding=1),
+            reps=5, bytes=nbytes(*parts, *ks, bias, x)))
     par = (torch.rand((b, h, w, 3), generator=gen) > 0.5).to(dev, dtype)
     blk = (wt((b, 3, 3, 64, 64), 0.03), wt((b, 64), 0.1),
            torch.rand((b, 64), generator=gen).to(dev),
            wt((64, 3, 64), 0.03), wt((3, 3, 64, 64), 0.03), wt((64,), 0.1))
-    cases.append(("drt_block", "drt_block", lambda: KERNELS.drt_block(x, par, *blk),
-                  lambda: PLAIN.drt_block(x.float(), par.float(), *blk),
-                  lambda: PLAIN.drt_block(x, par, *blk), 5))
+    cases.append(dict(
+        label="drt_block", name="drt_block", kern=lambda: KERNELS.drt_block(x, par, *blk),
+        ref32=lambda: PLAIN.drt_block(x.float(), par.float(), *blk),
+        plain=lambda: PLAIN.drt_block(x, par, *blk), library=None, reps=5,
+        bytes=nbytes(x, par, *blk, x)))
     hd = (wt((3, 3, 64, 64), 0.03), wt((64,), 0.1), wt((3, 3, 64, 3), 0.06), wt((3,), 0.1))
-    cases.append(("head", "head", lambda: KERNELS.head(x, *hd),
-                  lambda: PLAIN.head(x.float(), *hd), lambda: PLAIN.head(x, *hd), 5))
+    cases.append(dict(
+        label="head", name="head", kern=lambda: KERNELS.head(x, *hd),
+        ref32=lambda: PLAIN.head(x.float(), *hd), plain=lambda: PLAIN.head(x, *hd),
+        library=None, reps=5, bytes=nbytes(x, *hd) + b * h * w * 3 * x.element_size()))
     return cases
 
 
 def phase_kernels(dev):
-    """Returns {kernel: (max_abs_err, ms, plain_ms)} in float32 at 720p; the
-    input conv's entry covers its two forms (worst error, mean time)."""
+    """Returns {kernel: row} in float32 at 720p: the worst error, the mean
+    times of the kernel, its plain version and the library call, and the
+    bounds. The input conv's row covers its two forms (worst error, mean
+    time and bound)."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
@@ -190,24 +248,41 @@ def phase_kernels(dev):
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         for (h, w), timed in ((MAIN_HW, True), (RAGGED_HW, False)):
-            for label, name, kern, ref32, plain, reps in _cases(dev, dtype, 1, h, w, gen):
-                tag = f"{label} {str(dtype)[6:]} {h}x{w}"
-                err = _compare(tag, kern(), ref32(), dtype, BF16_BOUNDS[name])
+            for c in _cases(dev, dtype, 1, h, w, gen):
+                tag = f"{c['label']} {str(dtype)[6:]} {h}x{w}"
+                err = _compare(tag, c["kern"](), c["ref32"](), dtype, BF16_BOUNDS[c["name"]])
                 if not timed:
                     continue
-                p1, k1, k2, p2 = (_timed(f, reps) for f in (plain, kern, kern, plain))
-                rate = (f"{FLOP_PER_PIXEL[label] * h * w / (k1 + k2) * 2e-9:.1f} TFLOP/s"
-                        if label in FLOP_PER_PIXEL else "")
+                p1, k1, k2, p2 = (_timed(f, c["reps"])
+                                  for f in (c["plain"], c["kern"], c["kern"], c["plain"]))
+                lib = _timed(c["library"], c["reps"]) if c["library"] else None
+                flop = FLOP_PER_PIXEL.get(c["label"], 0) * h * w
+                t_bytes, t_ops = c["bytes"] / HBM_BYTES_S * 1e3, flop / F32_FLOP_S * 1e3
+                rate = f"{flop / (k1 + k2) * 2e-9:.1f} TFLOP/s, " if flop else ""
                 print(f"[time] {tag}: kernel {k1:.3f} / {k2:.3f} ms, "
-                      f"plain {p1:.3f} / {p2:.3f} ms {rate}")
+                      f"plain {p1:.3f} / {p2:.3f} ms, library "
+                      f"{'none' if lib is None else f'{lib:.3f} ms'}; {rate}"
+                      f"{c['bytes'] / ((k1 + k2) / 2) * 1e-6:.0f} GB/s; bound "
+                      f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, float32 ops "
+                      f"{t_ops:.3f}, bf16 tensor-core ops {flop / BF16_TC_FLOP_S * 1e3:.3f})")
                 if dtype == torch.float32:
-                    rows.setdefault(name, []).append((err, (k1 + k2) / 2, (p1 + p2) / 2))
+                    rows.setdefault(c["name"], []).append(dict(
+                        err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib,
+                        t_bytes=t_bytes, t_ops=t_ops, t_bf16=flop / BF16_TC_FLOP_S * 1e3))
             torch.cuda.empty_cache()
-    return {
-        name: (max(r[0] for r in rs), sum(r[1] for r in rs) / len(rs),
-               sum(r[2] for r in rs) / len(rs))
-        for name, rs in rows.items()
-    }
+
+    def mean(rs, k):
+        return None if rs[0][k] is None else sum(r[k] for r in rs) / len(rs)
+
+    out = {}
+    for name, rs in rows.items():
+        t_bytes, t_ops = mean(rs, "t_bytes"), mean(rs, "t_ops")
+        out[name] = dict(
+            max_abs_err=max(r["err"] for r in rs), ms=mean(rs, "ms"),
+            plain_ms=mean(rs, "plain_ms"), bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=mean(rs, "library_ms"), bound_bf16_tensor_ms=mean(rs, "t_bf16"))
+    return out
 
 
 def phase_main_path(dev):
@@ -216,7 +291,7 @@ def phase_main_path(dev):
     import numpy as np
     import torch
 
-    from pnp_vcve_tpu.core.config import Config
+    from pnp_vcve_torch.core.config import Config
     from pnp_vcve_torch.kernels import LAUNCHES, reset_launches
     from pnp_vcve_torch.models.pnp_vcve import PnPVCVE
 
@@ -233,8 +308,8 @@ def phase_main_path(dev):
     # the flagship serving config, pointed at the fixture (its qp.json sits
     # inside the test pipeline, which --testdir_* do not reach)
     cfg.write_text(
-        f"_base_ = [{str(ROOT / 'configs' / 'HR_davis_LR_128x128_serving_tpu.py')!r}]\n"
-        "from pnp_vcve_tpu.core.presets import flagship_data\n"
+        f"_base_ = [{str(CONFIGS / 'HR_davis_LR_128x128_serving.py')!r}]\n"
+        "from pnp_vcve_torch.core.presets import flagship_data\n"
         f"data = flagship_data(test_lq={str(work / 'data/crf15/png')!r}, "
         f"test_gt={str(work / 'data/sharp/png')!r}, "
         f"test_qp_json={str(work / 'data/qp.json')!r})\n"
@@ -288,36 +363,58 @@ def phase_main_path(dev):
     return counts
 
 
+def _clip_inputs(rng, b, t, h, w, dev):
+    """b clips of t frames: 8x8-block-constant MVs, one-hot partitions,
+    I/P/B slices, as the rasterizer and the codec give them."""
+    import numpy as np
+    import torch
+
+    up = lambda a: np.repeat(np.repeat(a, 8, 2), 8, 3)  # noqa: E731
+    slices = np.full((b, t), 66.0, np.float32)
+    slices[:, ::4] = 80.0
+    slices[:, 0] = 73.0
+    inputs = dict(
+        lrs=rng.random((b, t, h, w, 3), dtype=np.float32),
+        qps=(rng.integers(20, 40, (b, t)) / 255.0).astype(np.float32),
+        slices=slices,
+        mvs=up((rng.standard_normal((b, t, h // 8, w // 8, 4)) * 6).astype(np.float32)),
+        base_qps=np.full((b, t), 35 / 255.0, np.float32),
+        par_map=up(np.eye(3, dtype=np.float32)[rng.integers(0, 3, (b, t, h // 8, w // 8))]
+                   / 255.0),
+    )
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in inputs.items()}
+
+
+def _flagship_generator(config, dev):
+    """The config's generator with the parity fixture's weights, and the
+    config."""
+    from pnp_vcve_torch.core.builder import build_generator
+    from pnp_vcve_torch.core.checkpoint import load_generator_weights
+    from pnp_vcve_torch.core.config import Config
+
+    cfg = Config.fromfile(CONFIGS / config)
+    model = build_generator(cfg.model["generator"], device=dev)
+    load_generator_weights(model, str(ROOT / "tests/fixtures/parity/state_dict.npz"))
+    return model, cfg
+
+
+def _launches_per_pass(t, num_blocks, sweeps_with_head=1):
+    """Kernel launches of one forward over t frames: each sweep step warps,
+    runs the input conv and the blocks; the forward sweep's steps run the
+    head."""
+    return {"warp": 2 * t, "input_conv": 2 * t, "drt_block": 2 * num_blocks * t,
+            "head": sweeps_with_head * t}
+
+
 def phase_model_vs_plain(dev):
     import numpy as np
     import torch
 
-    from pnp_vcve_tpu.core.config import Config
-    from pnp_vcve_torch.core.builder import build_generator
-    from pnp_vcve_torch.core.checkpoint import load_generator_weights
     from pnp_vcve_torch.kernels import KERNELS, PLAIN
 
-    cfg = Config.fromfile(ROOT / "configs" / "HR_davis_LR_128x128_serving_tpu.py")
-    model = build_generator(cfg.model["generator"], device=dev)
-    load_generator_weights(model, str(ROOT / "tests/fixtures/parity/state_dict.npz"))
-
-    # one clip: 8x8-block-constant MVs, one-hot partitions, I/P/B slices
-    rng = np.random.default_rng(SEED)
+    model, _ = _flagship_generator("HR_davis_LR_128x128_serving.py", dev)
     t, h, w = FRAMES, 256, 448
-    up = lambda a: np.repeat(np.repeat(a, 8, 2), 8, 3)  # noqa: E731
-    slices = np.full((1, t), 66.0, np.float32)
-    slices[:, ::4] = 80.0
-    slices[:, 0] = 73.0
-    inputs = dict(
-        lrs=rng.random((1, t, h, w, 3), dtype=np.float32),
-        qps=(rng.integers(20, 40, (1, t)) / 255.0).astype(np.float32),
-        slices=slices,
-        mvs=up((rng.standard_normal((1, t, h // 8, w // 8, 4)) * 6).astype(np.float32)),
-        base_qps=np.full((1, t), 35 / 255.0, np.float32),
-        par_map=up(np.eye(3, dtype=np.float32)[rng.integers(0, 3, (1, t, h // 8, w // 8))]
-                   / 255.0),
-    )
-    inputs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in inputs.items()}
+    inputs = _clip_inputs(np.random.default_rng(SEED), 1, t, h, w, dev)
     with torch.inference_mode():
         got = model(**inputs)
         model.ops = PLAIN
@@ -332,20 +429,249 @@ def phase_model_vs_plain(dev):
         raise AssertionError("model kernel path disagrees with its plain path")
 
 
+def phase_grads(dev):
+    """One Charbonnier loss at the flagship width through the kernels
+    (forward kernels, plain-version backward in each Function, the remat
+    recompute) and through the plain path; every parameter's gradient is
+    held to the plain one."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from pnp_vcve_torch.kernels import KERNELS, LAUNCHES, PLAIN, reset_launches
+    from pnp_vcve_torch.train.losses import charbonnier_loss
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, cfg = _flagship_generator("HR_davis_LR_128x128.py", dev)
+    rng = np.random.default_rng(SEED + 6)
+    b, t, h, w = 2, 4, 192, 256
+    inputs = _clip_inputs(rng, b, t, h, w, dev)
+    gt = torch.from_numpy(rng.random((b, t, h, w, 3), dtype=np.float32)).to(dev)
+    runs = {}
+    for ops in (KERNELS, PLAIN):
+        model.ops = ops
+        model.zero_grad()
+        reset_launches()
+        loss = charbonnier_loss(model(**inputs), gt)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[ops is KERNELS] = (float(loss.detach()), dict(LAUNCHES),
+                                {n: p.grad.clone() for n, p in model.named_parameters()})
+    model.ops = KERNELS
+    (loss_k, counts, g_k), (loss_p, _, g_p) = runs[True], runs[False]
+    gen_cfg = cfg.model["generator"]
+    passes = 2 if gen_cfg.get("remat", True) else 1
+    want = {k: passes * v for k, v in _launches_per_pass(t, gen_cfg["num_blocks"]).items()}
+    print(f"[grad] launches {counts} (expected {want}: the forward"
+          f"{' and the remat recompute' if passes == 2 else ''}; none in the backward)")
+    if counts != want:
+        raise AssertionError("the gradient run did not go through the kernels as expected")
+    ratios = {}
+    for n, ref in g_p.items():
+        if not bool(torch.isfinite(g_k[n]).all()):
+            raise AssertionError(f"gradient of {n} not finite")
+        # a gradient the kernel path dropped shows as a zero tensor: ratio 1
+        diff, scale = float((g_k[n] - ref).abs().max()), float(ref.abs().max())
+        ratios[n] = diff / scale if scale else (0.0 if diff == 0 else math.inf)
+    worst = max(ratios, key=ratios.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"[grad] {len(ratios)} parameter tensors, b={b} t={t} {h}x{w} float32 (TF32 off): "
+          f"loss {loss_k:.7f} vs plain {loss_p:.7f} (relative {loss_rel:.3g} <= {LOSS_RTOL}); "
+          f"worst tensor {worst}: max|g_kern - g_plain| = {ratios[worst]:.3g} x max|g_plain| "
+          f"(<= {GRAD_TOL})")
+    if not (loss_rel <= LOSS_RTOL and ratios[worst] <= GRAD_TOL):
+        raise AssertionError("kernel-path gradients disagree with the plain path")
+    return ratios[worst]
+
+
+def phase_train(dev, smi):
+    """tools/torch_train.py at the flagship training settings on a DAVIS
+    fixture: 4 iterations with a checkpoint at 2, then a resume from 2."""
+    import math
+    import shutil
+    import warnings
+
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from pnp_vcve_torch.core.config import Config
+    from pnp_vcve_torch.kernels import LAUNCHES, reset_launches
+
+    sys.path[:0] = [str(ROOT / "tools"), str(ROOT / "tools" / "data")]
+    import torch_train
+    from make_protocol_fixture import write_fixture
+
+    work = ROOT / "build" / "chip_smoke" / "train"
+    if work.exists():
+        shutil.rmtree(work)
+    data = work / "data"
+    t0 = time.perf_counter()
+    qp = {}
+    # one CRF per call; each call rewrites qp.json, so the three are merged
+    for crf in (15, 25, 35):
+        write_fixture(data, clips=("bear", "boat"), frames=TRAIN_FRAMES, height=TRAIN_HW[0],
+                      width=TRAIN_HW[1], crf=crf, seed=SEED, quiet=True)
+        qp.update(json.loads((data / "qp.json").read_text()))
+    (data / "qp.json").write_text(json.dumps(qp))
+    cfg_path = work / "train_davis.py"
+    # the port's flagship training config with data.train pointed at the
+    # fixture through the DAVIS type; every other setting as published
+    cfg_path.write_text(
+        f"_base_ = [{str(CONFIGS / 'HR_davis_LR_128x128.py')!r}]\n"
+        "from pnp_vcve_torch.core.presets import train_dataset\n"
+        f"data = dict(train=[train_dataset('DAVISMultipleGTMixCompressDataset', {str(data)!r}, "
+        f"'sharp', {str(data / 'qp.json')!r})])\n"
+    )
+    cfg = Config.fromfile(cfg_path)
+    print(f"[train] fixture: 2 clips x {TRAIN_FRAMES} frames at {TRAIN_HW[0]}x{TRAIN_HW[1]}, "
+          f"CRF 15/25/35 + sharp, in {time.perf_counter() - t0:.1f} s")
+
+    # training keeps PyTorch's defaults (cuDNN convolutions in TF32); the
+    # resume check needs deterministic algorithms (cuDNN's weight gradients
+    # and the warp's scatter-add otherwise sum with atomics in no fixed order)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    step_end, profiled = [], []
+
+    def on_step(optimizer, args, kwargs):
+        torch.cuda.synchronize()
+        step_end.append(time.perf_counter())
+        for step in profiled:
+            step()
+
+    hook = register_optimizer_step_post_hook(on_step)
+    options = ["--device", dev.type,
+               "--cfg-options", "checkpoint_config.interval=2", "log_config.interval=1"]
+    # the profiler records the resumed run's last iteration: it waits
+    # through iteration 3 and records from its optimizer step to iteration
+    # 4's (the hook steps it); a warm-up step would need a third iteration
+    warnings.filterwarnings("ignore", "Profiler won't be using warmup")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=1, warmup=0, active=1, repeat=1))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        torch_train.main([str(cfg_path), "--work-dir", str(work / "full"),
+                          "--total-iters", str(TRAIN_ITERS), *options])
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        steady = (step_end[TRAIN_ITERS - 1] - step_end[0]) / (TRAIN_ITERS - 1)
+        reset_launches()
+        profiled.append(prof.step)
+        prof.start()
+        torch_train.main([str(cfg_path), "--work-dir", str(work / "resumed"),
+                          "--total-iters", str(TRAIN_ITERS),
+                          "--resume-from", str(work / "full" / "ckpt" / "2.pth"), *options])
+        prof.stop()
+        resumed_counts = dict(LAUNCHES)
+    finally:
+        hook.remove()
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    _print_breakdown(prof, step_end[-1] - step_end[-2], steady)
+
+    gen_cfg = cfg.model["generator"]
+    t = cfg.data["train"][0]["dataset"]["num_input_frames"]
+    per_iter = {k: (2 if gen_cfg.get("remat", True) else 1) * v
+                for k, v in _launches_per_pass(t, gen_cfg["num_blocks"]).items()}
+    want = {k: TRAIN_ITERS * v for k, v in per_iter.items()}
+    want_resumed = {k: (TRAIN_ITERS - 2) * v for k, v in per_iter.items()}
+    print(f"[train] launches {counts} (expected {want}: per iteration the forward and the "
+          f"remat recompute, {t} frames); resumed run {resumed_counts} (expected {want_resumed})")
+    if counts != want or resumed_counts != want_resumed:
+        raise AssertionError("training did not run every step through the kernels")
+
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in (work / "full" / "train.log").read_text().splitlines()
+              if " loss=" in line]
+    if len(losses) != TRAIN_ITERS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses missing or not finite: {losses}")
+    full = torch.load(work / "full" / "ckpt" / f"{TRAIN_ITERS}.pth", weights_only=True)
+    resumed = torch.load(work / "resumed" / "ckpt" / f"{TRAIN_ITERS}.pth", weights_only=True)
+    diff = max(float((full["model"][k] - v).abs().max()) for k, v in resumed["model"].items())
+    moved = max(float((full["model"][k] - v).abs().max())
+                for k, v in torch.load(work / "full" / "ckpt" / "2.pth",
+                                       weights_only=True)["model"].items())
+    print(f"[train] losses {losses}; resumed run vs uninterrupted run after {TRAIN_ITERS} "
+          f"iterations: max|dw| {diff:.3g} (must be 0 under deterministic algorithms; "
+          f"the weights moved {moved:.3g} over iterations 3-4)")
+    if diff != 0 or not resumed["step"] == full["step"] == TRAIN_ITERS:
+        raise AssertionError("the resumed run does not end where the uninterrupted run ends")
+    # steady: iterations 2-4 of the first run (the first iteration includes
+    # cuDNN's and the allocator's warm-up)
+    b = cfg.data["train_dataloader"]["samples_per_gpu"]
+    print(f"[train] {smi}: b={b}, {t} frames, 128x128 crops, float32 (cuDNN TF32 on, "
+          f"deterministic algorithms): {steady:.4f} s per iteration over iterations "
+          f"2-{TRAIN_ITERS} = {1 / steady:.4f} it/s; {TRAIN_ITERS} iterations incl. start-up "
+          f"{wall:.2f} s; peak device memory {peak / 2**30:.3f} GiB")
+    return counts
+
+
+def _print_breakdown(prof, window_s, steady_s):
+    """Device time of the profiled iteration by kernel: the device's busy
+    time and idle share in the profiled window and against an unprofiled
+    iteration, K1-K4's share of the device time, the top kernels."""
+    from torch.autograd import DeviceType
+
+    ours = ("warp_kernel", "input_conv_kernel", "drt_block_kernel", "head_kernel")
+    spans, by_name = [], {}
+    for e in prof.events():
+        # the ProfilerStep annotation is mirrored on the device's timeline
+        if e.device_type != DeviceType.CUDA or e.name.startswith("ProfilerStep"):
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (end - start) * 1e-6
+    if not spans:
+        print("[train] profiler: no device events recorded; breakdown not measured")
+        return
+    busy, reach = 0.0, None
+    for start, end in sorted(spans):  # the union of the kernels' intervals
+        if reach is None or start > reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    busy *= 1e-6
+    total = sum(by_name.values())
+    k = sum(v for n, v in by_name.items() if any(o in n for o in ours))
+    print(f"[train] profiled iteration (resumed run, iteration {TRAIN_ITERS}): device busy "
+          f"{busy:.4f} s; idle share {max(0.0, 1 - busy / window_s):.4f} of the profiled "
+          f"{window_s:.4f} s, {max(0.0, 1 - busy / steady_s):.4f} of an unprofiled "
+          f"{steady_s:.4f} s iteration; K1-K4 {k:.4f} s = {k / total:.4f} of device time "
+          f"(forward and remat recompute); the rest {total - k:.4f} s (the Functions' plain "
+          f"replay and its backward, the loss, Adam)")
+    for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[train]   {v:.4f} s {v / total:.4f}  {name[:110]}")
+
+
 def main():
     sys.path.insert(0, str(ROOT))
-    dev = phase_device()
+    # deterministic cuBLAS for the resume check of phase 7; read when cuBLAS
+    # starts, so set before any CUDA work
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    dev, smi = phase_device()
     phase_build()
     kern = phase_kernels(dev)
     counts = phase_main_path(dev)
     phase_model_vs_plain(dev)
+    phase_grads(dev)
+    train_counts = phase_train(dev, smi)
 
     import torch
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": kern[name][0],
-         "ms": kern[name][1], "plain_ms": kern[name][2]}
+         "launches": counts[name], "train_launches": train_counts[name], **kern[name]}
         for name, (src, rep) in KERNEL_INFO.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,19 @@
 The JAX package stays the reference; this package mirrors its module names:
 
 ops       plain PyTorch warp and dynamic (MoE) conv
-kernels   hand-written CUDA kernels for sm_90a, their wrappers and plain versions
+kernels   hand-written CUDA kernels for sm_90a, their wrappers, their autograd
+          Functions and plain versions
 models    CAA predictors, BAE blocks, the PnPVCVE generator, the restorer
-core      builder (config -> objects), checkpoint I/O, JAX weight conversion
-train     the eval step and the evaluation harness
+core      config files, registry, presets, builder (config -> objects),
+          checkpoint I/O, JAX weight conversion
+data      pipelines, clip datasets, MV rasterizer, prefetching loader
+metrics   PSNR, SSIM, MAE, NIQE
+train     losses, schedule, train state, train and eval steps, loop, evaluation
+configs   the flagship training and serving configs
 
-Host code without JAX (configs, registry, presets, data, metrics) is shared
-with ``pnp_vcve_tpu``.
+The package and its entry points (tools/torch_test.py, tools/torch_train.py)
+import neither JAX nor ``pnp_vcve_tpu``: what they need of the JAX package's
+host code is copied here.
 """
 
 __version__ = "0.1.0"

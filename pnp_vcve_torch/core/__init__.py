@@ -1,1 +1,1 @@
-"""Builder, checkpoint I/O and weight conversion."""
+"""Configs, registry, presets, builder, checkpoint I/O and weight conversion."""

@@ -1,13 +1,12 @@
 """Builders: config dicts -> the port's objects (counterpart of the parts of
-pnp_vcve_tpu/core/builder.py that the flagship enhancement path uses:
-the generator :33-100, the restorer :568-578, the eval datasets
-:1117-1192).
+pnp_vcve_tpu/core/builder.py that the flagship enhancement and training
+paths use: the generator :33-100, the restorer :568-578, the train datasets
+:660-750 and :1195-1208, the eval datasets :1117-1192, the optimizer
+:1211-1261).
 
-The registries carry the reference type names, so the shipped configs
-(``configs/HR_davis_LR_128x128.py`` and its ``_serving_tpu`` variant) load
+The registries carry the reference type names, so the flagship configs load
 unchanged. Types the port does not have yet raise ``NotImplementedError``
-naming the ROADMAP item that will port them. The datasets are the JAX
-package's shared, JAX-free data classes.
+naming the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -17,9 +16,18 @@ from typing import Optional
 
 import torch
 
-from pnp_vcve_tpu.core.registry import Registry
+from pnp_vcve_torch.core.registry import Registry
+from pnp_vcve_torch.data.compose import Compose
+from pnp_vcve_torch.data.datasets import (
+    REDS4_CLIPS,
+    ClipIndex,
+    CompressTestDataset,
+    MixCompressTrainDataset,
+    reds_train_clips,
+)
 from pnp_vcve_torch.models.pnp_vcve import PnPVCVE
 from pnp_vcve_torch.models.restorer import Restorer
+from pnp_vcve_torch.train.schedule import cosine_restart_schedule
 
 __all__ = [
     "BACKBONES",
@@ -28,6 +36,8 @@ __all__ = [
     "build_generator",
     "build_restorer",
     "build_dataset",
+    "build_train_datasets",
+    "build_optimizer",
 ]
 
 BACKBONES = Registry("backbones")
@@ -68,11 +78,11 @@ def _build_pnp_vcve(
     flow_inter="bilinear",
     blocktype="drt",
     deform="vos",
-    # TPU serving knobs, accepted so the serving config loads: on the port
-    # CUDA tensors always take the kernels, and the warp kernel is exact for
-    # every warp_impl domain
-    use_pallas_kernels=False,
+    remat=True,
     warp_impl="padgather",
+    # a TPU serving knob, accepted so the serving config loads: on the port
+    # CUDA tensors always take the kernels
+    use_pallas_kernels=False,
     # reference knobs with no effect on the flagship path (as in the JAX builder)
     **_ignored,
 ):
@@ -103,6 +113,8 @@ def _build_pnp_vcve(
             with_se=with_se,
             with_cat=with_cat,
             align_key=align_key,
+            remat=remat,
+            warp_impl=warp_impl,
         )
     model = model.to_empty(device=device)
     model.reset_parameters(torch.Generator().manual_seed(seed))
@@ -115,10 +127,14 @@ def build_generator(cfg: dict, *, device, seed: int = 0):
 
 
 @MODELS.register(name="Restorer", aliases=("BasicVSR", "BasicRestorer"))
-def _build_restorer(generator: dict, test_cfg=None, *, device, seed=0, **_loss_and_train):
+def _build_restorer(generator: dict, pixel_loss: Optional[dict] = None, test_cfg=None, *,
+                    device, seed=0, **_train_cfg):
     test_cfg = dict(test_cfg or {"metrics": ["PSNR", "SSIM"], "crop_border": 0})
+    pl = dict(pixel_loss or {})
     return Restorer(
         generator=build_generator(dict(generator), device=device, seed=seed),
+        pixel_loss=pl.pop("type", "CharbonnierLoss"),
+        loss_weight=pl.pop("loss_weight", 1.0),
         test_cfg=test_cfg,
     )
 
@@ -130,17 +146,67 @@ def build_restorer(model_cfg: dict, test_cfg: Optional[dict] = None, *, device, 
     return _build(MODELS, cfg, "Queue A item 8", device=device, seed=seed)
 
 
-def _loader_params(pipeline):
-    from pnp_vcve_tpu.data.compose import Compose
+# ---- datasets ---------------------------------------------------------------------
 
+
+def _pipeline(pipeline):
+    """``(Compose or None, the dataset's knobs)`` from a config pipeline."""
     tf = Compose(pipeline) if pipeline else None
     return tf, (tf or Compose([])).loader_params()
 
 
-def _test_dataset(lq_folder, gt_folder, clips, num_input_frames, scale, pipeline):
-    from pnp_vcve_tpu.data.datasets import CompressTestDataset
+def _train_dataset(lq_folder, gt_folder, cprs15_folder, cprs25_folder, cprs35_folder,
+                   clips, num_input_frames, scale, pipeline):
+    tf, p = _pipeline(pipeline)
+    return MixCompressTrainDataset(
+        transforms=tf,
+        lq_folder=lq_folder,
+        gt_folder=gt_folder,
+        cprs15_folder=cprs15_folder,
+        cprs25_folder=cprs25_folder,
+        cprs35_folder=cprs35_folder,
+        qp_slice_file=p["qp_slice_file"],
+        clips=clips,
+        num_input_frames=num_input_frames,
+        scale=scale,
+        gt_patch_size=p["gt_patch_size"],
+        filename_tmpl=p["filename_tmpl"],
+        data_ratio=p["data_ratio"],
+        interval_list=p["interval_list"],
+        replace_qp_with_ipb=p["replace_qp_with_ipb"],
+    )
 
-    tf, p = _loader_params(pipeline)
+
+@DATASETS.register(name="SRREDSMultipleGTMixCompressDataset")
+def _build_reds_train(lq_folder, gt_folder, cprs15_folder, cprs25_folder, cprs35_folder,
+                      num_input_frames=15, scale=1, pipeline=None, val_partition="REDS4",
+                      test_mode=False, **_ignored):
+    """REDS training clips (100 frames each): the 270 minus the validation
+    partition, or the partition itself in test mode."""
+    if val_partition == "REDS4":
+        val = REDS4_CLIPS
+    elif val_partition == "official":
+        val = tuple(f"{i:03d}" for i in range(240, 270))
+    else:
+        raise ValueError(f"Unknown val_partition {val_partition!r}")
+    names = list(val) if test_mode else reds_train_clips(val)
+    return _train_dataset(lq_folder, gt_folder, cprs15_folder, cprs25_folder, cprs35_folder,
+                          [ClipIndex(n, 100) for n in names], num_input_frames, scale, pipeline)
+
+
+@DATASETS.register(name="DAVISMultipleGTMixCompressDataset")
+def _build_davis_train(lq_folder, gt_folder, cprs15_folder, cprs25_folder, cprs35_folder,
+                       num_input_frames=15, scale=1, pipeline=None, test_mode=False,
+                       **_ignored):
+    """Every clip folder under ``lq_folder``, each taken as 20 frames long as
+    the reference hardcodes (sr_dsvis_multiple_gt_compress_dataset.py:84)."""
+    names = sorted(d.name for d in os.scandir(lq_folder) if d.is_dir())
+    return _train_dataset(lq_folder, gt_folder, cprs15_folder, cprs25_folder, cprs35_folder,
+                          [ClipIndex(n, 20) for n in names], num_input_frames, scale, pipeline)
+
+
+def _test_dataset(lq_folder, gt_folder, clips, num_input_frames, scale, pipeline):
+    tf, p = _pipeline(pipeline)
     return CompressTestDataset(
         transforms=tf,
         lq_folder=lq_folder,
@@ -158,8 +224,6 @@ def _test_dataset(lq_folder, gt_folder, clips, num_input_frames, scale, pipeline
 def _build_reds_test(lq_folder, gt_folder, num_input_frames=100, scale=1, pipeline=None,
                      val_partition="REDS4", test_mode=True, **_ignored):
     """REDS4 (or REDS val 240-269) clips of 100 frames."""
-    from pnp_vcve_tpu.data.datasets import REDS4_CLIPS, ClipIndex
-
     val = (
         REDS4_CLIPS if val_partition == "REDS4"
         else tuple(f"{i:03d}" for i in range(240, 270))
@@ -175,8 +239,6 @@ def _build_reds_test(lq_folder, gt_folder, num_input_frames=100, scale=1, pipeli
 def _build_folder_test(lq_folder, gt_folder, num_input_frames=100, scale=1, pipeline=None,
                        test_mode=True, **_ignored):
     """Every clip folder under ``lq_folder``, with its PNG count as length."""
-    from pnp_vcve_tpu.data.datasets import ClipIndex
-
     names = sorted(d.name for d in os.scandir(lq_folder) if d.is_dir())
     clips = [
         ClipIndex(n, sum(1 for f in os.scandir(os.path.join(lq_folder, n))
@@ -187,5 +249,64 @@ def _build_folder_test(lq_folder, gt_folder, num_input_frames=100, scale=1, pipe
 
 
 def build_dataset(cfg: dict):
-    """One whole-clip eval dataset."""
-    return _build(DATASETS, dict(cfg), "Queue A item 3")
+    """One dataset. ``RepeatDataset`` is unwrapped: the sampler is endless,
+    and the reference's x1000 exists only for its epoch-based loader
+    (dataset_wrappers.py:5-39)."""
+    cfg = dict(cfg)
+    if cfg.get("type") == "RepeatDataset":
+        return build_dataset(dict(cfg["dataset"]))
+    return _build(DATASETS, cfg, "Queue A item 3")
+
+
+def build_train_datasets(cfg_list):
+    if isinstance(cfg_list, dict):
+        cfg_list = [cfg_list]
+    return [build_dataset(c) for c in cfg_list]
+
+
+# ---- optimizer ------------------------------------------------------------------------
+
+
+def build_optimizer(cfg: dict, model: torch.nn.Module, lr_config: Optional[dict] = None,
+                    total_iters: int = 300_000):
+    """``(torch.optim.Adam, LambdaLR)`` from the config's optimizer and
+    lr_config dicts (configs/HR_davis_LR_128x128.py:19-28): optax's Adam
+    (eps 1e-8 outside the square root, as torch's) with the config's betas,
+    under the cosine-restart schedule (or a constant rate).
+
+    ``paramwise_cfg.custom_keys`` (reference mmedit/core/optimizer/
+    builder.py:5-58, e.g. ``{'spynet': dict(lr_mult=0.125)}``) scales the
+    rate of every parameter whose name contains the key (the last matching
+    key wins, as in the JAX builder); each multiplier is a parameter group.
+    """
+    opt = dict(cfg.get("generator", cfg))
+    typ = opt.pop("type", "Adam")
+    lr = opt.pop("lr", 2e-4)
+    betas = tuple(opt.pop("betas", (0.9, 0.999)))
+    custom_keys = dict(dict(opt.pop("paramwise_cfg", None) or {}).get("custom_keys", {}) or {})
+    if typ != "Adam":
+        raise NotImplementedError(f"optimizer {typ!r}")
+
+    groups: dict[float, list] = {}
+    for name, p in model.named_parameters():
+        mult = 1.0
+        for key, kcfg in custom_keys.items():
+            if key in name:
+                mult = float(dict(kcfg).get("lr_mult", 1.0))
+        groups.setdefault(mult, []).append(p)
+    optimizer = torch.optim.Adam(
+        [{"params": ps, "lr": lr * mult} for mult, ps in groups.items()],
+        lr=lr, betas=betas, eps=1e-8,
+    )
+
+    if lr_config is not None and lr_config.get("policy") == "CosineRestart":
+        schedule = cosine_restart_schedule(
+            lr,
+            lr_config.get("periods", [total_iters]),
+            lr_config.get("restart_weights", [1.0]),
+            lr_config.get("min_lr", 0.0),
+        )
+        factor = lambda step: schedule(step) / lr  # noqa: E731
+    else:
+        factor = lambda step: 1.0  # noqa: E731
+    return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, factor)

@@ -1,23 +1,31 @@
-"""Generator weights from a file under the original reference's names
-(counterpart of pnp_vcve_tpu/core/checkpoint.py's ``load_params``).
+"""Checkpoint I/O (counterpart of pnp_vcve_tpu/core/checkpoint.py).
 
-A ``.pth`` (a bare state dict or a checkpoint holding one under
-``state_dict``, keys with or without a ``generator.`` prefix) or an ``.npz``
-of arrays loads with ``load_state_dict(strict=True)``; ``'-'`` keeps a
-random init drawn from a seeded generator.
+- Generator weights under the original reference's names (``load_params``):
+  a ``.pth`` (a bare state dict, a checkpoint holding one under
+  ``state_dict``, or a training checkpoint of this package, keys with or
+  without a ``generator.`` prefix) or an ``.npz`` of arrays loads with
+  ``load_state_dict(strict=True)``; ``'-'`` keeps a random init drawn from a
+  seeded generator.
+- Training checkpoints (``CheckpointManager`` :24, ``restore_train_state``
+  :92; reference CheckpointHook and resume_from, mmedit/apis/
+  train.py:235-238): ``<work_dir>/ckpt/<step>.pth``, each a ``torch.save``
+  of ``{step, model, optimizer, scheduler}``.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["read_state_dict", "load_generator_weights"]
+__all__ = [
+    "read_state_dict", "load_generator_weights", "CheckpointManager", "restore_train_state",
+]
 
 _IGNORED = ("spynet.", "edvr.", "step_counter")
 
@@ -32,7 +40,7 @@ def read_state_dict(path: str | Path) -> Dict[str, torch.Tensor]:
             raw = {k: torch.from_numpy(z[k].astype(np.float32)) for k in z.files}
     else:
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        raw = ckpt.get("state_dict", ckpt)
+        raw = ckpt.get("state_dict", ckpt.get("model", ckpt))
     if any(k.startswith("generator.") for k in raw):
         raw = {k: v for k, v in raw.items() if k.startswith("generator.")}
     sd = {re.sub(r"^generator\.", "", k): v.float() for k, v in raw.items()}
@@ -48,3 +56,58 @@ def load_generator_weights(model: nn.Module, checkpoint: str, seed: int = 0):
     else:
         model.load_state_dict(read_state_dict(checkpoint), strict=True)
     return model
+
+
+class CheckpointManager:
+    """Step-indexed checkpoints ``<workdir>/ckpt/<step>.pth``, the newest
+    ``max_to_keep`` kept."""
+
+    def __init__(self, workdir: str | Path, max_to_keep: int = 5):
+        self.path = Path(workdir).absolute() / "ckpt"
+        self.path.mkdir(parents=True, exist_ok=True)
+        self.max_to_keep = max_to_keep
+
+    def steps(self) -> list[int]:
+        return sorted(int(f.stem) for f in self.path.glob("*.pth") if f.stem.isdigit())
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, payload: dict):
+        # write under a temporary name, then rename: a cut run never leaves
+        # a half-written checkpoint under a step's name
+        tmp = self.path / f".{step}.pth.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, self.path / f"{step}.pth")
+        for old in self.steps()[: -self.max_to_keep]:
+            (self.path / f"{old}.pth").unlink()
+
+    def restore(self, step: Optional[int] = None) -> Optional[dict]:
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        return torch.load(self.path / f"{step}.pth", map_location="cpu", weights_only=True)
+
+
+def restore_train_state(path: str | Path, state):
+    """Restore a ``TrainState`` in place from ``path``: a work dir (holding
+    ``ckpt/``) or a ``ckpt/`` dir (its newest step), or one checkpoint file.
+    The weights and the step always; the optimizer and the schedule where
+    the checkpoint holds them. Returns ``(state, start_iter)``."""
+    path = Path(path).absolute()
+    workdir = path.parent if path.name == "ckpt" else path
+    if path.is_file():
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+    elif (workdir / "ckpt").is_dir():
+        payload = CheckpointManager(workdir).restore()
+        if payload is None:
+            return state, 0
+    else:
+        raise FileNotFoundError(f"no checkpoint file, work dir or ckpt/ dir at {path}")
+    state.model.load_state_dict(payload["model"], strict=True)
+    if "optimizer" in payload:
+        state.optimizer.load_state_dict(payload["optimizer"])
+        state.scheduler.load_state_dict(payload["scheduler"])
+    state.step = int(payload["step"])
+    return state, state.step

@@ -18,6 +18,15 @@ composition of the JAX package written in PyTorch (``_xla_input_stack_compose``
 :861, ``_xla_block_compose`` :780, ``_xla_head`` :1116). Weights are given as
 in the JAX package: HWIO 3x3 kernels, per-sample ones with a leading batch
 axis, the partition kernel as ``(c, 3, c)``.
+
+On CUDA tensors each launch runs inside a ``torch.autograd.Function``
+(:class:`InputConvFunction`, :class:`DRTBlockFunction`,
+:class:`HeadFunction`) that saves these JAX-layout arguments and takes its
+gradients from the plain version (``launch.plain_grads``), as the JAX
+package's trainable stacks do (:803, :891, :1253). The wrappers' weight
+repacking (the gain folded into W2, the reshapes) runs inside the forward,
+out of autograd's sight; the gradients reach the repacked weights' sources
+(the premix, the conv weights) through the JAX-layout arguments.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ from pnp_vcve_torch.ops.dynamic_conv import (
     dynamic_conv2d,
     per_sample_conv,
 )
-from .launch import check_cuda_args, launch, on_cpu
+from .launch import check_cuda_args, launch, on_cpu, plain_grads
 
 __all__ = [
     "premix_block_params",
@@ -44,6 +53,9 @@ __all__ = [
     "drt_block_plain",
     "head",
     "head_plain",
+    "InputConvFunction",
+    "DRTBlockFunction",
+    "HeadFunction",
 ]
 
 C = 64  # the kernels' feature width
@@ -99,12 +111,7 @@ def input_conv_plain(parts, kernels, bias):
     return F.leaky_relu(acc + bias.float(), 0.1).to(parts[0].dtype)
 
 
-def input_conv(parts, kernels, bias):
-    """K2. ``parts``: the lr frame ``(b, h, w, 3)`` then 1-3 features
-    ``(b, h, w, 64)``; ``kernels``: per-part ``(b, 3, 3, c_p, 64)`` float32
-    (from :func:`part_kernels`); ``bias (64,)``. Returns ``(b, h, w, 64)``."""
-    if on_cpu(parts[0]):
-        return input_conv_plain(parts, kernels, bias)
+def _input_conv_launch(parts, kernels, bias):
     lr, wide = parts[0], list(parts[1:])
     b, h, w, clr = lr.shape
     if clr != 3 or not 1 <= len(wide) <= 3 or len(kernels) != len(parts):
@@ -125,6 +132,35 @@ def input_conv(parts, kernels, bias):
     )
 
 
+class InputConvFunction(torch.autograd.Function):
+    """``run(parts, kernels, bias)`` forward with ``n`` parts and ``n``
+    kernels passed flat; :func:`input_conv_plain`'s gradients."""
+
+    @staticmethod
+    def forward(ctx, run, n, *tensors):
+        ctx.n = n
+        ctx.save_for_backward(*tensors)
+        return run(list(tensors[:n]), list(tensors[n : 2 * n]), tensors[2 * n])
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = ctx.n
+        grads = plain_grads(
+            lambda *t: input_conv_plain(t[:n], t[n : 2 * n], t[2 * n]),
+            ctx.saved_tensors, ctx.needs_input_grad[2:], grad,
+        )
+        return None, None, *grads
+
+
+def input_conv(parts, kernels, bias):
+    """K2. ``parts``: the lr frame ``(b, h, w, 3)`` then 1-3 features
+    ``(b, h, w, 64)``; ``kernels``: per-part ``(b, 3, 3, c_p, 64)`` float32
+    (from :func:`part_kernels`); ``bias (64,)``. Returns ``(b, h, w, 64)``."""
+    if on_cpu(parts[0]):
+        return input_conv_plain(parts, kernels, bias)
+    return InputConvFunction.apply(_input_conv_launch, len(parts), *parts, *kernels, bias)
+
+
 # ---- K3: DRT block ------------------------------------------------------------
 
 
@@ -143,12 +179,7 @@ def drt_block_plain(x, par, w2, b2, g, pk, w1, b1):
     return x + conv2d_nhwc(hmid, w1, b1)
 
 
-def drt_block(x, par, w2, b2, g, pk, w1, b1):
-    """K3. ``x (b, h, w, 64)``, ``par (b, h, w, 3)`` of x's type; per-sample
-    ``w2 (b, 3, 3, 64, 64)``, ``b2 (b, 64)``, ``g (b, 64)``; static
-    ``pk (64, 3, 64)``, ``w1 (3, 3, 64, 64)``, ``b1 (64,)``. Out of place."""
-    if on_cpu(x):
-        return drt_block_plain(x, par, w2, b2, g, pk, w1, b1)
+def _drt_block_launch(x, par, w2, b2, g, pk, w1, b1):
     b, h, w, c = x.shape
     if c != C or par.shape != (b, h, w, 3):
         raise ValueError(f"drt_block: need x (b,h,w,64), par (b,h,w,3); got "
@@ -167,6 +198,30 @@ def drt_block(x, par, w2, b2, g, pk, w1, b1):
                   out, b, h, w)
 
 
+class DRTBlockFunction(torch.autograd.Function):
+    """``run(x, par, w2, b2, g, pk, w1, b1)`` forward;
+    :func:`drt_block_plain`'s gradients."""
+
+    @staticmethod
+    def forward(ctx, run, *args):
+        ctx.save_for_backward(*args)
+        return run(*args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, *plain_grads(drt_block_plain, ctx.saved_tensors,
+                                  ctx.needs_input_grad[1:], grad)
+
+
+def drt_block(x, par, w2, b2, g, pk, w1, b1):
+    """K3. ``x (b, h, w, 64)``, ``par (b, h, w, 3)`` of x's type; per-sample
+    ``w2 (b, 3, 3, 64, 64)``, ``b2 (b, 64)``, ``g (b, 64)``; static
+    ``pk (64, 3, 64)``, ``w1 (3, 3, 64, 64)``, ``b1 (64,)``. Out of place."""
+    if on_cpu(x):
+        return drt_block_plain(x, par, w2, b2, g, pk, w1, b1)
+    return DRTBlockFunction.apply(_drt_block_launch, x, par, w2, b2, g, pk, w1, b1)
+
+
 # ---- K4: head -------------------------------------------------------------------
 
 
@@ -178,11 +233,7 @@ def head_plain(x, hr_k, hr_b, last_k, last_b):
     return (conv2d_f32(y, last_k) + last_b.float()).to(x.dtype)
 
 
-def head(x, hr_k, hr_b, last_k, last_b):
-    """K4. ``x (b, h, w, 64)``; ``hr_k (3, 3, 64, 64)``, ``hr_b (64,)``,
-    ``last_k (3, 3, 64, 3)``, ``last_b (3,)``. Returns ``(b, h, w, 3)``."""
-    if on_cpu(x):
-        return head_plain(x, hr_k, hr_b, last_k, last_b)
+def _head_launch(x, hr_k, hr_b, last_k, last_b):
     b, h, w, c = x.shape
     if c != C or hr_k.shape != (3, 3, C, C) or last_k.shape != (3, 3, C, 3):
         raise ValueError("head: need x (b,h,w,64) and 64->64->3 kernels")
@@ -192,3 +243,26 @@ def head(x, hr_k, hr_b, last_k, last_b):
     check_cuda_args("head", (x,), (whr, bhr, wl, bl))
     out = torch.empty((b, h, w, 3), dtype=x.dtype, device=x.device)
     return launch("head", "pnp_head", out, x, whr, bhr, wl, bl, out, b, h, w)
+
+
+class HeadFunction(torch.autograd.Function):
+    """``run(x, hr_k, hr_b, last_k, last_b)`` forward; :func:`head_plain`'s
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, run, *args):
+        ctx.save_for_backward(*args)
+        return run(*args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, *plain_grads(head_plain, ctx.saved_tensors,
+                                  ctx.needs_input_grad[1:], grad)
+
+
+def head(x, hr_k, hr_b, last_k, last_b):
+    """K4. ``x (b, h, w, 64)``; ``hr_k (3, 3, 64, 64)``, ``hr_b (64,)``,
+    ``last_k (3, 3, 64, 3)``, ``last_b (3,)``. Returns ``(b, h, w, 3)``."""
+    if on_cpu(x):
+        return head_plain(x, hr_k, hr_b, last_k, last_b)
+    return HeadFunction.apply(_head_launch, x, hr_k, hr_b, last_k, last_b)

@@ -1,10 +1,17 @@
-"""What the kernel wrappers share: argument checks, the launch counters and
-the call into the built library.
+"""What the kernel wrappers share: argument checks, the launch counters, the
+call into the built library and the kernels' backward.
 
 A wrapper given CPU tensors runs its kernel's plain PyTorch version; given
 CUDA tensors it launches the kernel or raises. ``LAUNCHES[name]`` counts the
 kernel's launches (and nothing else), so a run can show that it went through
 the kernels: zero the counts with :func:`reset_launches`, run, read them.
+
+On CUDA tensors each kernel runs inside a ``torch.autograd.Function`` whose
+backward is :func:`plain_grads`: the plain version replayed under autograd
+on the saved inputs. It is the JAX package's ``custom_vjp`` contract
+(``make_trainable_stack`` and its siblings, pnp_vcve_tpu/kernels/
+drt_stack.py:803, :891, :1253): a fused forward, the gradient of the op
+composition, and no backward kernel.
 """
 
 from __future__ import annotations
@@ -13,7 +20,9 @@ import torch
 
 from .build import library
 
-__all__ = ["LAUNCHES", "reset_launches", "on_cpu", "check_cuda_args", "launch"]
+__all__ = [
+    "LAUNCHES", "reset_launches", "on_cpu", "check_cuda_args", "launch", "plain_grads",
+]
 
 LAUNCHES = {"warp": 0, "input_conv": 0, "drt_block": 0, "head": 0}
 
@@ -70,3 +79,14 @@ def launch(name: str, entry: str, out: torch.Tensor, *args):
     lib.check(rc, name)
     LAUNCHES[name] += 1
     return out
+
+
+def plain_grads(plain, args, needs, grad_out):
+    """Gradients of ``plain(*args)`` against ``grad_out`` for each argument
+    whose ``needs`` flag is set (``None`` for the others), by running
+    ``plain`` again under autograd on detached copies of ``args``."""
+    with torch.enable_grad():
+        xs = [a.detach().requires_grad_(bool(n)) for a, n in zip(args, needs)]
+        wrt = [x for x, n in zip(xs, needs) if n]
+        grads = iter(torch.autograd.grad(plain(*xs), wrt, grad_out) if wrt else ())
+    return [next(grads) if n else None for n in needs]

@@ -17,6 +17,9 @@ with deform='vos' and vsr=False. As in the JAX package:
 The sweeps are Python loops over t. Each step runs the four kernels of
 ``self.ops`` (``pnp_vcve_torch.kernels.KERNELS`` by default): the warp, the
 input conv, ``num_blocks`` DRT blocks and, in the forward sweep, the head.
+With ``remat`` (the default, as in the JAX package's ``nn.remat`` of each
+scan step, pnp_vcve.py:520-521) a step that records a graph keeps only its
+inputs and runs again in the backward, kernels included.
 
 Inputs are NHWC: ``lrs (b,t,h,w,3)``, ``mvs (b,t,h,w,4)`` (fwd x,y, bwd x,y),
 ``par_map (b,t,h,w,3)``, scalars ``qps/slices/base_qps (b,t)``.
@@ -27,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pnp_vcve_torch.kernels import KERNELS
 from .bae import ResidualBlocksWithInputConvDynamicDRT, hwio
@@ -83,6 +87,8 @@ class PnPVCVE(nn.Module):
         with_cat: bool = True,
         align_key: bool = True,
         feature_dtype: torch.dtype = torch.float32,
+        remat: bool = True,
+        warp_impl: str = "padgather",
     ):
         super().__init__()
         c = mid_channels
@@ -93,6 +99,11 @@ class PnPVCVE(nn.Module):
         self.with_cat = with_cat
         self.align_key = align_key
         self.feature_dtype = feature_dtype
+        self.remat = remat
+        # the config's warp domain; K1 and the plain warp are exact for any
+        # flow, so it only tells the train step a serving config from a
+        # training one
+        self.warp_impl = warp_impl
         # the four kernels every sweep step runs (kernels.KERNELS or PLAIN)
         self.ops = KERNELS
 
@@ -123,34 +134,46 @@ class PnPVCVE(nn.Module):
         torch_default_(self.conv_hr, generator)
         torch_default_(self.conv_last, generator)
 
+    def _step(self, resblocks, lr, flow, par, is_key, mixed, prev_out, last_key,
+              prev_was_key, cur):
+        """One sweep step -> ``(out, new last_key, head output or None)``."""
+        ops = self.ops
+        # the zero carry warps to zero: no masking of the first step
+        parts = [lr, ops.flow_warp(last_key, flow)]
+        if self.with_cat:
+            parts.append(prev_out)
+        if cur is not None:
+            parts.append(cur)
+        gate = prev_was_key.float() if (self.align_key and self.with_cat) else None
+        out = resblocks(parts, par, mixed, ops, gate)
+        last_key = torch.where(is_key[:, None, None, None], out, last_key)
+        y = None
+        if cur is not None:
+            y = ops.head(out, hwio(self.conv_hr.weight), self.conv_hr.bias,
+                         hwio(self.conv_last.weight), self.conv_last.bias) + lr
+        return out, last_key, y
+
     def _sweep(self, resblocks, lrs, flows, par, keyframe, mixed, cur=None):
         """One propagation sweep over the frames in list order; returns the
         per-step block-stack outputs (and, with ``cur``, the heads' outputs)."""
-        ops = self.ops
         prev_out = torch.zeros(lrs[0].shape[:3] + (self.mid_channels,),
                                dtype=lrs.dtype, device=lrs.device)
         last_key = prev_out
         prev_was_key = torch.zeros(lrs.shape[1], dtype=torch.bool, device=lrs.device)
+        remat = self.remat and torch.is_grad_enabled()
         outs, ys = [], []
         for i in range(lrs.shape[0]):
-            # the zero carry warps to zero: no masking of the first step
-            key_warp = ops.flow_warp(last_key, flows[i])
-            parts = [lrs[i], key_warp]
-            if self.with_cat:
-                parts.append(prev_out)
-            if cur is not None:
-                parts.append(cur[i])
-            gate = prev_was_key.float() if (self.align_key and self.with_cat) else None
-            out = resblocks(parts, par[i], [{k: v[i] for k, v in m.items()} for m in mixed],
-                            ops, gate)
-            is_key = keyframe[i]
-            last_key = torch.where(is_key[:, None, None, None], out, last_key)
-            prev_out, prev_was_key = out, is_key
+            args = (resblocks, lrs[i], flows[i], par[i], keyframe[i],
+                    [{k: v[i] for k, v in m.items()} for m in mixed],
+                    prev_out, last_key, prev_was_key, None if cur is None else cur[i])
+            if remat:
+                out, last_key, y = checkpoint(self._step, *args, use_reentrant=False)
+            else:
+                out, last_key, y = self._step(*args)
+            prev_out, prev_was_key = out, keyframe[i]
             outs.append(out)
-            if cur is not None:
-                y = ops.head(out, hwio(self.conv_hr.weight), self.conv_hr.bias,
-                             hwio(self.conv_last.weight), self.conv_last.bias)
-                ys.append(y + lrs[i])
+            if y is not None:
+                ys.append(y)
         return outs, ys
 
     def forward(self, lrs, qps, slices, mvs, base_qps, par_map,
@@ -199,10 +222,9 @@ class PnPVCVE(nn.Module):
         mixed_b = self.backward_resblocks.premix(wt, gt)
         mixed_f = self.forward_resblocks.premix(wt, gt)
 
-        rev = torch.arange(t - 1, -1, -1, device=lrs.device)
         bwd_outs, _ = self._sweep(
-            self.backward_resblocks, lrs_t[rev], bwd_t[rev], par_t[rev], keyframe[rev],
-            [{k: v[rev] for k, v in m.items()} for m in mixed_b],
+            self.backward_resblocks, lrs_t.flip(0), bwd_t.flip(0), par_t.flip(0),
+            keyframe.flip(0), [{k: v.flip(0) for k, v in m.items()} for m in mixed_b],
         )
         bwd_feats = bwd_outs[::-1]  # back to time order
         _, ys = self._sweep(

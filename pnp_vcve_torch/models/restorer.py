@@ -1,7 +1,6 @@
-"""Restorer: generator + the eval metric protocol (counterpart of
-pnp_vcve_tpu/models/restorer.py:60-102): per-frame metrics on
-uint8-quantised images, averaged over the clip, then over the dataset. The
-metric functions are the JAX package's shared, JAX-free ones."""
+"""Restorer: the generator, its pixel loss and the eval metric protocol
+(counterpart of pnp_vcve_tpu/models/restorer.py:60-102): per-frame metrics
+on uint8-quantised images, averaged over the clip, then over the dataset."""
 
 from __future__ import annotations
 
@@ -11,7 +10,8 @@ from typing import Callable, Dict
 import numpy as np
 from torch import nn
 
-from pnp_vcve_tpu.metrics import l1_evaluation, mae, niqe, psnr, ssim, tensor2img
+from pnp_vcve_torch.metrics import l1_evaluation, mae, niqe, psnr, ssim, tensor2img
+from pnp_vcve_torch.train.losses import LOSSES
 
 __all__ = ["Restorer", "ALLOWED_METRICS", "average_clip_metrics"]
 
@@ -26,10 +26,22 @@ ALLOWED_METRICS: Dict[str, Callable] = {
 
 @dataclass
 class Restorer:
-    """The generator and the test config's metric protocol."""
+    """The generator, the pixel loss by its config name, and the test
+    config's metric protocol."""
 
     generator: nn.Module
+    pixel_loss: str = "CharbonnierLoss"
+    loss_weight: float = 1.0
     test_cfg: dict = field(default_factory=lambda: {"metrics": ["PSNR", "SSIM"], "crop_border": 0})
+
+    def loss_fn(self) -> Callable:
+        """``loss(pred, target)`` with the config's weight."""
+        if self.pixel_loss not in LOSSES:
+            raise NotImplementedError(
+                f"pixel loss {self.pixel_loss!r} is not ported yet (ROADMAP Queue A item 8)"
+            )
+        base, weight = LOSSES[self.pixel_loss], self.loss_weight
+        return lambda pred, target: base(pred, target, weight=weight)
 
     def evaluate_clip(self, output: np.ndarray, gt: np.ndarray) -> Dict[str, float]:
         """Per-frame metrics averaged over the clip; ``output``, ``gt``:

@@ -16,7 +16,7 @@ from typing import Dict, Iterable, Optional
 
 import numpy as np
 
-from pnp_vcve_tpu.metrics import tensor2img
+from pnp_vcve_torch.metrics import tensor2img
 from pnp_vcve_torch.models.restorer import Restorer, average_clip_metrics
 from .train_step import MODEL_INPUT_KEYS, make_eval_step
 

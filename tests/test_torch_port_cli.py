@@ -102,20 +102,27 @@ def test_cli_unported_flags_name_their_roadmap_item(fixture_root, tmp_path, flag
         _cli().main([str(_write_cfg(tmp_path, fixture_root)), "-", "--device", "cpu", *flag])
 
 
-@pytest.mark.parametrize("name", ["HR_davis_LR_128x128.py", "HR_davis_LR_128x128_serving_tpu.py"])
+@pytest.mark.parametrize("name", ["HR_davis_LR_128x128.py", "HR_davis_LR_128x128_serving.py"])
 def test_shipped_configs_build_port_generator(name):
-    """Both flagship configs load unchanged through the port's builder, at
-    the flagship widths, under the reference's parameter names."""
-    from pnp_vcve_tpu.core.config import Config
+    """The port's flagship configs load through its own Config and builder,
+    at the flagship widths, under the reference's parameter names, and
+    carry the shipped configs' settings."""
+    from pnp_vcve_torch.core.config import Config
     from pnp_vcve_torch.core.builder import build_restorer
     from pnp_vcve_torch.models.pnp_vcve import PnPVCVE
 
-    cfg = Config.fromfile(REPO / "configs" / name)
+    cfg = Config.fromfile(REPO / "pnp_vcve_torch" / "configs" / name)
     gen = build_restorer(cfg.model, cfg.get("test_cfg"), device="cpu").generator
-    assert isinstance(gen, PnPVCVE)
+    assert isinstance(gen, PnPVCVE) and gen.remat
+    assert gen.warp_impl == ("pf" if "serving" in name else "padgather")
     with np.load(REPO / "tests" / "fixtures" / "parity" / "state_dict.npz") as z:
         ref = {k: z[k].shape for k in z.files}
     assert {k: tuple(v.shape) for k, v in gen.state_dict().items()} == ref
+    shipped = (REPO / "configs" / "HR_davis_LR_128x128.py").read_text()
+    for line in ("optimizers = dict(generator=dict(type=\"Adam\", lr=2e-4, betas=(0.9, 0.99)))",
+                 "train_cfg = dict(fix_iter=5000)", "min_lr=1e-7,", "periods=[300000],"):
+        assert line in shipped and line in (REPO / "pnp_vcve_torch" / "configs"
+                                            / "HR_davis_LR_128x128.py").read_text()
 
 
 @pytest.mark.parametrize("override", [

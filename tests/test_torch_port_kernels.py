@@ -8,7 +8,10 @@ every test skips (the card is looked for inside the ``cuda`` fixture, never
 at import, so all workers collect the same tests).
 
 Each kernel runs in float32 and in bfloat16 on the same values as its plain
-version, which runs in float32 with TF32 off. Bounds: float32
+version, which runs in float32 with TF32 off. In training each kernel runs
+inside its ``torch.autograd.Function``, whose gradients are the plain
+version's: they are held to plain autograd's at 1e-5 of the largest
+gradient (cuDNN's weight gradients sum with atomics, in no fixed order). Bounds: float32
 max|diff| <= 1e-4 std(ref) (sums in another order); bfloat16 max < 0.02 std
 and mean < 0.002 std, the bounds of the JAX package's TPU kernels against
 their float32 references (tests/test_tpu_parity.py:43-51), with the warp at
@@ -152,3 +155,91 @@ def test_model_kernel_path_matches_plain_path(cuda):
     assert counts == {"warp": 2 * t, "input_conv": 2 * t, "drt_block": 2 * 2 * t, "head": t}
     assert got.shape == (b, t, h, w, 3)
     assert float((got - want).abs().max()) <= 3e-3
+
+
+def _grad_case(name, gen, b, h, w, dev):
+    """(kernel call, plain call, the inputs) of one kernel in float32, with
+    every weight and feature that training differentiates needing a gradient."""
+    def t(shape, scale=1.0, grad=True):
+        return (torch.randn(shape, generator=gen) * scale).to(dev).requires_grad_(grad)
+
+    x = t((b, h, w, 64))
+    if name == "warp":
+        flow = (torch.rand((b, h, w, 2), generator=gen) * 48 - 24).to(dev)
+        return KERNELS.flow_warp, PLAIN.flow_warp, [x, flow]
+    if name == "input_conv":
+        parts = [t((b, h, w, 3)), x, t((b, h, w, 64)), t((b, h, w, 64))]
+        kernel = t((3, 3, 3 + 192, 64), 0.03)
+        gate = torch.tensor([1.0, 0.0][:b], device=dev)
+
+        def call(op):
+            return lambda *a: op(list(a[:4]), kd.part_kernels(a[4], [3, 64, 64, 64], b, gate), a[5])
+        return call(KERNELS.input_conv), call(PLAIN.input_conv), [*parts, kernel, t((64,), 0.1)]
+    if name == "drt_block":
+        par = (torch.rand((b, h, w, 3), generator=gen) > 0.5).float().to(dev)
+        return KERNELS.drt_block, PLAIN.drt_block, [
+            x, par, t((b, 3, 3, 64, 64), 0.03), t((b, 64), 0.1), t((b, 64)),
+            t((64, 3, 64), 0.03), t((3, 3, 64, 64), 0.03), t((64,), 0.1)]
+    return KERNELS.head, PLAIN.head, [
+        x, t((3, 3, 64, 64), 0.03), t((64,), 0.1), t((3, 3, 64, 3), 0.06), t((3,), 0.1)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("name", ["warp", "input_conv", "drt_block", "head"])
+def test_kernel_function_grads(cuda, shape, name):
+    """Through its Function a kernel launches once in the forward and none
+    in the backward, and the gradients of every input equal plain
+    autograd's."""
+    b, h, w = shape
+    kern, plain, args = _grad_case(name, torch.Generator().manual_seed(5), b, h, w, cuda)
+    wrt = [a for a in args if a.requires_grad]
+    reset_launches()
+    y = kern(*args)
+    grad_out = torch.randn(y.shape, generator=torch.Generator().manual_seed(6)).to(cuda)
+    got = torch.autograd.grad(y, wrt, grad_out)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == 1 and sum(LAUNCHES.values()) == 1
+    want = torch.autograd.grad(plain(*args), wrt, grad_out)
+    _check(y.detach(), plain(*[a.detach() for a in args]), torch.float32)
+    for g, r in zip(got, want):
+        assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+
+
+def test_model_grads_kernel_path_match_plain_path(cuda):
+    """PnPVCVE at the flagship width (2 blocks): one Charbonnier loss through
+    the kernels and through the plain path gives every parameter the same
+    gradient within 1e-3 of its largest entry; remat relaunches each forward
+    kernel once in the backward."""
+    from pnp_vcve_torch.core.builder import build_generator
+    from pnp_vcve_torch.train.losses import charbonnier_loss
+
+    model = build_generator(
+        dict(type="PnPVCVE", mid_channels=64, num_blocks=2, num_experts=3), device=cuda
+    )
+    rng = np.random.default_rng(7)
+    b, t, h, w = 2, 3, 24, 32
+    fb = rng.uniform(-12, 12, (b, t, h // 8, w // 8, 4)).astype(np.float32)
+    inputs = dict(
+        lrs=rng.random((b, t, h, w, 3), np.float32),
+        qps=rng.random((b, t), np.float32),
+        slices=np.array([[73.0, 66.0, 80.0], [66.0, 80.0, 66.0]], np.float32),
+        mvs=np.repeat(np.repeat(fb, 8, axis=2), 8, axis=3),
+        base_qps=np.full((b, t), 25 / 255.0, np.float32),
+        par_map=((rng.random((b, t, h, w, 3)) > 0.5) / 255.0).astype(np.float32),
+    )
+    inputs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda) for k, v in inputs.items()}
+    gt = torch.from_numpy(rng.random((b, t, h, w, 3), np.float32)).to(cuda)
+    grads = {}
+    for ops in (KERNELS, PLAIN):
+        model.ops = ops
+        model.zero_grad()
+        reset_launches()
+        charbonnier_loss(model(**inputs), gt).backward()
+        torch.cuda.synchronize()
+        if ops is KERNELS:
+            counts = dict(LAUNCHES)
+        grads[ops is KERNELS] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    assert counts == {"warp": 4 * t, "input_conv": 4 * t, "drt_block": 8 * t, "head": 2 * t}
+    for n, g in grads[True].items():
+        ref = grads[False][n]
+        assert float((g - ref).abs().max()) <= 1e-3 * float(ref.abs().max()), n

@@ -101,7 +101,7 @@ def test_weights_round_trip_exact():
 
 
 def _fixture_clip(tmp_path, spec):
-    from pnp_vcve_tpu.core.presets import flagship_data
+    from pnp_vcve_torch.core.presets import flagship_data
     from pnp_vcve_torch.core.builder import build_dataset
     from tools.record_parity_fixture import build_dataset_from_spec
 

@@ -6,10 +6,12 @@ tools/test.py, plus ``--device``).
         [--save-path P --save-image] [--chunk-t N] [--cfg-options k=v ...]
         [--out metrics.pkl] [--device cuda|cpu]
 
-CHECKPOINT is a ``.pth`` or ``.npz`` state dict under the original
-reference's names, or ``-`` for a random init. ``--device cuda`` (the
-default) runs the CUDA kernels and fails when there is no GPU; ``--device
-cpu`` runs the kernels' plain PyTorch versions.
+CONFIG is any config file, for example the port's own
+``pnp_vcve_torch/configs/HR_davis_LR_128x128_serving.py``. CHECKPOINT is a
+``.pth`` or ``.npz`` state dict under the original reference's names, a
+training checkpoint of tools/torch_train.py, or ``-`` for a random init.
+``--device cuda`` (the default) runs the CUDA kernels and fails when there
+is no GPU; ``--device cpu`` runs the kernels' plain PyTorch versions.
 """
 
 import argparse
@@ -73,7 +75,7 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
 
-    from pnp_vcve_tpu.core.config import Config
+    from pnp_vcve_torch.core.config import Config
     from pnp_vcve_torch.core.builder import build_dataset, build_restorer
     from pnp_vcve_torch.core.checkpoint import load_generator_weights
     from pnp_vcve_torch.train.eval import evaluate_dataset
