@@ -9,23 +9,32 @@ Phases (any failure raises and the script exits non-zero):
 2. build the four kernels from pnp_vcve_torch/kernels/csrc (nvcc, sm_90a)
    and print the compiler's register / shared-memory / spill report;
 3. each kernel against its plain PyTorch version at the main path's shapes
-   (b=1, 720x1280, 64 channels) and at a ragged size (36x52), in float32
-   (TF32 off; max|diff| <= 1e-4 std) and bfloat16 (max < 0.02 std,
-   mean < 0.002 std; warp 0.08 / 0.01; input conv max 0.04 std, see
-   BF16_BOUNDS); at 720p both are timed with CUDA events in turns (plain,
-   kernel, kernel, plain), beside one PyTorch call that computes the same
-   function where there is one (``F.grid_sample`` for the warp, one
-   ``F.conv2d`` over the concatenated parts for the input conv) and the
-   card's bound for the work (bytes over 3.35 TB/s or float32 operations
-   over 67 TFLOP/s, whichever is larger);
+   (b=1, 720x1280, 64 channels), at b=4 on a smaller frame (256x448) and at
+   ragged sizes (36x52; 40x56 for K1b, which needs multiples of 8), in
+   float32 (TF32 off; max|diff| <= 1e-4 std) and bfloat16 (max < 0.02 std,
+   mean < 0.002 std; the warps 0.08 / 0.01; input conv max 0.04 std, see
+   BF16_BOUNDS); K1b on block-constant flows up to +-24 px, so that its
+   +-16 px clamp bites; K3s's new_last_key bitwise equal to ``torch.where``
+   on its own out for a keyframe sample and a non-keyframe one. At 720p
+   each is timed with CUDA events in turns (plain, kernel, kernel, plain),
+   beside one PyTorch call that computes the same function where there is
+   one (``F.grid_sample`` for the warps, one ``F.conv2d`` over the
+   concatenated parts for the input conv), its yardsticks (K1b: K1 on the
+   same flow; K3s: K3 plus ``torch.where``) and the card's bound for the
+   work (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
+   whichever is larger);
 4. the main path: ``tools/torch_test.py`` with the port's flagship serving
-   config and the parity fixture's weights on a REDS4-layout fixture of
-   4 clips x 8 frames at 720x1280 (PNG frames, MV sidecars, qp.json) that
-   tools/data/make_protocol_fixture.py writes under build/chip_smoke/; the
-   kernels' launch counts must equal 2 warps, 2 input convs, 16 DRT blocks
-   and 1 head per frame;
-5. the whole model's kernel path against its plain path on one clip of
-   8 frames at 256x448 (max|diff| <= 3e-3, float32);
+   config (``warp_impl='pf'``) and the parity fixture's weights on a
+   REDS4-layout fixture of 4 clips x 8 frames at 720x1280 (PNG frames, MV
+   sidecars, qp.json) that tools/data/make_protocol_fixture.py writes under
+   build/chip_smoke/; the launch counts must be, per frame, 2 block warps
+   (K1b), 2 input convs, 14 DRT blocks, 2 key-select blocks (K3s), 1 head
+   and no per-pixel warp (K1);
+5. the serving model's kernel path against its plain path on one clip of
+   8 frames at 256x448 with block-constant MVs up to +-24 px
+   (max|diff| <= 3e-3, float32), and, on the same inputs, its output
+   against the ``block8`` model's on the MVs clamped to +-16 px beforehand
+   (the same bound);
 6. gradients at the flagship width (64 channels, 8 blocks, 6 experts): one
    Charbonnier loss on b=2 clips of 4 frames at 192x256, backpropagated
    through the kernels and through the plain path (float32, TF32 off);
@@ -41,15 +50,37 @@ Phases (any failure raises and the script exits non-zero):
    sharp) under build/chip_smoke/train: 4 iterations with a checkpoint at 2,
    then a resume from 2 for 2 more, with cuDNN and PyTorch held to
    deterministic algorithms; the loss must be finite, the launch counts
-   those of the forward and the remat recompute, and the resumed weights
-   equal to the uninterrupted run's. Seconds per iteration, iterations/s
-   and peak device memory are printed, and ``torch.profiler``'s split of
-   the resumed run's last iteration: device time by kernel, the share of
-   K1-K4 and the device's idle share.
+   those of the forward and the remat recompute (K1, not K1b or K3s), and
+   the resumed weights equal to the uninterrupted run's. Seconds per
+   iteration, iterations/s and peak device memory are printed, and
+   ``torch.profiler``'s split of the resumed run's last iteration: device
+   time by kernel, the share of the port's kernels and the device's idle
+   share;
+8. batched serving: ``pnp_vcve_torch.serving.StreamScheduler`` with
+   ``batched_forward_executor`` (max_batch 4) on the serving config and the
+   parity weights; three streams submit 2 clips each, 6 clips of 8 frames
+   at 720x1280 with their own I/P/B slices and 16x16-block MVs; each
+   stream must complete in order, one dispatch must carry >= 3 clips, each
+   clip must be within 1e-4 (float32) of the same clip enhanced alone, and
+   the launch counts those of 8 frames per dispatch (one launch serves all
+   the clips of a dispatch). Dispatch sizes and walls, per-clip
+   latency p50/p95, aggregate frames/s and peak device memory are printed;
+9. the latency/throughput curve: ``tools/torch_serving_curve.py --max-b 4
+   --t 8 --iters 2`` (720p, bfloat16) in a subprocess, a row for each b;
+10. the HTTP handler: a servable packed by ``tools/torch_pnp2servable.py``
+   from the serving config and the parity weights, served by
+   ``tools/torch_serving_handler.py`` on a free local port; 3 POSTed PNG
+   frames of 720x1280 must come back as PNGs equal, as uint8, to
+   ``pnp_vcve_torch.apis.restoration_inference`` on the same frames, with
+   the serving path's launches per frame; the health check must answer.
 
-The line before the last is a JSON object with each kernel's launches on the
-main path and in training, its error, its time beside the plain version's,
-the library call's and the bound; the last line is
+Each phase prints its wall time.
+The line before the last is a JSON object with each kernel's launches
+(``launches``: all the driven paths together, each path's counts zeroed just
+before it and read just after; then each path's own: the serving path of
+phase 4, the batched path of phase 8, the handler of phase 10, training in
+phase 7), its error, its time beside the plain version's, the library
+call's, its yardsticks' and the bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -66,20 +97,28 @@ CONFIGS = ROOT / "pnp_vcve_torch" / "configs"
 SEED = 0
 MAIN_HW = (720, 1280)
 RAGGED_HW = (36, 52)
+BLOCK_RAGGED_HW = (40, 56)  # K1b needs multiples of 8
+BATCH_B, BATCH_HW = 4, (256, 448)
 CLIPS, FRAMES = 4, 8
 TOL_MODEL = 3e-3
+MV_REACH = 24.0  # block-constant MVs up to +-24 px: K1b's +-16 px clamp bites
+# phase 8: three streams of two clips each, max_batch 4
+STREAMS, CLIPS_PER_STREAM, MAX_BATCH, TOL_BATCHED = 3, 2, 4, 1e-4
+HANDLER_FRAMES = 3
 # bfloat16 (max, mean) bounds in units of std(ref): tests/test_tpu_parity.py
 # :43-51, the warp's :71 and the input conv's max from :137 -- its leaky-ReLU
 # output reaches ~9.6 std, where bfloat16's own half-ulp rounding of the
 # output is already 0.019-0.038 std
-BF16_BOUNDS = {"warp": (0.08, 0.01), "input_conv": (0.04, 0.002),
-               "drt_block": (0.02, 0.002), "head": (0.02, 0.002)}
+BF16_BOUNDS = {"warp": (0.08, 0.01), "warp_block": (0.08, 0.01), "input_conv": (0.04, 0.002),
+               "drt_block": (0.02, 0.002), "drt_block_select": (0.02, 0.002),
+               "head": (0.02, 0.002)}
 
 # FLOP per output pixel at 64 channels (2 per multiply-add), from the shapes
 FLOP_PER_PIXEL = {
     "input_conv (backward, 3 parts)": 2 * 9 * (3 + 128) * 64,
     "input_conv (forward, 4 parts)": 2 * 9 * (3 + 192) * 64,
     "drt_block": 2 * (9 * 64 * 64 + 3 * 64 * 64 + 9 * 64 * 64),
+    "drt_block_select": 2 * (9 * 64 * 64 + 3 * 64 * 64 + 9 * 64 * 64),
     "head": 2 * 9 * 64 * (64 + 3),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM3, float32 on
@@ -90,10 +129,14 @@ TRAIN_FRAMES, TRAIN_HW, TRAIN_ITERS = 20, (256, 256), 4
 
 KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
     "warp": ("pnp_vcve_torch/kernels/csrc/warp.cu", "pnp_vcve_tpu/kernels/warp_pf.py:488"),
+    "warp_block": ("pnp_vcve_torch/kernels/csrc/warp_block.cu",
+                   "pnp_vcve_tpu/kernels/warp_pf.py:552"),
     "input_conv": ("pnp_vcve_torch/kernels/csrc/input_conv.cu",
                    "pnp_vcve_tpu/kernels/drt_stack.py:649"),
     "drt_block": ("pnp_vcve_torch/kernels/csrc/drt_block.cu",
                   "pnp_vcve_tpu/kernels/drt_stack.py:305"),
+    "drt_block_select": ("pnp_vcve_torch/kernels/csrc/drt_block.cu",
+                         "pnp_vcve_tpu/kernels/drt_stack.py:278"),
     "head": ("pnp_vcve_torch/kernels/csrc/head.cu", "pnp_vcve_tpu/kernels/drt_stack.py:1058"),
 }
 
@@ -164,16 +207,29 @@ def _compare(name, got, ref, dtype, bounds):
     return mx
 
 
+def _grid(flow, h, w, dtype):
+    """grid_sample's normalised grid for a pixel flow (align_corners=True)."""
+    import torch
+
+    dev = flow.device
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
+                            indexing="ij")
+    return torch.stack([(xs + flow[..., 0].float()) * 2 / (w - 1) - 1,
+                        (ys + flow[..., 1].float()) * 2 / (h - 1) - 1], -1).to(dtype)
+
+
 def _cases(dev, dtype, b, h, w, gen):
     """One dict per case: label, kernel name, the kernel call, the plain
     call in float32 on the same values, the plain call in the working type,
-    the library call (or None), reps for timing, and the bytes the function
-    must move (each input read once, the output written once)."""
+    the library call (or None), yardsticks to time beside it, an extra
+    check (or None), reps for timing, and the bytes the function must move
+    (each input read once, each output written once)."""
     import torch
     import torch.nn.functional as F
 
     from pnp_vcve_torch.kernels import KERNELS, PLAIN
     from pnp_vcve_torch.kernels.drt_stack import part_kernels
+    from pnp_vcve_torch.ops.warp import PF_MAX_MV, block_flow
 
     def feat(c):
         return torch.randn((b, h, w, c), generator=gen).to(dev, dtype)
@@ -187,22 +243,31 @@ def _cases(dev, dtype, b, h, w, gen):
     f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
     x = feat(64)
     # block-constant motion vectors as the rasterizer emits them, +-24 px
-    fb = torch.rand((b, -(-h // 8), -(-w // 8), 2), generator=gen) * 48 - 24
+    fb = torch.rand((b, -(-h // 8), -(-w // 8), 2), generator=gen) * (2 * MV_REACH) - MV_REACH
     flow = fb.repeat_interleave(8, 1).repeat_interleave(8, 2)[:, :h, :w].contiguous()
     flow = flow.to(dev, dtype)
-    # grid_sample's normalised grid for the same flow (align_corners=True)
-    ys, xs = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
-                            indexing="ij")
-    grid = torch.stack([(xs + flow[..., 0].float()) * 2 / (w - 1) - 1,
-                        (ys + flow[..., 1].float()) * 2 / (h - 1) - 1], -1).to(dtype)
     x_nchw = x.permute(0, 3, 1, 2).contiguous()
+    grid = _grid(flow, h, w, dtype)
     cases = [dict(
         label="warp", name="warp", kern=lambda: KERNELS.flow_warp(x, flow),
         ref32=lambda: PLAIN.flow_warp(x.float(), flow.float()),
         plain=lambda: PLAIN.flow_warp(x, flow),
         library=lambda: F.grid_sample(x_nchw, grid, mode="bilinear", padding_mode="zeros",
                                       align_corners=True),
-        reps=20, bytes=nbytes(x, flow, x))]
+        yardsticks={}, check=None, reps=20, bytes=nbytes(x, flow, x))]
+    if h % 8 == 0 and w % 8 == 0:
+        table = block_flow(flow, PF_MAX_MV)
+        # grid_sample on the same flow: the clamped table expanded per pixel
+        grid_b = _grid(table.repeat_interleave(8, 1).repeat_interleave(8, 2), h, w, dtype)
+        cases.append(dict(
+            label="warp_block", name="warp_block",
+            kern=lambda: KERNELS.flow_warp_block(x, flow, PF_MAX_MV),
+            ref32=lambda: PLAIN.flow_warp_block(x.float(), flow.float(), PF_MAX_MV),
+            plain=lambda: PLAIN.flow_warp_block(x, flow, PF_MAX_MV),
+            library=lambda: F.grid_sample(x_nchw, grid_b, mode="bilinear",
+                                          padding_mode="zeros", align_corners=True),
+            yardsticks={"k1_ms": lambda: KERNELS.flow_warp(x, flow)}, check=None, reps=20,
+            bytes=nbytes(x, table, x)))
     gate = torch.ones(b, device=dev)
     for n_parts, tag in ((3, "backward"), (4, "forward")):
         parts = [feat(3)] + [feat(64) for _ in range(n_parts - 1)]
@@ -217,7 +282,7 @@ def _cases(dev, dtype, b, h, w, gen):
             ref32=lambda p=parts, k=ks, bb=bias: PLAIN.input_conv(f32(p), k, bb),
             plain=lambda p=parts, k=ks, bb=bias: PLAIN.input_conv(p, k, bb),
             library=lambda c=cat, k=w_oihw, bb=bias.to(dtype): F.conv2d(c, k, bb, padding=1),
-            reps=5, bytes=nbytes(*parts, *ks, bias, x)))
+            yardsticks={}, check=None, reps=5, bytes=nbytes(*parts, *ks, bias, x)))
     par = (torch.rand((b, h, w, 3), generator=gen) > 0.5).to(dev, dtype)
     blk = (wt((b, 3, 3, 64, 64), 0.03), wt((b, 64), 0.1),
            torch.rand((b, 64), generator=gen).to(dev),
@@ -225,50 +290,83 @@ def _cases(dev, dtype, b, h, w, gen):
     cases.append(dict(
         label="drt_block", name="drt_block", kern=lambda: KERNELS.drt_block(x, par, *blk),
         ref32=lambda: PLAIN.drt_block(x.float(), par.float(), *blk),
-        plain=lambda: PLAIN.drt_block(x, par, *blk), library=None, reps=5,
-        bytes=nbytes(x, par, *blk, x)))
+        plain=lambda: PLAIN.drt_block(x, par, *blk), library=None, yardsticks={},
+        check=None, reps=5, bytes=nbytes(x, par, *blk, x)))
+    last_key = feat(64)
+    is_key = (torch.arange(b, device=dev) % 2 == 0).float()  # keyframes and not
+
+    def select_check():
+        """new_last_key is bitwise torch.where on K3s's own out, for each
+        sample's flag and its opposite."""
+        for key in (is_key, 1.0 - is_key):
+            out, new_lk = KERNELS.drt_block_select(x, par, *blk, last_key, key)
+            want = torch.where(key.reshape(-1, 1, 1, 1) > 0.5, out, last_key)
+            if not torch.equal(new_lk.view(torch.int16 if dtype == torch.bfloat16 else
+                                           torch.int32),
+                               want.view(torch.int16 if dtype == torch.bfloat16 else
+                                         torch.int32)):
+                raise AssertionError("drt_block_select: new_last_key is not the select of out")
+        return "new_last_key == where(is_key, out, last_key) bitwise, both flags"
+
+    cases.append(dict(
+        label="drt_block_select", name="drt_block_select",
+        kern=lambda: KERNELS.drt_block_select(x, par, *blk, last_key, is_key)[0],
+        ref32=lambda: PLAIN.drt_block(x.float(), par.float(), *blk),
+        plain=lambda: PLAIN.drt_block_select(x, par, *blk, last_key, is_key),
+        library=None,
+        yardsticks={"k3_where_ms": lambda: torch.where(
+            is_key.reshape(-1, 1, 1, 1) > 0.5, KERNELS.drt_block(x, par, *blk), last_key)},
+        check=select_check, reps=5, bytes=nbytes(x, par, *blk, last_key, is_key, x, x)))
     hd = (wt((3, 3, 64, 64), 0.03), wt((64,), 0.1), wt((3, 3, 64, 3), 0.06), wt((3,), 0.1))
     cases.append(dict(
         label="head", name="head", kern=lambda: KERNELS.head(x, *hd),
         ref32=lambda: PLAIN.head(x.float(), *hd), plain=lambda: PLAIN.head(x, *hd),
-        library=None, reps=5, bytes=nbytes(x, *hd) + b * h * w * 3 * x.element_size()))
+        library=None, yardsticks={}, check=None, reps=5,
+        bytes=nbytes(x, *hd) + b * h * w * 3 * x.element_size()))
     return cases
 
 
 def phase_kernels(dev):
     """Returns {kernel: row} in float32 at 720p: the worst error, the mean
-    times of the kernel, its plain version and the library call, and the
-    bounds. The input conv's row covers its two forms (worst error, mean
-    time and bound)."""
+    times of the kernel, its plain version, the library call and the
+    yardsticks, and the bounds. The input conv's row covers its two forms
+    (worst error, mean time and bound)."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(SEED)
     rows = {}
+    sizes = ((1, MAIN_HW, True), (BATCH_B, BATCH_HW, False), (1, RAGGED_HW, False),
+             (1, BLOCK_RAGGED_HW, False))
     for dtype in (torch.float32, torch.bfloat16):
-        for (h, w), timed in ((MAIN_HW, True), (RAGGED_HW, False)):
-            for c in _cases(dev, dtype, 1, h, w, gen):
-                tag = f"{c['label']} {str(dtype)[6:]} {h}x{w}"
+        for b, (h, w), timed in sizes:
+            for c in _cases(dev, dtype, b, h, w, gen):
+                tag = f"{c['label']} {str(dtype)[6:]} b={b} {h}x{w}"
                 err = _compare(tag, c["kern"](), c["ref32"](), dtype, BF16_BOUNDS[c["name"]])
+                if c["check"] is not None:
+                    print(f"[kernel] {tag}: {c['check']()}")
                 if not timed:
                     continue
                 p1, k1, k2, p2 = (_timed(f, c["reps"])
                                   for f in (c["plain"], c["kern"], c["kern"], c["plain"]))
                 lib = _timed(c["library"], c["reps"]) if c["library"] else None
-                flop = FLOP_PER_PIXEL.get(c["label"], 0) * h * w
+                yard = {k: _timed(f, c["reps"]) for k, f in c["yardsticks"].items()}
+                flop = FLOP_PER_PIXEL.get(c["label"], 0) * b * h * w
                 t_bytes, t_ops = c["bytes"] / HBM_BYTES_S * 1e3, flop / F32_FLOP_S * 1e3
                 rate = f"{flop / (k1 + k2) * 2e-9:.1f} TFLOP/s, " if flop else ""
+                yard_txt = "".join(f", {k[:-3]} {v:.3f} ms" for k, v in yard.items())
                 print(f"[time] {tag}: kernel {k1:.3f} / {k2:.3f} ms, "
                       f"plain {p1:.3f} / {p2:.3f} ms, library "
-                      f"{'none' if lib is None else f'{lib:.3f} ms'}; {rate}"
+                      f"{'none' if lib is None else f'{lib:.3f} ms'}{yard_txt}; {rate}"
                       f"{c['bytes'] / ((k1 + k2) / 2) * 1e-6:.0f} GB/s; bound "
                       f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, float32 ops "
                       f"{t_ops:.3f}, bf16 tensor-core ops {flop / BF16_TC_FLOP_S * 1e3:.3f})")
                 if dtype == torch.float32:
                     rows.setdefault(c["name"], []).append(dict(
                         err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib,
-                        t_bytes=t_bytes, t_ops=t_ops, t_bf16=flop / BF16_TC_FLOP_S * 1e3))
+                        t_bytes=t_bytes, t_ops=t_ops, t_bf16=flop / BF16_TC_FLOP_S * 1e3,
+                        **yard))
             torch.cuda.empty_cache()
 
     def mean(rs, k):
@@ -277,11 +375,13 @@ def phase_kernels(dev):
     out = {}
     for name, rs in rows.items():
         t_bytes, t_ops = mean(rs, "t_bytes"), mean(rs, "t_ops")
+        extra = {k: mean(rs, k) for k in rs[0] if k.endswith("_ms") and k != "library_ms"}
         out[name] = dict(
             max_abs_err=max(r["err"] for r in rs), ms=mean(rs, "ms"),
             plain_ms=mean(rs, "plain_ms"), bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=mean(rs, "library_ms"), bound_bf16_tensor_ms=mean(rs, "t_bf16"))
+            library_ms=mean(rs, "library_ms"), bound_bf16_tensor_ms=mean(rs, "t_bf16"),
+            **{k: v for k, v in extra.items() if k not in ("ms", "plain_ms")})
     return out
 
 
@@ -345,9 +445,9 @@ def phase_main_path(dev):
     pre.remove()
     post.remove()
 
-    nb = Config.fromfile(cfg).model["generator"]["num_blocks"]
+    gen_cfg = Config.fromfile(cfg).model["generator"]
     n = CLIPS * FRAMES
-    want = {"warp": 2 * n, "input_conv": 2 * n, "drt_block": 2 * nb * n, "head": n}
+    want = _launches_per_pass(n, gen_cfg["num_blocks"], gen_cfg.get("warp_impl", "padgather"))
     print(f"[main] launches {counts} (expected {want})")
     if counts != want:
         raise AssertionError("main path did not run every step through the kernels")
@@ -363,21 +463,25 @@ def phase_main_path(dev):
     return counts
 
 
-def _clip_inputs(rng, b, t, h, w, dev):
-    """b clips of t frames: 8x8-block-constant MVs, one-hot partitions,
+def _clip_inputs(rng, b, t, h, w, dev, mv_reach=None, mv_block=8):
+    """b clips of t frames: MVs constant over mv_block x mv_block blocks
+    (normal, 6 px std; or uniform up to +-mv_reach), one-hot partitions,
     I/P/B slices, as the rasterizer and the codec give them."""
     import numpy as np
     import torch
 
-    up = lambda a: np.repeat(np.repeat(a, 8, 2), 8, 3)  # noqa: E731
+    up = lambda a, k=8: np.repeat(np.repeat(a, k, 2), k, 3)  # noqa: E731
     slices = np.full((b, t), 66.0, np.float32)
     slices[:, ::4] = 80.0
     slices[:, 0] = 73.0
+    shape = (b, t, h // mv_block, w // mv_block, 4)
+    mv = (rng.standard_normal(shape) * 6 if mv_reach is None
+          else rng.uniform(-mv_reach, mv_reach, shape))
     inputs = dict(
         lrs=rng.random((b, t, h, w, 3), dtype=np.float32),
         qps=(rng.integers(20, 40, (b, t)) / 255.0).astype(np.float32),
         slices=slices,
-        mvs=up((rng.standard_normal((b, t, h // 8, w // 8, 4)) * 6).astype(np.float32)),
+        mvs=up(mv.astype(np.float32), mv_block),
         base_qps=np.full((b, t), 35 / 255.0, np.float32),
         par_map=up(np.eye(3, dtype=np.float32)[rng.integers(0, 3, (b, t, h // 8, w // 8))]
                    / 255.0),
@@ -398,35 +502,53 @@ def _flagship_generator(config, dev):
     return model, cfg
 
 
-def _launches_per_pass(t, num_blocks, sweeps_with_head=1):
-    """Kernel launches of one forward over t frames: each sweep step warps,
-    runs the input conv and the blocks; the forward sweep's steps run the
-    head."""
-    return {"warp": 2 * t, "input_conv": 2 * t, "drt_block": 2 * num_blocks * t,
-            "head": sweeps_with_head * t}
+def _launches_per_pass(t, num_blocks, warp_impl="padgather"):
+    """Kernel launches of one forward over t frames: each sweep step warps
+    (K1b under 'pf', K1 in training), runs the input conv and the blocks
+    (under 'pf' the last is K3s); the forward sweep's steps run the head."""
+    pf = warp_impl == "pf"
+    return {"warp": 0 if pf else 2 * t, "warp_block": 2 * t if pf else 0,
+            "input_conv": 2 * t, "drt_block": 2 * (num_blocks - pf) * t,
+            "drt_block_select": 2 * t if pf else 0, "head": t}
 
 
 def phase_model_vs_plain(dev):
+    """The serving model ('pf') through its kernels against its plain path
+    on MVs up to +-24 px, and against the 'block8' model on the MVs clamped
+    to +-16 px beforehand."""
     import numpy as np
     import torch
 
-    from pnp_vcve_torch.kernels import KERNELS, PLAIN
+    from pnp_vcve_torch.kernels import KERNELS, LAUNCHES, PLAIN, reset_launches
+    from pnp_vcve_torch.ops.warp import PF_MAX_MV
 
-    model, _ = _flagship_generator("HR_davis_LR_128x128_serving.py", dev)
+    model, cfg = _flagship_generator("HR_davis_LR_128x128_serving.py", dev)
     t, h, w = FRAMES, 256, 448
-    inputs = _clip_inputs(np.random.default_rng(SEED), 1, t, h, w, dev)
+    inputs = _clip_inputs(np.random.default_rng(SEED), 1, t, h, w, dev, mv_reach=MV_REACH)
+    clamped = {**inputs, "mvs": inputs["mvs"].clamp(-PF_MAX_MV, PF_MAX_MV)}
     with torch.inference_mode():
+        reset_launches()
         got = model(**inputs)
+        counts = dict(LAUNCHES)
         model.ops = PLAIN
         want = model(**inputs)
         model.ops = KERNELS
+        model.warp_impl = "block8"
+        block8 = model(**clamped)
+        model.warp_impl = "pf"
     if got.shape != (1, t, h, w, 3) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"model output {tuple(got.shape)} not finite/of the expected shape")
+    gen_cfg = cfg.model["generator"]
+    expected = _launches_per_pass(t, gen_cfg["num_blocks"], gen_cfg.get("warp_impl", "padgather"))
+    if counts != expected:
+        raise AssertionError(f"pf launches {counts}, expected {expected}")
     err = float((got - want).abs().max())
-    print(f"[model] kernel path vs plain path, {t} frames {h}x{w} float32: "
-          f"max|diff| {err:.3g} (<= {TOL_MODEL})")
-    if not err <= TOL_MODEL:
-        raise AssertionError("model kernel path disagrees with its plain path")
+    err8 = float((got - block8).abs().max())
+    print(f"[model] pf kernel path vs plain path, {t} frames {h}x{w} float32, MVs to "
+          f"+-{MV_REACH:g} px: max|diff| {err:.3g}; vs the block8 kernel path on MVs clamped "
+          f"to +-{PF_MAX_MV:g} px: max|diff| {err8:.3g} (each <= {TOL_MODEL})")
+    if not (err <= TOL_MODEL and err8 <= TOL_MODEL):
+        raise AssertionError("pf model kernel path disagrees with its plain path or block8")
 
 
 def phase_grads(dev):
@@ -615,6 +737,194 @@ def phase_train(dev, smi):
     return counts
 
 
+def _serving_sample(rng, t, h, w, block=16):
+    """One clip as a client submits it (time first): its own I/P/B slice
+    pattern (first frame I), MVs constant over 16x16 blocks (6 px std),
+    one-hot partitions over 8x8 blocks."""
+    import numpy as np
+
+    up = lambda a, k: np.repeat(np.repeat(a, k, 1), k, 2)  # noqa: E731
+    slices = rng.choice(np.array([73.0, 80.0, 66.0], np.float32), size=t)
+    slices[0] = 73.0
+    return dict(
+        lq=rng.random((t, h, w, 3), dtype=np.float32),
+        qps=(rng.integers(20, 40, t) / 255.0).astype(np.float32),
+        slices=slices,
+        mvs=up((rng.standard_normal((t, h // block, w // block, 4)) * 6).astype(np.float32),
+               block),
+        base_qps=np.full(t, 35 / 255.0, np.float32),
+        partitions=up(np.eye(3, dtype=np.float32)[rng.integers(0, 3, (t, h // 8, w // 8))]
+                      / 255.0, 8),
+    )
+
+
+def phase_batched(dev, smi):
+    """StreamScheduler + batched_forward_executor on the serving config:
+    three streams of two 720p clips each; per-stream order, a batch of >= 3,
+    each clip against itself enhanced alone, the launch counts."""
+    import numpy as np
+    import torch
+
+    from pnp_vcve_torch.kernels import LAUNCHES, reset_launches
+    from pnp_vcve_torch.serving import StreamScheduler, batched_forward_executor
+    from pnp_vcve_torch.train.train_step import MODEL_INPUT_KEYS, make_eval_step
+
+    model, cfg = _flagship_generator("HR_davis_LR_128x128_serving.py", dev)
+    h, w = MAIN_HW
+    rng = np.random.default_rng(SEED + 8)
+    streams = [f"s{i}" for i in range(STREAMS)]
+    # submission order: each stream's first clip, then each stream's second
+    order = [(sid, k) for k in range(CLIPS_PER_STREAM) for sid in streams]
+    samples = {key: _serving_sample(rng, FRAMES, h, w) for key in order}
+    n_frames = len(order) * FRAMES
+    sched = StreamScheduler(batched_forward_executor(model), max_batch=MAX_BATCH,
+                            max_wait_s=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    tickets = {key: sched.submit(key[0], samples[key]) for key in order}
+    sched.close(drain=True)
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    outs = {key: t.wait() for key, t in tickets.items()}
+    st = sched.stats()
+
+    for sid in streams:
+        done = [tickets[(sid, k)].done_at for k in range(CLIPS_PER_STREAM)]
+        seqs = [tickets[(sid, k)].seq for k in range(CLIPS_PER_STREAM)]
+        if seqs != list(range(CLIPS_PER_STREAM)) or done != sorted(done):
+            raise AssertionError(f"stream {sid} completed out of order: seq {seqs}, done {done}")
+    sizes = [d["batch"] for d in st["dispatches"]]
+    if max(sizes) < 3:
+        raise AssertionError(f"no dispatch carried 3 or more clips: {sizes}")
+    # one launch per kernel and step serves every clip of a dispatch
+    steps = FRAMES * len(sizes)
+    gen_cfg = cfg.model["generator"]
+    want = _launches_per_pass(steps, gen_cfg["num_blocks"], gen_cfg.get("warp_impl", "padgather"))
+    print(f"[batched] launches {counts} (expected {want}: {len(sizes)} dispatches x {FRAMES} "
+          f"steps, each launch covering its dispatch's clips; {n_frames} clip frames)")
+    if counts != want:
+        raise AssertionError("the batched path did not run every step through the kernels")
+
+    # each clip alone (b=1), against its batched output
+    eval_step = make_eval_step(model)
+    errs, alone_s = [], 0.0
+    for key in order:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = eval_step({k: samples[key][k][None] for k in MODEL_INPUT_KEYS})[0]
+        alone_s += time.perf_counter() - t1
+        out = outs[key]
+        if out.shape != (FRAMES, h, w, 3) or not np.isfinite(out).all():
+            raise AssertionError(f"clip {key}: output {out.shape} not finite/of the expected shape")
+        errs.append(float(np.abs(out - ref).max()))
+    lat = np.array([t.latency_s for t in tickets.values()])
+    print(f"[batched] {smi}: {len(order)} clips x {FRAMES} frames at {h}x{w}, float32, "
+          f"max_batch {MAX_BATCH}: dispatches "
+          + ", ".join(f"b={d['batch']} {d['wall_s']:.3f} s" for d in st["dispatches"])
+          + f"; per-clip latency p50 {np.percentile(lat, 50):.3f} s p95 "
+          f"{np.percentile(lat, 95):.3f} s; aggregate {n_frames / wall:.3f} frames/s over "
+          f"{wall:.3f} s (submit to drain); the same clips one at a time "
+          f"{n_frames / alone_s:.3f} frames/s ({alone_s:.3f} s, host copies included); "
+          f"peak device memory {peak / 2**30:.3f} GiB")
+    print(f"[batched] each clip batched vs alone at b=1: max|diff| {max(errs):.3g} "
+          f"(per clip {', '.join(f'{e:.3g}' for e in errs)}; <= {TOL_BATCHED})")
+    if not max(errs) <= TOL_BATCHED:
+        raise AssertionError("a batched clip differs from the same clip enhanced alone")
+    return counts
+
+
+def phase_curve():
+    """tools/torch_serving_curve.py in a subprocess: a row for each b."""
+    import torch
+
+    torch.cuda.empty_cache()  # the subprocess needs the card's memory
+    cmd = [sys.executable, str(ROOT / "tools" / "torch_serving_curve.py"), "--max-b", "4",
+           "--t", str(FRAMES), "--iters", "2"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT)
+    for line in proc.stdout.splitlines():
+        print("[curve]", line)
+    if proc.returncode != 0:
+        raise AssertionError(f"torch_serving_curve.py failed ({proc.returncode}):\n"
+                             f"{proc.stderr[-3000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    if [r["b"] for r in rows] != [1, 2, 3, 4]:
+        raise AssertionError(f"the curve has no row for each b = 1..4: {rows}")
+
+
+def phase_handler(dev):
+    """A servable of the serving config and the parity weights behind the
+    HTTP handler on a free local port: 3 POSTed 720p PNGs come back as the
+    PNGs of apis.restoration_inference; the health check answers."""
+    import io
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from pnp_vcve_torch import apis
+    from pnp_vcve_torch.kernels import LAUNCHES, reset_launches
+    from pnp_vcve_torch.metrics import tensor2img
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_pnp2servable
+    import torch_serving_handler
+
+    servable = torch_pnp2servable.pnp2servable(
+        str(CONFIGS / "HR_davis_LR_128x128_serving.py"),
+        str(ROOT / "tests/fixtures/parity/state_dict.npz"),
+        str(ROOT / "build" / "chip_smoke" / "servables"), model_name="pnp_vcve", force=True)
+    handler = torch_serving_handler.PnPServingHandler()
+    handler.initialize(servable, device=dev.type)
+    srv, port = torch_serving_handler.serve_background(handler, 0)
+    rng = np.random.default_rng(SEED + 10)
+    h, w = MAIN_HW
+    # smooth content with noise, as a decoded frame: a gradient plus grain
+    base = np.linspace(0, 200, w, dtype=np.float32)[None, :, None] + np.zeros((h, 1, 3))
+    frames = [np.clip(base + rng.normal(0, 20, (h, w, 3)), 0, 255).astype(np.uint8)
+              for _ in range(HANDLER_FRAMES)]
+    answers, walls = [], []
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/ping", timeout=30) as r:
+            if r.status != 200 or json.loads(r.read()) != {"status": "Healthy"}:
+                raise AssertionError("the health check did not answer")
+        reset_launches()
+        for f in frames:
+            buf = io.BytesIO()
+            Image.fromarray(f).save(buf, format="PNG")
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/predictions/pnp_vcve",
+                                         data=buf.getvalue(), method="POST")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=120) as r:
+                if r.status != 200 or r.headers["Content-Type"] != "image/png":
+                    raise AssertionError(f"POST answered {r.status} {r.headers['Content-Type']}")
+                answers.append(np.asarray(Image.open(io.BytesIO(r.read()))))
+            walls.append(time.perf_counter() - t0)
+        counts = dict(LAUNCHES)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    with torch.inference_mode():
+        wants = [tensor2img(apis.restoration_inference(handler.model, f)) for f in frames]
+    for got, want in zip(answers, wants):
+        if got.shape != (h, w, 3) or not np.array_equal(got, want):
+            raise AssertionError("a POST's PNG differs from apis.restoration_inference")
+    gen_cfg = handler.model.cfg.model["generator"]
+    expected = _launches_per_pass(HANDLER_FRAMES, gen_cfg["num_blocks"],
+                                  gen_cfg.get("warp_impl", "padgather"))
+    print(f"[handler] {HANDLER_FRAMES} POSTs of {h}x{w} PNGs: 200 image/png, equal as uint8 "
+          f"to restoration_inference; request walls "
+          f"{', '.join(f'{x:.3f}' for x in walls)} s (PNG decode and encode included); "
+          f"launches {counts} (expected {expected}); /ping healthy")
+    if counts != expected:
+        raise AssertionError("the handler did not run every request through the kernels")
+    return counts
+
+
 def _print_breakdown(prof, window_s, steady_s):
     """Device time of the profiled iteration by kernel: the device's busy
     time and idle share in the profiled window and against an unprofiled
@@ -660,18 +970,32 @@ def main():
     # starts, so set before any CUDA work
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev, smi = phase_device()
-    phase_build()
-    kern = phase_kernels(dev)
-    counts = phase_main_path(dev)
-    phase_model_vs_plain(dev)
-    phase_grads(dev)
-    train_counts = phase_train(dev, smi)
-
     import torch
 
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    phase("2 build", phase_build)
+    kern = phase("3 kernels", phase_kernels, dev)
+    counts = phase("4 serving path", phase_main_path, dev)
+    phase("5 model vs plain", phase_model_vs_plain, dev)
+    phase("6 gradients", phase_grads, dev)
+    train_counts = phase("7 training", phase_train, dev, smi)
+    batched_counts = phase("8 batched serving", phase_batched, dev, smi)
+    phase("9 serving curve", phase_curve)
+    handler_counts = phase("10 handler", phase_handler, dev)
+
+    paths = {"serving_launches": counts, "batched_launches": batched_counts,
+             "handler_launches": handler_counts, "train_launches": train_counts}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "train_launches": train_counts[name], **kern[name]}
+         "launches": sum(c[name] for c in paths.values()),
+         **{k: c[name] for k, c in paths.items()}, **kern[name]}
         for name, (src, rep) in KERNEL_INFO.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,14 @@
 architecture of HR_davis_LR_128x128.py with the serving knobs of
 configs/HR_davis_LR_128x128_serving_tpu.py.
 
-On the port every CUDA tensor runs the hand-written kernels whatever
-``use_pallas_kernels`` says, and the warp kernel is exact for any flow, so
-``warp_impl='pf'`` changes nothing in the forward. The train step refuses
-this config, as the JAX package's does: ``pf`` and ``block8`` are serving
-settings.
+``warp_impl='pf'`` computes what the JAX package's serving pipeline
+computes: each 8x8 block's motion vector, read at the block's top-left
+pixel and clamped to +-16 px, warps the keyframe carry (K1b), and the last
+DRT block of every step also writes the keyframe carry (K3s). It needs
+``use_pallas_kernels``, 64 channels and frames whose sides are multiples of
+16, as in JAX. Exact for the 8x8-block-constant MV maps the rasterizer
+emits with |MV| <= 16 px; the train step refuses this config, as the JAX
+package's does.
 """
 
 _base_ = ["./HR_davis_LR_128x128.py"]

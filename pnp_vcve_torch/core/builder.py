@@ -80,8 +80,8 @@ def _build_pnp_vcve(
     deform="vos",
     remat=True,
     warp_impl="padgather",
-    # a TPU serving knob, accepted so the serving config loads: on the port
-    # CUDA tensors always take the kernels
+    # the JAX serving flag: warp_impl='pf' refuses to run without it (as in
+    # JAX); on the port CUDA tensors always take the kernels
     use_pallas_kernels=False,
     # reference knobs with no effect on the flagship path (as in the JAX builder)
     **_ignored,
@@ -115,6 +115,7 @@ def _build_pnp_vcve(
             align_key=align_key,
             remat=remat,
             warp_impl=warp_impl,
+            use_pallas_kernels=use_pallas_kernels,
         )
     model = model.to_empty(device=device)
     model.reset_parameters(torch.Generator().manual_seed(seed))

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so a
-build takes seconds, not minutes). The build runs at first use and is cached
+``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source,
+all started together, and link into one shared library with a plain C
+interface, loaded with :mod:`ctypes` (no PyTorch headers, so a build takes
+seconds, not minutes). The build runs at first use and is cached
 under ``build/pnp_vcve_torch/<hash of sources and flags>/`` at the root of
 the checkout; ``nvcc -Xptxas -v`` output (registers, shared memory, spills
 per kernel) is kept beside the library in ``build.log``.
@@ -26,9 +27,9 @@ __all__ = ["Library", "library", "nvcc_path", "CSRC", "BUILD_ROOT"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pnp_vcve_torch"
 LIB_NAME = "libpnp_vcve_kernels.so"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
 _P = ctypes.c_void_p
@@ -39,6 +40,8 @@ SIGNATURES = {
     "pnp_warp": [_I, _P, _P, _P, _I, _I, _I, _P],
     "pnp_input_conv": [_I] + [_P] * 10 + [_I, _I, _I, _I, _P],
     "pnp_drt_block": [_I] + [_P] * 8 + [_I, _I, _I, _P],
+    "pnp_drt_block_select": [_I] + [_P] * 11 + [_I, _I, _I, _P],
+    "pnp_warp_block": [_I, _P, _P, _P, _I, _I, _I, _P],
     "pnp_head": [_I] + [_P] * 6 + [_I, _I, _I, _P],
 }
 
@@ -74,7 +77,7 @@ def _sources():
 
 
 def _key(cu, cuh) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, "-shared")).encode())
     for f in cu + cuh:
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -90,17 +93,32 @@ def _build(out_dir: Path, cu) -> tuple[str, float]:
         )
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # build under a temporary name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out_dir / LIB_NAME)
+    log = []
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / f"{f.stem}.o" for f in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)] for f, o in zip(cu, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        failed = []
+        for c, proc in zip(cmds, procs):
+            text = proc.communicate()[0]
+            log.append(" ".join(c) + "\n" + text)
+            if proc.returncode != 0:
+                failed.append(proc.returncode)
+        if not failed:
+            # link under a temporary name, then rename: concurrent builders
+            # never load a half-written library
+            so_tmp = Path(tmp) / LIB_NAME
+            cmd = [nvcc, *ARCH, "-shared", "-o", str(so_tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.returncode)
+            else:
+                os.replace(so_tmp, out_dir / LIB_NAME)
+    log = "".join(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
     (out_dir / "build.log").write_text(log)
     return log, time.perf_counter() - t0
 

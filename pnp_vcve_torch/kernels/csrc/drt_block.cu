@@ -12,6 +12,16 @@
 // conv(.; W2 * gamma) + b2 * gamma). The partition side path runs as three
 // more "taps" of stage 1 that read the centre pixel scaled by par_r.
 //
+// K3s is the same kernel with the keyframe-carry select of the sweep folded
+// into its epilogue (SELECT = true): it also writes
+//   new_last_key = is_key[b] ? out : last_key
+// while out is still in registers. It replaces the TPU kernel
+// drt_stack.py: _kernel_select (:278, launched at :351), the last block of a
+// step on the 'pf' serving path. The selected tile is the stored out tile
+// itself (the same rounding to the feature type), so the select is exact;
+// both outputs are fresh buffers, since at a sweep's first step last_key is
+// the block's input carry.
+//
 // Bound: CUDA-core float32 FMAs. The block needs ~158 GFLOP per 720p frame;
 // recomputing stage 1 on the 10 x 18 halo region of each 8 x 16 output tile
 // adds ~23% to that. Shared memory sets the tile: the 12 x 20 x 64 input tile
@@ -27,12 +37,14 @@ constexpr int DB_PM1 = (DB_NH + PG - 1) / PG;                         // 6 h pix
 constexpr int DB_PM2 = TH * TW / PG;                                  // 4 out pixels per thread
 constexpr size_t DB_SMEM = sizeof(float) * (C * DB_NX + C * C + 3 * DB_NH);
 
-template <typename T>
+template <typename T, bool SELECT>
 __global__ void __launch_bounds__(NT, 2)
     drt_block_kernel(const T* __restrict__ x, const T* __restrict__ par,
                      const float* __restrict__ w2g, const float* __restrict__ b2g,
                      const float* __restrict__ pk, const float* __restrict__ w1,
-                     const float* __restrict__ b1, T* __restrict__ out, int h, int w) {
+                     const float* __restrict__ b1, const T* __restrict__ last_key,
+                     const float* __restrict__ is_key, T* __restrict__ out,
+                     T* __restrict__ new_last_key, int h, int w) {
   extern __shared__ float smem[];
   float* xs = smem;            // C x DB_NX input tile; C x DB_NH h tile after stage 1
   float* ws = xs + C * DB_NX;  // one tap of weights
@@ -111,6 +123,7 @@ __global__ void __launch_bounds__(NT, 2)
 
 #pragma unroll
   for (int n = 0; n < PN; ++n) bv[n] = b1[tn * PN + n];
+  const bool key = SELECT && is_key[b] > 0.5f;
 #pragma unroll
   for (int j = 0; j < DB_PM2; ++j) {
     const int p = pg + PG * j;
@@ -122,23 +135,45 @@ __global__ void __launch_bounds__(NT, 2)
 #pragma unroll
     for (int n = 0; n < PN; ++n) ov[n] = xv[n] + (acc2[j][n] + bv[n]);
     store8(out + o, ov);
+    if (SELECT) {
+      if (!key) load8(last_key + o, ov);  // the feature type round-trips exactly
+      store8(new_last_key + o, ov);
+    }
   }
 }
 
-template <typename T>
+template <typename T, bool SELECT>
 cudaError_t launch_drt_block(const void* x, const void* par, const void* w2g, const void* b2g,
-                             const void* pk, const void* w1, const void* b1, void* out, int b,
-                             int h, int w, cudaStream_t stream) {
+                             const void* pk, const void* w1, const void* b1,
+                             const void* last_key, const void* is_key, void* out,
+                             void* new_last_key, int b, int h, int w, cudaStream_t stream) {
   if ((size_t)b * h * w == 0) return cudaSuccess;
-  auto k = drt_block_kernel<T>;
+  auto k = drt_block_kernel<T, SELECT>;
   cudaError_t e = allow_smem(k, DB_SMEM);
   if (e != cudaSuccess) return e;
   const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, b);
   k<<<grid, NT, DB_SMEM, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(par), static_cast<const float*>(w2g),
       static_cast<const float*>(b2g), static_cast<const float*>(pk),
-      static_cast<const float*>(w1), static_cast<const float*>(b1), static_cast<T*>(out), h, w);
+      static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<const T*>(last_key), static_cast<const float*>(is_key), static_cast<T*>(out),
+      static_cast<T*>(new_last_key), h, w);
   return cudaGetLastError();
+}
+
+template <bool SELECT>
+int drt_block_entry(int dtype, const void* x, const void* par, const void* w2g, const void* b2g,
+                    const void* pk, const void* w1, const void* b1, const void* last_key,
+                    const void* is_key, void* out, void* new_last_key, int b, int h, int w,
+                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_drt_block<float, SELECT>(x, par, w2g, b2g, pk, w1, b1, last_key, is_key,
+                                                out, new_last_key, b, h, w, s);
+  if (dtype == 1)
+    return (int)launch_drt_block<__nv_bfloat16, SELECT>(x, par, w2g, b2g, pk, w1, b1, last_key,
+                                                        is_key, out, new_last_key, b, h, w, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace pnp
@@ -149,13 +184,20 @@ cudaError_t launch_drt_block(const void* x, const void* par, const void* w2g, co
 extern "C" int pnp_drt_block(int dtype, const void* x, const void* par, const void* w2g,
                              const void* b2g, const void* pk, const void* w1, const void* b1,
                              void* out, int b, int h, int w, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)pnp::launch_drt_block<float>(x, par, w2g, b2g, pk, w1, b1, out, b, h, w, s);
-  if (dtype == 1)
-    return (int)pnp::launch_drt_block<__nv_bfloat16>(x, par, w2g, b2g, pk, w1, b1, out, b, h,
-                                                     w, s);
-  return (int)cudaErrorInvalidValue;
+  return pnp::drt_block_entry<false>(dtype, x, par, w2g, b2g, pk, w1, b1, nullptr, nullptr, out,
+                                     nullptr, b, h, w, stream);
+}
+
+// K3s: pnp_drt_block's arguments plus last_key (b, h, w, 64) of x's type and
+// is_key (b,) float32 0/1; writes out and new_last_key = where(is_key, out,
+// last_key), neither aliasing an input.
+extern "C" int pnp_drt_block_select(int dtype, const void* x, const void* par, const void* w2g,
+                                    const void* b2g, const void* pk, const void* w1,
+                                    const void* b1, const void* last_key, const void* is_key,
+                                    void* out, void* new_last_key, int b, int h, int w,
+                                    void* stream) {
+  return pnp::drt_block_entry<true>(dtype, x, par, w2g, b2g, pk, w1, b1, last_key, is_key, out,
+                                    new_last_key, b, h, w, stream);
 }
 
 // dynamic shared memory of one block, for the build report

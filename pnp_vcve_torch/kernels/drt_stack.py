@@ -5,6 +5,9 @@ They replace, in ``pnp_vcve_tpu/kernels/drt_stack.py``:
 
 - ``input_conv_pf`` (:649) -> :func:`input_conv` (K2);
 - ``_drt_block_pf`` (:305), chained 8x per step -> :func:`drt_block` (K3);
+- its key-select variant ``_kernel_select`` (:278, launched at :351), the
+  last block of a ``'pf'`` step -> :func:`drt_block_select` (K3s, a second
+  entry of the same kernel);
 - ``head_pf`` (:1058) -> :func:`head` (K4).
 
 The TPU kernels' pixel-pair packed layout and band DMAs are not carried
@@ -21,9 +24,10 @@ axis, the partition kernel as ``(c, 3, c)``.
 
 On CUDA tensors each launch runs inside a ``torch.autograd.Function``
 (:class:`InputConvFunction`, :class:`DRTBlockFunction`,
-:class:`HeadFunction`) that saves these JAX-layout arguments and takes its
-gradients from the plain version (``launch.plain_grads``), as the JAX
-package's trainable stacks do (:803, :891, :1253). The wrappers' weight
+:class:`DRTBlockSelectFunction`, :class:`HeadFunction`) that saves these
+JAX-layout arguments and takes its gradients from the plain version
+(``launch.plain_grads``), as the JAX package's trainable stacks do (:803,
+:891, :1253). The wrappers' weight
 repacking (the gain folded into W2, the reshapes) runs inside the forward,
 out of autograd's sight; the gradients reach the repacked weights' sources
 (the premix, the conv weights) through the JAX-layout arguments.
@@ -51,10 +55,13 @@ __all__ = [
     "input_conv_plain",
     "drt_block",
     "drt_block_plain",
+    "drt_block_select",
+    "drt_block_select_plain",
     "head",
     "head_plain",
     "InputConvFunction",
     "DRTBlockFunction",
+    "DRTBlockSelectFunction",
     "HeadFunction",
 ]
 
@@ -179,7 +186,9 @@ def drt_block_plain(x, par, w2, b2, g, pk, w1, b1):
     return x + conv2d_nhwc(hmid, w1, b1)
 
 
-def _drt_block_launch(x, par, w2, b2, g, pk, w1, b1):
+def _drt_block_args(x, par, w2, b2, g, pk, w1, b1):
+    """Check K3's arguments and repack its weights: the gain folded into W2
+    and b2, the taps flattened."""
     b, h, w, c = x.shape
     if c != C or par.shape != (b, h, w, 3):
         raise ValueError(f"drt_block: need x (b,h,w,64), par (b,h,w,3); got "
@@ -192,10 +201,15 @@ def _drt_block_launch(x, par, w2, b2, g, pk, w1, b1):
     pkr = pk.float().permute(1, 0, 2).contiguous()
     w1r = w1.float().reshape(9, C, C).contiguous()
     b1f = b1.float().contiguous()
-    check_cuda_args("drt_block", (x, par), (w2g, b2g, pkr, w1r, b1f))
+    return w2g, b2g, pkr, w1r, b1f
+
+
+def _drt_block_launch(x, par, w2, b2, g, pk, w1, b1):
+    b, h, w, _ = x.shape
+    weights = _drt_block_args(x, par, w2, b2, g, pk, w1, b1)
+    check_cuda_args("drt_block", (x, par), weights)
     out = torch.empty_like(x)
-    return launch("drt_block", "pnp_drt_block", out, x, par, w2g, b2g, pkr, w1r, b1f,
-                  out, b, h, w)
+    return launch("drt_block", "pnp_drt_block", out, x, par, *weights, out, b, h, w)
 
 
 class DRTBlockFunction(torch.autograd.Function):
@@ -220,6 +234,57 @@ def drt_block(x, par, w2, b2, g, pk, w1, b1):
     if on_cpu(x):
         return drt_block_plain(x, par, w2, b2, g, pk, w1, b1)
     return DRTBlockFunction.apply(_drt_block_launch, x, par, w2, b2, g, pk, w1, b1)
+
+
+# ---- K3s: DRT block with the keyframe-carry select -----------------------------
+
+
+def drt_block_select_plain(x, par, w2, b2, g, pk, w1, b1, last_key, is_key):
+    """:func:`drt_block_plain` and the sweep's keyframe-carry update:
+    ``(out, where(is_key[b], out, last_key))``."""
+    out = drt_block_plain(x, par, w2, b2, g, pk, w1, b1)
+    return out, torch.where(is_key.reshape(-1, 1, 1, 1) > 0.5, out, last_key)
+
+
+def _drt_block_select_launch(x, par, w2, b2, g, pk, w1, b1, last_key, is_key):
+    b, h, w, _ = x.shape
+    weights = _drt_block_args(x, par, w2, b2, g, pk, w1, b1)
+    if last_key.shape != x.shape or is_key.shape != (b,):
+        raise ValueError(f"drt_block_select: need last_key {tuple(x.shape)} and is_key ({b},); "
+                         f"got {tuple(last_key.shape)}, {tuple(is_key.shape)}")
+    key = is_key.to(torch.float32, copy=True)  # a fresh, aligned (b,) float32
+    check_cuda_args("drt_block_select", (x, par, last_key), (*weights, key))
+    out, new_last_key = torch.empty_like(x), torch.empty_like(x)
+    launch("drt_block_select", "pnp_drt_block_select", out, x, par, *weights, last_key, key,
+           out, new_last_key, b, h, w)
+    return out, new_last_key
+
+
+class DRTBlockSelectFunction(torch.autograd.Function):
+    """``run(x, par, w2, b2, g, pk, w1, b1, last_key, is_key)`` forward,
+    two outputs; :func:`drt_block_select_plain`'s gradients (none for the
+    flag), as the custom VJP of JAX ``make_fused_pipeline_select`` (:1135)."""
+
+    @staticmethod
+    def forward(ctx, run, *args):
+        ctx.save_for_backward(*args)
+        return run(*args)
+
+    @staticmethod
+    def backward(ctx, grad_out, grad_last_key):
+        needs = (*ctx.needs_input_grad[1:-1], False)
+        return None, *plain_grads(drt_block_select_plain, ctx.saved_tensors, needs,
+                                  (grad_out, grad_last_key))
+
+
+def drt_block_select(x, par, w2, b2, g, pk, w1, b1, last_key, is_key):
+    """K3s. :func:`drt_block`'s arguments plus ``last_key`` (x's shape and
+    type) and ``is_key (b,)`` (0/1) -> ``(out, new_last_key)``, two fresh
+    tensors with ``new_last_key = where(is_key[b], out, last_key)``."""
+    if on_cpu(x):
+        return drt_block_select_plain(x, par, w2, b2, g, pk, w1, b1, last_key, is_key)
+    return DRTBlockSelectFunction.apply(_drt_block_select_launch, x, par, w2, b2, g, pk, w1, b1,
+                                        last_key, is_key)
 
 
 # ---- K4: head -------------------------------------------------------------------

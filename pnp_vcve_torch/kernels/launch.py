@@ -6,12 +6,14 @@ CUDA tensors it launches the kernel or raises. ``LAUNCHES[name]`` counts the
 kernel's launches (and nothing else), so a run can show that it went through
 the kernels: zero the counts with :func:`reset_launches`, run, read them.
 
-On CUDA tensors each kernel runs inside a ``torch.autograd.Function`` whose
+On CUDA tensors each kernel but one runs inside a ``torch.autograd.Function`` whose
 backward is :func:`plain_grads`: the plain version replayed under autograd
 on the saved inputs. It is the JAX package's ``custom_vjp`` contract
 (``make_trainable_stack`` and its siblings, pnp_vcve_tpu/kernels/
 drt_stack.py:803, :891, :1253): a fused forward, the gradient of the op
-composition, and no backward kernel.
+composition, and no backward kernel. The block-flow warp (K1b) is the
+exception: JAX's ``warp_pf`` has no VJP, so its wrapper refuses an input
+that requires a gradient.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ __all__ = [
     "LAUNCHES", "reset_launches", "on_cpu", "check_cuda_args", "launch", "plain_grads",
 ]
 
-LAUNCHES = {"warp": 0, "input_conv": 0, "drt_block": 0, "head": 0}
+LAUNCHES = {"warp": 0, "warp_block": 0, "input_conv": 0, "drt_block": 0,
+            "drt_block_select": 0, "head": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -84,7 +87,8 @@ def launch(name: str, entry: str, out: torch.Tensor, *args):
 def plain_grads(plain, args, needs, grad_out):
     """Gradients of ``plain(*args)`` against ``grad_out`` for each argument
     whose ``needs`` flag is set (``None`` for the others), by running
-    ``plain`` again under autograd on detached copies of ``args``."""
+    ``plain`` again under autograd on detached copies of ``args``. A
+    ``plain`` with several outputs takes a tuple ``grad_out``, one each."""
     with torch.enable_grad():
         xs = [a.detach().requires_grad_(bool(n)) for a, n in zip(args, needs)]
         wrt = [x for x, n in zip(xs, needs) if n]

@@ -1,25 +1,35 @@
-"""K1: the MV warp of the sweeps' 64-channel carry (csrc/warp.cu).
+"""K1 and K1b: the MV warps of the sweeps' 64-channel carry (csrc/warp.cu,
+csrc/warp_block.cu).
 
-Replaces ``pnp_vcve_tpu/kernels/warp_pf.py: warp_pf`` (:488). Unlike it the
-flow is read per pixel and is not clamped to +-16 px: the kernel equals
-``grid_sample(align_corners=True, padding_mode='zeros')`` for any flow, and
-so the JAX ``block8`` warp on block-constant flows. It is bound by device
-memory (one read of the taps, one write); the source note in ``warp.cu``
-says how its threads map onto the channels.
+K1 replaces ``pnp_vcve_tpu/kernels/warp_pf.py: warp_pf`` (:488) where the
+port trains and evaluates with ``padgather``: the flow is read per pixel and
+not clamped, so the kernel equals ``grid_sample(align_corners=True,
+padding_mode='zeros')`` for any flow. In training, :class:`WarpFunction`
+carries the launch: the gradient for the warped feature is the plain
+version's, and the flow gets none (it is data: motion vectors from the
+bitstream).
 
-In training, :class:`WarpFunction` carries the launch: the gradient for the
-warped feature is the plain version's, and the flow gets none (it is data:
-motion vectors from the bitstream).
+K1b replaces ``warp_pf_compact`` (:552), the serving warp of ``'pf'`` and
+``'block8'``: it reads one flow per 8x8 block, at the block's top-left
+pixel, from a ``(b, h/8, w/8, 2)`` float32 table that the wrapper cuts from
+the flow field (clamped to +-``max_mv``, 16 px for ``'pf'``). JAX's
+``warp_pf`` has no VJP and its train step refuses the serving warps, so K1b
+has no Function: its wrapper refuses an input that requires a gradient.
+
+Both are bound by device memory (one read of the taps, one write); the
+source notes say how the threads map onto the channels.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pnp_vcve_torch.ops.warp import flow_warp as _flow_warp
+from pnp_vcve_torch.ops.warp import block_flow, flow_warp as _flow_warp, warp_blocks
 from .launch import check_cuda_args, launch, on_cpu, plain_grads
 
-__all__ = ["flow_warp", "flow_warp_plain", "WarpFunction"]
+__all__ = [
+    "flow_warp", "flow_warp_plain", "WarpFunction", "flow_warp_block", "flow_warp_block_plain",
+]
 
 
 def flow_warp_plain(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -54,7 +64,41 @@ class WarpFunction(torch.autograd.Function):
 
 
 def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Warp ``x (b, h, w, 64)`` by ``flow (b, h, w, 2)`` of the same type."""
+    """K1. Warp ``x (b, h, w, 64)`` by ``flow (b, h, w, 2)`` of the same type."""
     if on_cpu(x):
         return flow_warp_plain(x, flow)
     return WarpFunction.apply(_launch, x, flow)
+
+
+def flow_warp_block_plain(x: torch.Tensor, flow: torch.Tensor,
+                          max_mv: float | None = None) -> torch.Tensor:
+    """The plain PyTorch version of K1b: the block warp of ``ops.warp`` on
+    the same table."""
+    return warp_blocks(x, block_flow(flow, max_mv))
+
+
+def _block_launch(x: torch.Tensor, flow: torch.Tensor, max_mv: float | None) -> torch.Tensor:
+    b, h, w, c = x.shape
+    if c != 64 or h % 8 or w % 8 or flow.shape != (b, h, w, 2):
+        raise ValueError(f"warp_block: need x (b,h,w,64) with h, w multiples of 8 and flow "
+                         f"(b,h,w,2); got {tuple(x.shape)}, {tuple(flow.shape)}")
+    fb = block_flow(flow, max_mv)
+    check_cuda_args("warp_block", (x,), (fb,))
+    out = torch.empty_like(x)
+    return launch("warp_block", "pnp_warp_block", out, x, fb, out, b, h, w)
+
+
+def flow_warp_block(x: torch.Tensor, flow: torch.Tensor,
+                    max_mv: float | None = None) -> torch.Tensor:
+    """K1b. Warp ``x (b, h, w, 64)``, h and w multiples of 8, by the flow of
+    ``flow (b, h, w, 2)`` at each 8x8 block's top-left pixel, clamped to
+    +-``max_mv`` in float32. Inference only."""
+    if x.requires_grad:
+        raise RuntimeError(
+            "flow_warp_block has no gradient (the JAX package's warp_pf has no VJP): "
+            "the serving warps 'pf' and 'block8' run under torch.inference_mode() or "
+            "torch.no_grad(); train with warp_impl='padgather'"
+        )
+    if on_cpu(x):
+        return flow_warp_block_plain(x, flow, max_mv)
+    return _block_launch(x, flow, max_mv)

@@ -69,13 +69,15 @@ class DRTBlock(nn.Module):
             dim=1,
         )
 
-    def forward(self, x, par, mixed: dict, ops):
+    def forward(self, x, par, mixed: dict, ops, key_select=None):
         """``mixed``: this frame's premixed ``w2 (b,3,3,c,c)``, ``b2 (b,c)``,
-        ``g (b,c)``."""
-        return ops.drt_block(
-            x, par, mixed["w2"], mixed["b2"], mixed["g"],
-            self.par_kernel(), hwio(self.conv1.weight), self.conv1.bias,
-        )
+        ``g (b,c)``. With ``key_select=(last_key, is_key)`` the block also
+        returns the keyframe carry ``where(is_key, out, last_key)`` (K3s)."""
+        args = (x, par, mixed["w2"], mixed["b2"], mixed["g"],
+                self.par_kernel(), hwio(self.conv1.weight), self.conv1.bias)
+        if key_select is not None:
+            return ops.drt_block_select(*args, *key_select)
+        return ops.drt_block(*args)
 
 
 class ResidualBlocksWithInputConvDynamicDRT(nn.Module):
@@ -106,17 +108,20 @@ class ResidualBlocksWithInputConvDynamicDRT(nn.Module):
             for blk in self.main
         ]
 
-    def forward(self, parts, par, mixed, ops, gate=None):
+    def forward(self, parts, par, mixed, ops, gate=None, key_select=None):
         """``parts``: (lr, key_warp[, neighbour][, cur]) NHWC. conv(concat(parts))
         runs as a sum of per-part convs and the concat is never built.
         ``gate (b,)``: the align_key select, neighbour := where(gate, key_warp,
         neighbour), folded into the per-part kernels. ``mixed``: per block,
-        this frame's premixed dynamic conv."""
+        this frame's premixed dynamic conv. ``key_select=(last_key, is_key)``
+        folds the sweep's keyframe-carry select into the last block (JAX
+        ``key_select``, bae.py:362-375) and returns ``(out, new_last_key)``."""
         conv = self.input_conv[0]
         ks = part_kernels(
             hwio(conv.weight), [p.shape[-1] for p in parts], parts[0].shape[0], gate
         )
         feat = ops.input_conv(parts, ks, conv.bias)
-        for blk, m in zip(self.main, mixed):
-            feat = blk(feat, par, m, ops)
+        last = len(self.main) - 1
+        for i, (blk, m) in enumerate(zip(self.main, mixed)):
+            feat = blk(feat, par, m, ops, key_select if i == last else None)
         return feat

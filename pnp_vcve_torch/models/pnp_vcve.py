@@ -14,9 +14,24 @@ with deform='vos' and vsr=False. As in the JAX package:
 - inputs whose size is not a multiple of 4 are reflect-padded (MVs and
   partitions zero-padded) and the output cropped back.
 
-The sweeps are Python loops over t. Each step runs the four kernels of
+The sweeps are Python loops over t. Each step runs the kernels of
 ``self.ops`` (``pnp_vcve_torch.kernels.KERNELS`` by default): the warp, the
 input conv, ``num_blocks`` DRT blocks and, in the forward sweep, the head.
+
+``warp_impl`` picks the warp as the JAX model does (``_align``, JAX
+pnp_vcve.py:140-169):
+
+- ``'pf'`` (the serving config): K1b on each 8x8 block's flow clamped to
+  +-16 px; the last DRT block of every step is K3s, which also writes the
+  keyframe carry (JAX ``_kernel_select``). Needs ``use_pallas_kernels``,
+  64 channels and h, w multiples of 16 (JAX's guards, :530-546);
+- ``'block8'``: K1b on each block's flow, unclamped (K1 where h or w is not
+  a multiple of 8);
+- anything else (``'padgather'``, training): K1 on the per-pixel flow.
+
+Outside ``'pf'`` the carry update is K3 plus a ``torch.where``, as on the
+JAX default path. Both routes give the same bits; JAX's
+``PNP_PF_FOLD_SELECT`` only chose between them for the TPU's DMA balance.
 With ``remat`` (the default, as in the JAX package's ``nn.remat`` of each
 scan step, pnp_vcve.py:520-521) a step that records a graph keeps only its
 inputs and runs again in the backward, kernels included.
@@ -33,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from pnp_vcve_torch.kernels import KERNELS
+from pnp_vcve_torch.ops.warp import PF_MAX_MV
 from .bae import ResidualBlocksWithInputConvDynamicDRT, hwio
 from .caa import BasePredictor, BiasPredictor, SEModule
 from .init import torch_default_
@@ -89,6 +105,7 @@ class PnPVCVE(nn.Module):
         feature_dtype: torch.dtype = torch.float32,
         remat: bool = True,
         warp_impl: str = "padgather",
+        use_pallas_kernels: bool = False,
     ):
         super().__init__()
         c = mid_channels
@@ -100,11 +117,11 @@ class PnPVCVE(nn.Module):
         self.align_key = align_key
         self.feature_dtype = feature_dtype
         self.remat = remat
-        # the config's warp domain; K1 and the plain warp are exact for any
-        # flow, so it only tells the train step a serving config from a
-        # training one
         self.warp_impl = warp_impl
-        # the four kernels every sweep step runs (kernels.KERNELS or PLAIN)
+        # the JAX serving flag: 'pf' refuses to run without it; on the port
+        # every CUDA tensor takes the kernels whatever it says
+        self.use_pallas_kernels = use_pallas_kernels
+        # the kernels every sweep step runs (kernels.KERNELS or PLAIN)
         self.ops = KERNELS
 
         self.BasePredictor = BasePredictor(c, num_experts, expert_softmax)
@@ -134,19 +151,33 @@ class PnPVCVE(nn.Module):
         torch_default_(self.conv_hr, generator)
         torch_default_(self.conv_last, generator)
 
+    def _align(self, last_key, flow):
+        """The keyframe aligner: the warp of ``warp_impl`` (module docstring)."""
+        h, w = flow.shape[1:3]
+        if self.warp_impl == "pf":
+            return self.ops.flow_warp_block(last_key, flow, PF_MAX_MV)
+        if self.warp_impl == "block8" and h % 8 == 0 and w % 8 == 0:
+            return self.ops.flow_warp_block(last_key, flow, None)
+        return self.ops.flow_warp(last_key, flow)
+
     def _step(self, resblocks, lr, flow, par, is_key, mixed, prev_out, last_key,
               prev_was_key, cur):
         """One sweep step -> ``(out, new last_key, head output or None)``."""
         ops = self.ops
         # the zero carry warps to zero: no masking of the first step
-        parts = [lr, ops.flow_warp(last_key, flow)]
+        parts = [lr, self._align(last_key, flow)]
         if self.with_cat:
             parts.append(prev_out)
         if cur is not None:
             parts.append(cur)
         gate = prev_was_key.float() if (self.align_key and self.with_cat) else None
-        out = resblocks(parts, par, mixed, ops, gate)
-        last_key = torch.where(is_key[:, None, None, None], out, last_key)
+        if self.warp_impl == "pf" and len(resblocks.main):
+            # the carry select folded into the last block (K3s)
+            out, last_key = resblocks(parts, par, mixed, ops, gate,
+                                      key_select=(last_key, is_key.float()))
+        else:
+            out = resblocks(parts, par, mixed, ops, gate)
+            last_key = torch.where(is_key[:, None, None, None], out, last_key)
         y = None
         if cur is not None:
             y = ops.head(out, hwio(self.conv_hr.weight), self.conv_hr.bias,
@@ -155,7 +186,10 @@ class PnPVCVE(nn.Module):
 
     def _sweep(self, resblocks, lrs, flows, par, keyframe, mixed, cur=None):
         """One propagation sweep over the frames in list order; returns the
-        per-step block-stack outputs (and, with ``cur``, the heads' outputs)."""
+        per-step block-stack outputs without ``cur`` (the backward sweep's,
+        which the forward sweep reads) and the heads' outputs with it (the
+        forward sweep keeps only its carry: at b=4, 8 frames of 720p in
+        float32 its step outputs would hold 7.5 GB more)."""
         prev_out = torch.zeros(lrs[0].shape[:3] + (self.mid_channels,),
                                dtype=lrs.dtype, device=lrs.device)
         last_key = prev_out
@@ -171,8 +205,9 @@ class PnPVCVE(nn.Module):
             else:
                 out, last_key, y = self._step(*args)
             prev_out, prev_was_key = out, keyframe[i]
-            outs.append(out)
-            if y is not None:
+            if y is None:
+                outs.append(out)
+            else:
                 ys.append(y)
         return outs, ys
 
@@ -187,6 +222,17 @@ class PnPVCVE(nn.Module):
             mvs = _pad_hw(mvs, pad_h, pad_w, "constant")
             par_map = _pad_hw(par_map, pad_h, pad_w, "constant")
         c = self.mid_channels
+        h, w = lrs.shape[2:4]
+        if self.warp_impl == "pf":
+            # the JAX model's guards for its PF-resident serving pipeline
+            if not self.use_pallas_kernels:
+                raise ValueError(
+                    "warp_impl='pf' requires use_pallas_kernels=True, deform='vos', vsr=False"
+                )
+            if c != 64 or h % 16 or w % 16:
+                raise ValueError(
+                    f"warp_impl='pf' needs mid_channels=64 and h,w % 16 == 0, got c={c}, {h}x{w}"
+                )
 
         weights = self.BasePredictor(base_qps if self.use_base_qp else qps)
         if self.with_bias and self.with_se:

@@ -152,8 +152,108 @@ def test_model_kernel_path_matches_plain_path(cuda):
         counts = dict(LAUNCHES)
         model.ops = PLAIN
         want = model(**inputs)
-    assert counts == {"warp": 2 * t, "input_conv": 2 * t, "drt_block": 2 * 2 * t, "head": t}
+    assert counts == {"warp": 2 * t, "warp_block": 0, "input_conv": 2 * t,
+                      "drt_block": 2 * 2 * t, "drt_block_select": 0, "head": t}
     assert got.shape == (b, t, h, w, 3)
+    assert float((got - want).abs().max()) <= 3e-3
+
+
+BLOCK_SHAPES = [(2, 40, 56), (1, 64, 128)]  # K1b needs multiples of 8
+
+
+@pytest.mark.parametrize("max_mv", [16.0, None])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", BLOCK_SHAPES)
+def test_warp_block_kernel(cuda, shape, dtype, max_mv):
+    """K1b on block-constant flows up to +-24 px (the 'pf' clamp bites) and
+    on a field that is not block-constant (each block reads its top-left
+    pixel)."""
+    gen = torch.Generator().manual_seed(8)
+    b, h, w = shape
+    x = _feat(gen, (b, h, w, 64), dtype, cuda)
+    fb = torch.rand((b, h // 8, w // 8, 2), generator=gen) * 48 - 24
+    flow = fb.repeat_interleave(8, 1).repeat_interleave(8, 2)
+    flow[:, 1::8] += 0.5  # not the top-left row: read by no block
+    flow = flow.to(cuda, dtype)
+    reset_launches()
+    got = KERNELS.flow_warp_block(x, flow, max_mv)
+    assert LAUNCHES["warp_block"] == 1
+    _check(got, PLAIN.flow_warp_block(x.float(), flow.float(), max_mv), dtype, 0.08, 0.01)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_drt_block_select_kernel(cuda, shape, dtype):
+    """K3s: out as K3's; new_last_key bitwise the select of its own out, one
+    keyframe sample and one not."""
+    gen = torch.Generator().manual_seed(9)
+    b, h, w = shape
+    x = _feat(gen, (b, h, w, 64), dtype, cuda)
+    last_key = _feat(gen, (b, h, w, 64), dtype, cuda)
+    par = (torch.rand((b, h, w, 3), generator=gen) > 0.5).to(cuda, dtype)
+    params = _block(gen, b, cuda)
+    is_key = torch.tensor([1.0, 0.0][:b], device=cuda)
+    for key in (is_key, 1.0 - is_key):
+        reset_launches()
+        out, new_lk = KERNELS.drt_block_select(x, par, *params, last_key, key)
+        assert LAUNCHES["drt_block_select"] == 1 and sum(LAUNCHES.values()) == 1
+        _check(out, PLAIN.drt_block(x.float(), par.float(), *params), dtype)
+        want = torch.where(key.reshape(-1, 1, 1, 1) > 0.5, out, last_key)
+        assert torch.equal(new_lk.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+def test_drt_block_select_function_grads(cuda):
+    """K3s through its Function launches once and gives plain autograd's
+    gradients through both outputs."""
+    gen = torch.Generator().manual_seed(10)
+    b, h, w = 2, 20, 36
+
+    def t(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(cuda).requires_grad_(True)
+
+    par = (torch.rand((b, h, w, 3), generator=gen) > 0.5).float().to(cuda)
+    args = [t((b, h, w, 64)), par, t((b, 3, 3, 64, 64), 0.03), t((b, 64), 0.1), t((b, 64)),
+            t((64, 3, 64), 0.03), t((3, 3, 64, 64), 0.03), t((64,), 0.1), t((b, h, w, 64)),
+            torch.tensor([1.0, 0.0], device=cuda)]
+    wrt = [a for a in args if a.requires_grad]
+    g = [torch.randn((b, h, w, 64), generator=gen).to(cuda) for _ in range(2)]
+    reset_launches()
+    got = torch.autograd.grad(KERNELS.drt_block_select(*args), wrt, g)
+    torch.cuda.synchronize()
+    assert LAUNCHES["drt_block_select"] == 1 and sum(LAUNCHES.values()) == 1
+    want = torch.autograd.grad(PLAIN.drt_block_select(*args), wrt, g)
+    for a, r in zip(got, want):
+        assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max())
+
+
+def test_model_pf_kernel_path_matches_plain_path(cuda):
+    """The serving model (warp_impl='pf', 64 channels, 2 blocks) through
+    K1b, K2, K3, K3s and K4 against its plain path, MVs up to +-24 px."""
+    from pnp_vcve_torch.core.builder import build_generator
+
+    model = build_generator(dict(type="PnPVCVE", mid_channels=64, num_blocks=2, num_experts=3,
+                                 use_pallas_kernels=True, warp_impl="pf"), device=cuda)
+    rng = np.random.default_rng(11)
+    b, t, h, w = 2, 4, 48, 64
+    fb = rng.uniform(-24, 24, (b, t, h // 8, w // 8, 4)).astype(np.float32)
+    inputs = dict(
+        lrs=rng.random((b, t, h, w, 3), np.float32),
+        qps=rng.random((b, t), np.float32),
+        slices=np.array([[73.0, 66.0, 80.0, 66.0], [66.0, 80.0, 66.0, 66.0]], np.float32),
+        mvs=np.repeat(np.repeat(fb, 8, axis=2), 8, axis=3),
+        base_qps=np.full((b, t), 35 / 255.0, np.float32),
+        par_map=((rng.random((b, t, h, w, 3)) > 0.5) / 255.0).astype(np.float32),
+    )
+    inputs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda) for k, v in inputs.items()}
+    with torch.inference_mode():
+        reset_launches()
+        got = model(**inputs)
+        counts = dict(LAUNCHES)
+        model.ops = PLAIN
+        want = model(**inputs)
+    assert counts == {"warp": 0, "warp_block": 2 * t, "input_conv": 2 * t, "drt_block": 2 * t,
+                      "drt_block_select": 2 * t, "head": t}
     assert float((got - want).abs().max()) <= 3e-3
 
 
@@ -239,7 +339,8 @@ def test_model_grads_kernel_path_match_plain_path(cuda):
         if ops is KERNELS:
             counts = dict(LAUNCHES)
         grads[ops is KERNELS] = {n: p.grad.clone() for n, p in model.named_parameters()}
-    assert counts == {"warp": 4 * t, "input_conv": 4 * t, "drt_block": 8 * t, "head": 2 * t}
+    assert counts == {"warp": 4 * t, "warp_block": 0, "input_conv": 4 * t, "drt_block": 8 * t,
+                      "drt_block_select": 0, "head": 2 * t}
     for n, g in grads[True].items():
         ref = grads[False][n]
         assert float((g - ref).abs().max()) <= 1e-3 * float(ref.abs().max()), n

@@ -300,20 +300,43 @@ def test_train_cli_resume_equals_uninterrupted_run(fixture_root, tmp_path):
 
 
 def test_port_and_clis_import_no_jax(fixture_root, tmp_path):
-    """One process imports every module of pnp_vcve_torch and runs both CLIs
-    on the CPU; neither jax nor any pnp_vcve_tpu module gets imported."""
+    """One process imports every module of pnp_vcve_torch (serving and apis
+    among them), runs both CLIs on the CPU, a batched dispatch, the serving
+    curve, the packager and the handler; neither jax nor any pnp_vcve_tpu
+    module gets imported."""
     cfg = _write_cli_cfg(tmp_path, fixture_root)
+    ckpt = tmp_path / "w" / "ckpt" / "1.pth"
     code = f"""
 import importlib, pkgutil, sys
 sys.path[:0] = [{str(REPO)!r}, {str(REPO / 'tools')!r}]
+import numpy as np
 import pnp_vcve_torch
 mods = [m.name for m in pkgutil.walk_packages(pnp_vcve_torch.__path__, "pnp_vcve_torch.")]
 for m in mods:
     importlib.import_module(m)
-import torch_test, torch_train
+import torch_test, torch_train, torch_serving_curve, torch_pnp2servable, torch_serving_handler
+import torch_kernel_bounds
+from pnp_vcve_torch import apis, serving
 torch_train.main([{str(cfg)!r}, "--device", "cpu", "--work-dir", {str(tmp_path / 'w')!r},
                   "--total-iters", "1"])
-torch_test.main([{str(cfg)!r}, {str(tmp_path / 'w' / 'ckpt' / '1.pth')!r}, "--device", "cpu"])
+torch_test.main([{str(cfg)!r}, {str(ckpt)!r}, "--device", "cpu"])
+model = apis.init_model({str(cfg)!r}, {str(ckpt)!r}, device="cpu")
+run = serving.batched_forward_executor(model.generator)
+sample = dict(lq=np.zeros((2, 8, 8, 3), np.float32), qps=np.zeros(2, np.float32),
+              slices=np.full(2, 73.0, np.float32), mvs=np.zeros((2, 8, 8, 4), np.float32),
+              base_qps=np.zeros(2, np.float32), partitions=np.zeros((2, 8, 8, 3), np.float32))
+assert [o.shape for o in run([sample, sample])] == [(2, 8, 8, 3)] * 2
+torch_serving_curve.main(["--device", "cpu", "--config", {str(cfg)!r}, "--max-b", "1",
+                          "--t", "2", "--hw", "8", "8", "--iters", "1"])
+srv = torch_pnp2servable.main([{str(cfg)!r}, {str(ckpt)!r}, "--output-folder",
+                               {str(tmp_path / 'srv')!r}])
+h = torch_serving_handler.PnPServingHandler()
+h.initialize(srv, device="cpu")
+import io
+from PIL import Image
+buf = io.BytesIO()
+Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="PNG")
+assert Image.open(io.BytesIO(h.handle(buf.getvalue()))).size == (8, 8)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pnp_vcve_tpu")]
 print("MODULES", len(mods), "BAD", bad)
 """
@@ -423,7 +446,8 @@ def test_model_through_functions(monkeypatch, remat):
         if ops is K.KERNELS:
             got = dict(counts)
     t, nb = 4, SMALL["num_blocks"]
-    per_pass = {"warp": 2 * t, "input_conv": 2 * t, "drt_block": 2 * nb * t, "head": t}
+    per_pass = {"warp": 2 * t, "warp_block": 0, "input_conv": 2 * t, "drt_block": 2 * nb * t,
+                "drt_block_select": 0, "head": t}
     assert got == {k: v * (2 if remat else 1) for k, v in per_pass.items()}
     for n, g in grads[True].items():
         torch.testing.assert_close(g, grads[False][n], rtol=1e-5, atol=1e-7)
