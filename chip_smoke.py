@@ -6,20 +6,25 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the four kernels from pnp_vcve_torch/kernels/csrc (nvcc, sm_90a)
+2. build the kernels from pnp_vcve_torch/kernels/csrc (nvcc, sm_90a)
    and print the compiler's register / shared-memory / spill report;
 3. each kernel against its plain PyTorch version at the main path's shapes
    (b=1, 720x1280, 64 channels), at b=4 on a smaller frame (256x448) and at
    ragged sizes (36x52; 40x56 for K1b, which needs multiples of 8), in
    float32 (TF32 off; max|diff| <= 1e-4 std) and bfloat16 (max < 0.02 std,
-   mean < 0.002 std; the warps 0.08 / 0.01; input conv max 0.04 std, see
-   BF16_BOUNDS); K1b on block-constant flows up to +-24 px, so that its
-   +-16 px clamp bites; K3s's new_last_key bitwise equal to ``torch.where``
-   on its own out for a keyframe sample and a non-keyframe one. At 720p
-   each is timed with CUDA events in turns (plain, kernel, kernel, plain),
-   beside one PyTorch call that computes the same function where there is
-   one (``F.grid_sample`` for the warps, one ``F.conv2d`` over the
-   concatenated parts for the input conv), its yardsticks (K1b: K1 on the
+   mean < 0.002 std; the warps 0.08 / 0.01; the input conv's and K5's max
+   0.04 std, see BF16_BOUNDS); K1b on block-constant flows up to +-24 px,
+   so that its +-16 px clamp bites; K3s's new_last_key bitwise equal to ``torch.where``
+   on its own out for a keyframe sample and a non-keyframe one; K3 also
+   called with the argument order of the TPU's per-block DRT kernels
+   (``drt_block_pallas``, ``drt_block_packed``); K5 (the per-sample 3x3
+   conv) at 64 -> 64, at 720p also for b=2 with its own kernels per
+   sample, and at the ragged size for c_in in {3, 8, 64} and c_out in
+   {8, 64}. At 720p each is timed with CUDA events in turns (plain,
+   kernel, kernel, plain), beside one PyTorch call that computes the same
+   function where there is one (``F.grid_sample`` for the warps, one
+   ``F.conv2d`` over the concatenated parts for the input conv, one
+   ``F.conv2d`` with ``groups=b`` for K5), its yardsticks (K1b: K1 on the
    same flow; K3s: K3 plus ``torch.where``) and the card's bound for the
    work (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
    whichever is larger);
@@ -72,15 +77,25 @@ Phases (any failure raises and the script exits non-zero):
    ``tools/torch_serving_handler.py`` on a free local port; 3 POSTed PNG
    frames of 720x1280 must come back as PNGs equal, as uint8, to
    ``pnp_vcve_torch.apis.restoration_inference`` on the same frames, with
-   the serving path's launches per frame; the health check must answer.
+   the serving path's launches per frame; the health check must answer;
+11. the block forms: the training config at full width (64 channels,
+   8 blocks, 6 experts) built through ``build_restorer`` with
+   blocktype='drt_woqp', one_layer=False and channel_first=False in turn,
+   the parity fixture's weights where they fit: each kernel path against
+   its plain path on one clip of 8 frames at 256x448 (max|diff| <= 3e-3),
+   then a 720p clip of 8 frames, once untimed and twice timed, with the
+   last run's launch counts, and for the K5 forms once more under
+   ``torch.profiler`` (device busy time, idle share, K5's share) (per
+   frame 2 K1, 2 K2, 1 K4 and 16 K3 under 'drt_woqp', 32 K5 in the other
+   two); for one_layer=False also phase 6's gradient check at 192x256.
 
 Each phase prints its wall time.
 The line before the last is a JSON object with each kernel's launches
 (``launches``: all the driven paths together, each path's counts zeroed just
 before it and read just after; then each path's own: the serving path of
 phase 4, the batched path of phase 8, the handler of phase 10, training in
-phase 7), its error, its time beside the plain version's, the library
-call's, its yardsticks' and the bound; the last line is
+phase 7, each block form's last 720p run in phase 11), its error, its
+time beside the plain version's, the library call's, its yardsticks' and the bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -108,10 +123,14 @@ HANDLER_FRAMES = 3
 # bfloat16 (max, mean) bounds in units of std(ref): tests/test_tpu_parity.py
 # :43-51, the warp's :71 and the input conv's max from :137 -- its leaky-ReLU
 # output reaches ~9.6 std, where bfloat16's own half-ulp rounding of the
-# output is already 0.019-0.038 std
+# output is already 0.019-0.038 std. K5's max takes the same 0.04: its output
+# (no residual, the gain folded in) reaches 5.5 std, and an output in [2, 4)
+# at std 0.378 rounds by up to 2^-7 = 0.0207 std (measured 0.00777)
 BF16_BOUNDS = {"warp": (0.08, 0.01), "warp_block": (0.08, 0.01), "input_conv": (0.04, 0.002),
                "drt_block": (0.02, 0.002), "drt_block_select": (0.02, 0.002),
-               "head": (0.02, 0.002)}
+               "head": (0.02, 0.002), "conv3x3": (0.04, 0.002)}
+# K5 at the ragged size: the 3-channel frame, 8 channels and the model's 64
+CONV_RAGGED_CHANNELS = [(ci, co) for ci in (3, 8, 64) for co in (8, 64)]
 
 # FLOP per output pixel at 64 channels (2 per multiply-add), from the shapes
 FLOP_PER_PIXEL = {
@@ -120,6 +139,7 @@ FLOP_PER_PIXEL = {
     "drt_block": 2 * (9 * 64 * 64 + 3 * 64 * 64 + 9 * 64 * 64),
     "drt_block_select": 2 * (9 * 64 * 64 + 3 * 64 * 64 + 9 * 64 * 64),
     "head": 2 * 9 * 64 * (64 + 3),
+    "conv3x3": 2 * 9 * 64 * 64,
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM3, float32 on
 # the CUDA cores, dense bf16 on the tensor cores
@@ -138,7 +158,21 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
     "drt_block_select": ("pnp_vcve_torch/kernels/csrc/drt_block.cu",
                          "pnp_vcve_tpu/kernels/drt_stack.py:278"),
     "head": ("pnp_vcve_torch/kernels/csrc/head.cu", "pnp_vcve_tpu/kernels/drt_stack.py:1058"),
+    "conv3x3": ("pnp_vcve_torch/kernels/csrc/conv3x3.cu",
+                "pnp_vcve_tpu/kernels/conv_block.py:86"),
 }
+# the other TPU functions a kernel computes (B8, B9): the same math in another layout
+ALSO_REPLACES = {
+    "drt_block": ["pnp_vcve_tpu/kernels/drt_packed.py:149",
+                  "pnp_vcve_tpu/kernels/conv_block.py:180"],
+    "conv3x3": ["pnp_vcve_tpu/kernels/conv_packed.py:48",
+                "pnp_vcve_tpu/kernels/conv_packed.py:118"],
+}
+# phase 11: the block forms of the training config (models/bae.py)
+BLOCK_FORMS = {"drt_woqp": dict(blocktype="drt_woqp"), "one_layer_false": dict(one_layer=False),
+               "channel_first_false": dict(channel_first=False)}
+FORMS_HW = (256, 448)
+GRAD_B, GRAD_T, GRAD_HW = 2, 4, (192, 256)  # phases 6 and 11
 
 
 def phase_device():
@@ -157,7 +191,7 @@ def phase_device():
 
 
 def phase_build():
-    from pnp_vcve_torch.kernels.build import library
+    from pnp_vcve_torch.kernels.build import SMEM_REPORT, library
 
     t0 = time.perf_counter()
     lib = library()
@@ -166,7 +200,7 @@ def phase_build():
     for line in lib.log.splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling" in line) or "spill" in line:
             print("[build]", line.strip())
-    smem = {n: getattr(lib.lib, f"pnp_{n}_smem")() for n in ("input_conv", "drt_block", "head")}
+    smem = {n: getattr(lib.lib, f"pnp_{n}_smem")() for n in SMEM_REPORT}
     print(f"[build] dynamic shared memory per block (bytes): {smem}")
 
 
@@ -317,12 +351,57 @@ def _cases(dev, dtype, b, h, w, gen):
         yardsticks={"k3_where_ms": lambda: torch.where(
             is_key.reshape(-1, 1, 1, 1) > 0.5, KERNELS.drt_block(x, par, *blk), last_key)},
         check=select_check, reps=5, bytes=nbytes(x, par, *blk, last_key, is_key, x, x)))
+    if (h, w) in (MAIN_HW, RAGGED_HW):
+        # K3 called with drt_block_pallas's / drt_block_packed's argument order
+        # (x, par, dyn_kernels, dyn_biases, par_kernel, conv1_kernel, conv1_bias,
+        # gamma), the B8/B9 entry: the same wrapper, its arguments reordered
+        def pallas_order(fn):
+            return lambda x_, p_, dk, db, pk, k1, b1, g: fn(x_, p_, dk, db, g, pk, k1, b1)
+
+        jargs = (blk[0], blk[1], blk[3], blk[4], blk[5], blk[2])
+        cases.append(dict(
+            label="drt_block (drt_block_pallas argument order)", name="drt_block",
+            kern=lambda: pallas_order(KERNELS.drt_block)(x, par, *jargs),
+            ref32=lambda: pallas_order(PLAIN.drt_block)(x.float(), par.float(), *jargs),
+            plain=lambda: pallas_order(PLAIN.drt_block)(x, par, *jargs), library=None,
+            yardsticks={}, check=None, reps=5, time=False, bytes=nbytes(x, par, *blk, x)))
     hd = (wt((3, 3, 64, 64), 0.03), wt((64,), 0.1), wt((3, 3, 64, 3), 0.06), wt((3,), 0.1))
     cases.append(dict(
         label="head", name="head", kern=lambda: KERNELS.head(x, *hd),
         ref32=lambda: PLAIN.head(x.float(), *hd), plain=lambda: PLAIN.head(x, *hd),
         library=None, yardsticks={}, check=None, reps=5,
         bytes=nbytes(x, *hd) + b * h * w * 3 * x.element_size()))
+
+    def conv_case(bb, c_in, c_out, timed):
+        """K5 with per-sample kernels, biases and gains; the library call is
+        one F.conv2d with groups=bb on the same kernels (the gain folded in),
+        the grouped-conv form of ops/dynamic_conv.py: per_sample_conv."""
+        xc = x if (bb, c_in) == (b, 64) else torch.randn((bb, h, w, c_in), generator=gen).to(
+            dev, dtype)
+        k, bias = wt((bb, 3, 3, c_in, c_out), 0.03), wt((bb, c_out), 0.1)
+        g = torch.rand((bb, c_out), generator=gen).to(dev)
+        xg = xc.permute(0, 3, 1, 2).reshape(1, bb * c_in, h, w).contiguous()
+        wg = ((k * g[:, None, None, None, :]).permute(0, 4, 3, 1, 2)
+              .reshape(bb * c_out, c_in, 3, 3).to(dtype).contiguous())
+        bg = (bias * g).reshape(-1).to(dtype)
+        main = (bb, c_in, c_out) == (b, 64, 64)
+        return dict(
+            label="conv3x3" if main else f"conv3x3 ({c_in}->{c_out}, b={bb})", name="conv3x3",
+            kern=lambda: KERNELS.conv3x3(xc, k, bias, g),
+            ref32=lambda: PLAIN.conv3x3(xc.float(), k, bias, g),
+            plain=lambda: PLAIN.conv3x3(xc, k, bias, g),
+            library=lambda: F.conv2d(xg, wg, bg, padding=1, groups=bb),
+            yardsticks={}, check=None, reps=5, time=timed,
+            bytes=nbytes(xc, k, bias, g) + bb * h * w * c_out * xc.element_size())
+
+    # K5 at the model's 64 -> 64; at 720p also two samples with their own
+    # kernels; at the ragged size every pair of CONV_RAGGED_CHANNELS
+    cases.append(conv_case(b, 64, 64, True))
+    if (b, h, w) == (1, *MAIN_HW):
+        cases.append(conv_case(2, 64, 64, False))
+    if (h, w) == RAGGED_HW:
+        cases += [conv_case(b, ci, co, False) for ci, co in CONV_RAGGED_CHANNELS
+                  if (ci, co) != (64, 64)]
     return cases
 
 
@@ -346,7 +425,7 @@ def phase_kernels(dev):
                 err = _compare(tag, c["kern"](), c["ref32"](), dtype, BF16_BOUNDS[c["name"]])
                 if c["check"] is not None:
                     print(f"[kernel] {tag}: {c['check']()}")
-                if not timed:
+                if not (timed and c.get("time", True)):
                     continue
                 p1, k1, k2, p2 = (_timed(f, c["reps"])
                                   for f in (c["plain"], c["kern"], c["kern"], c["plain"]))
@@ -502,14 +581,16 @@ def _flagship_generator(config, dev):
     return model, cfg
 
 
-def _launches_per_pass(t, num_blocks, warp_impl="padgather"):
+def _launches_per_pass(t, num_blocks, warp_impl="padgather", fused_blocks=True):
     """Kernel launches of one forward over t frames: each sweep step warps
     (K1b under 'pf', K1 in training), runs the input conv and the blocks
-    (under 'pf' the last is K3s); the forward sweep's steps run the head."""
+    (under 'pf' the last is K3s; the unfused block forms run two K5 per
+    block instead of one K3); the forward sweep's steps run the head."""
     pf = warp_impl == "pf"
+    k3 = 2 * (num_blocks - pf) * t if fused_blocks else 0
     return {"warp": 0 if pf else 2 * t, "warp_block": 2 * t if pf else 0,
-            "input_conv": 2 * t, "drt_block": 2 * (num_blocks - pf) * t,
-            "drt_block_select": 2 * t if pf else 0, "head": t}
+            "input_conv": 2 * t, "drt_block": k3, "drt_block_select": 2 * t if pf else 0,
+            "head": t, "conv3x3": 0 if fused_blocks else 4 * num_blocks * t}
 
 
 def phase_model_vs_plain(dev):
@@ -556,6 +637,23 @@ def phase_grads(dev):
     (forward kernels, plain-version backward in each Function, the remat
     recompute) and through the plain path; every parameter's gradient is
     held to the plain one."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, cfg = _flagship_generator("HR_davis_LR_128x128.py", dev)
+    gen_cfg = cfg.model["generator"]
+    return _grad_check("grad", model, gen_cfg,
+                       _launches_per_pass(GRAD_T, gen_cfg["num_blocks"]), SEED + 6, dev)
+
+
+def _grad_check(tag, model, gen_cfg, per_pass, seed, dev):
+    """One Charbonnier loss on GRAD_B clips of GRAD_T frames at GRAD_HW
+    through the kernels and through the plain path (float32, TF32 off):
+    the kernel path's launches must be ``per_pass`` (twice with remat; none
+    in the backward), every parameter's gradient within GRAD_TOL of its
+    largest plain entry and the losses within LOSS_RTOL. Returns the worst
+    ratio."""
     import math
 
     import numpy as np
@@ -564,11 +662,8 @@ def phase_grads(dev):
     from pnp_vcve_torch.kernels import KERNELS, LAUNCHES, PLAIN, reset_launches
     from pnp_vcve_torch.train.losses import charbonnier_loss
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    model, cfg = _flagship_generator("HR_davis_LR_128x128.py", dev)
-    rng = np.random.default_rng(SEED + 6)
-    b, t, h, w = 2, 4, 192, 256
+    rng = np.random.default_rng(seed)
+    (b, t), (h, w) = (GRAD_B, GRAD_T), GRAD_HW
     inputs = _clip_inputs(rng, b, t, h, w, dev)
     gt = torch.from_numpy(rng.random((b, t, h, w, 3), dtype=np.float32)).to(dev)
     runs = {}
@@ -583,10 +678,9 @@ def phase_grads(dev):
                                 {n: p.grad.clone() for n, p in model.named_parameters()})
     model.ops = KERNELS
     (loss_k, counts, g_k), (loss_p, _, g_p) = runs[True], runs[False]
-    gen_cfg = cfg.model["generator"]
     passes = 2 if gen_cfg.get("remat", True) else 1
-    want = {k: passes * v for k, v in _launches_per_pass(t, gen_cfg["num_blocks"]).items()}
-    print(f"[grad] launches {counts} (expected {want}: the forward"
+    want = {k: passes * v for k, v in per_pass.items()}
+    print(f"[{tag}] launches {counts} (expected {want}: the forward"
           f"{' and the remat recompute' if passes == 2 else ''}; none in the backward)")
     if counts != want:
         raise AssertionError("the gradient run did not go through the kernels as expected")
@@ -599,7 +693,7 @@ def phase_grads(dev):
         ratios[n] = diff / scale if scale else (0.0 if diff == 0 else math.inf)
     worst = max(ratios, key=ratios.get)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    print(f"[grad] {len(ratios)} parameter tensors, b={b} t={t} {h}x{w} float32 (TF32 off): "
+    print(f"[{tag}] {len(ratios)} parameter tensors, b={b} t={t} {h}x{w} float32 (TF32 off): "
           f"loss {loss_k:.7f} vs plain {loss_p:.7f} (relative {loss_rel:.3g} <= {LOSS_RTOL}); "
           f"worst tensor {worst}: max|g_kern - g_plain| = {ratios[worst]:.3g} x max|g_plain| "
           f"(<= {GRAD_TOL})")
@@ -925,13 +1019,109 @@ def phase_handler(dev):
     return counts
 
 
-def _print_breakdown(prof, window_s, steady_s):
-    """Device time of the profiled iteration by kernel: the device's busy
-    time and idle share in the profiled window and against an unprofiled
-    iteration, K1-K4's share of the device time, the top kernels."""
+def _block_form_generator(form, dev):
+    """The training config's generator in a block form, through the builder
+    and the restorer (``build_restorer``), with the parity fixture's weights
+    where their names and shapes fit (the forms' own conv2 or conv1 keep
+    their seeded init); returns the generator, its config and the count of
+    tensors loaded out of all."""
+    from pnp_vcve_torch.core.builder import build_restorer
+    from pnp_vcve_torch.core.checkpoint import read_state_dict
+    from pnp_vcve_torch.core.config import Config
+
+    cfg = Config.fromfile(CONFIGS / "HR_davis_LR_128x128.py")
+    gen_cfg = {**cfg.model["generator"], **BLOCK_FORMS[form]}
+    model = build_restorer({**cfg.model, "generator": gen_cfg}, device=dev).generator
+    own = model.state_dict()
+    fit = {k: v for k, v in read_state_dict(ROOT / "tests/fixtures/parity/state_dict.npz").items()
+           if k in own and own[k].shape == v.shape}
+    model.load_state_dict(fit, strict=False)
+    return model, gen_cfg, len(fit), len(own)
+
+
+def phase_block_forms(dev, smi):
+    """The training config in the block forms 'drt_woqp', one_layer=False and
+    channel_first=False at full width: each kernel path against its plain
+    path on one clip of 8 frames at 256x448 (TOL_MODEL), then a 720p clip
+    of 8 frames, once to warm up and twice timed, with the last run's
+    launch counts (the fused 'drt_woqp' on K3, the other two on K5); one_layer=False's gradients through the Functions
+    (K5's Conv3x3Function among them) against the plain path. Returns the
+    launches of each form's last 720p run, summed over the forms."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pnp_vcve_torch.kernels import KERNELS, LAUNCHES, PLAIN, reset_launches
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t = FRAMES
+    rng = np.random.default_rng(SEED + 11)
+    small = _clip_inputs(rng, 1, t, *FORMS_HW, dev)
+    big = _clip_inputs(rng, 1, t, *MAIN_HW, dev)
+    total = {}
+    for form in BLOCK_FORMS:
+        model, gen_cfg, n_fit, n_all = _block_form_generator(form, dev)
+        want = _launches_per_pass(t, gen_cfg["num_blocks"],
+                                  fused_blocks=gen_cfg.get("one_layer", True)
+                                  and gen_cfg.get("channel_first", True))
+        with torch.inference_mode():
+            reset_launches()
+            got = model(**small)
+            counts_small = dict(LAUNCHES)
+            model.ops = PLAIN
+            ref = model(**small)
+            model.ops = KERNELS
+            err = float((got - ref).abs().max())
+            del got, ref
+            # one untimed 720p clip first: the allocator's first 720p blocks
+            # cost a quarter of a clip's time, which no later clip pays
+            model(**big)
+            walls = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                out = model(**big)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                counts = dict(LAUNCHES)
+            if not want["drt_block"]:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    model(**big)
+                    torch.cuda.synchronize()
+        ok = bool(torch.isfinite(out).all()) and out.shape == (1, t, *MAIN_HW, 3)
+        del out
+        print(f"[forms] {form}: {n_fit} of {n_all} tensors from the parity fixture; kernel path "
+              f"vs plain path, {t} frames {FORMS_HW[0]}x{FORMS_HW[1]} float32: max|diff| "
+              f"{err:.3g} (<= {TOL_MODEL}); {smi}: {t} frames at {MAIN_HW[0]}x{MAIN_HW[1]} "
+              f"float32 in {walls[0]:.3f} / {walls[1]:.3f} s = "
+              f"{t / walls[0]:.3f} / {t / walls[1]:.3f} frames/s; launches {counts} "
+              f"(expected {want})")
+        if not ok or err > TOL_MODEL:
+            raise AssertionError(f"{form}: kernel path disagrees with its plain path or 720p "
+                                 "output not finite/of the expected shape")
+        if counts != want or counts_small != want or (want["conv3x3"] and not counts["conv3x3"]):
+            raise AssertionError(f"{form}: the forward did not run through the kernels")
+        if not want["drt_block"]:
+            _print_form_profile(form, prof, walls[-1])
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if form == "one_layer_false":
+            _grad_check("forms grad", model, gen_cfg,
+                        _launches_per_pass(GRAD_T, gen_cfg["num_blocks"], fused_blocks=False),
+                        SEED + 12, dev)
+        del model
+        torch.cuda.empty_cache()
+    return total
+
+
+def _device_time(prof):
+    """``(busy s, {kernel name: s})`` of the device in a profile (busy: the
+    union of the kernels' intervals), or None where it recorded no device
+    event."""
     from torch.autograd import DeviceType
 
-    ours = ("warp_kernel", "input_conv_kernel", "drt_block_kernel", "head_kernel")
     spans, by_name = [], {}
     for e in prof.events():
         # the ProfilerStep annotation is mirrored on the device's timeline
@@ -941,17 +1131,48 @@ def _print_breakdown(prof, window_s, steady_s):
         spans.append((start, end))
         by_name[e.name] = by_name.get(e.name, 0.0) + (end - start) * 1e-6
     if not spans:
-        print("[train] profiler: no device events recorded; breakdown not measured")
-        return
+        return None
     busy, reach = 0.0, None
-    for start, end in sorted(spans):  # the union of the kernels' intervals
+    for start, end in sorted(spans):
         if reach is None or start > reach:
             busy += end - start
             reach = end
         elif end > reach:
             busy += end - reach
             reach = end
-    busy *= 1e-6
+    return busy * 1e-6, by_name
+
+
+def _print_form_profile(form, prof, wall_s):
+    """Device time of one profiled 720p clip of an unfused block form: busy
+    time and idle share against the unprofiled clip, K5's share and the
+    port's kernels' share of the device time, the top kernels."""
+    found = _device_time(prof)
+    if found is None:
+        print(f"[forms] {form}: profiler recorded no device events; breakdown not measured")
+        return
+    busy, by_name = found
+    total = sum(by_name.values())
+    k5 = sum(v for n, v in by_name.items() if "pnp::conv3x3_kernel" in n)
+    ours = sum(v for n, v in by_name.items() if "pnp::" in n)
+    print(f"[forms] {form}, one profiled 720p clip: device busy {busy:.4f} s, idle share "
+          f"{max(0.0, 1 - busy / wall_s):.4f} of the unprofiled {wall_s:.4f} s clip; K5 "
+          f"{k5:.4f} s = {k5 / total:.4f} of device time, K1-K5 {ours / total:.4f}, the rest "
+          f"{total - ours:.4f} s (the partition path, ReLU, residual and premix as torch ops)")
+    for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[forms]   {v:.4f} s {v / total:.4f}  {name[:110]}")
+
+
+def _print_breakdown(prof, window_s, steady_s):
+    """Device time of the profiled iteration by kernel: the device's busy
+    time and idle share in the profiled window and against an unprofiled
+    iteration, K1-K4's share of the device time, the top kernels."""
+    ours = ("warp_kernel", "input_conv_kernel", "drt_block_kernel", "head_kernel")
+    found = _device_time(prof)
+    if found is None:
+        print("[train] profiler: no device events recorded; breakdown not measured")
+        return
+    busy, by_name = found
     total = sum(by_name.values())
     k = sum(v for n, v in by_name.items() if any(o in n for o in ours))
     print(f"[train] profiled iteration (resumed run, iteration {TRAIN_ITERS}): device busy "
@@ -989,11 +1210,14 @@ def main():
     batched_counts = phase("8 batched serving", phase_batched, dev, smi)
     phase("9 serving curve", phase_curve)
     handler_counts = phase("10 handler", phase_handler, dev)
+    forms_counts = phase("11 block forms", phase_block_forms, dev, smi)
 
     paths = {"serving_launches": counts, "batched_launches": batched_counts,
-             "handler_launches": handler_counts, "train_launches": train_counts}
+             "handler_launches": handler_counts, "train_launches": train_counts,
+             "block_forms_launches": forms_counts}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
          "launches": sum(c[name] for c in paths.values()),
          **{k: c[name] for k, c in paths.items()}, **kern[name]}
         for name, (src, rep) in KERNEL_INFO.items()

@@ -89,9 +89,6 @@ def _build_pnp_vcve(
     unported = {
         "vsr=True": vsr,
         f"deform={deform!r}": deform != "vos",
-        f"blocktype={blocktype!r}": blocktype != "drt",
-        "one_layer=False": not one_layer,
-        "channel_first=False": not channel_first,
         f"flow_inter={flow_inter!r}": flow_inter != "bilinear",
     }
     for what, hit in unported.items():
@@ -112,6 +109,9 @@ def _build_pnp_vcve(
             with_bias=with_bias,
             with_se=with_se,
             with_cat=with_cat,
+            one_layer=one_layer,
+            channel_first=channel_first,
+            blocktype=blocktype,
             align_key=align_key,
             remat=remat,
             warp_impl=warp_impl,

@@ -1,6 +1,8 @@
 """JAX param tree -> state dict under the original reference's names: the
 inverse of ``pnp_vcve_tpu/core/convert.py: convert_generator_state_dict``
-(:59-173), for the flagship generator (one_layer, deform='vos', vsr=False).
+(:59-173), for the generator with deform='vos' and vsr=False in every block
+form: conv2 an expert bank or (blocktype 'drt_woqp') a plain conv, conv1 a
+plain conv or (one_layer=False) an expert bank (the layouts of :106-120).
 
 Layouts: flax Dense ``(in, out)`` -> Linear ``(out, in)``; HWIO -> OIHW;
 expert bank ``(K, kh, kw, in, out)`` -> ``(K, out, in, kh, kw)``; the stacked
@@ -14,7 +16,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params"]
+__all__ = ["from_jax_params", "block_state_dict"]
 
 
 def _t(a) -> torch.Tensor:
@@ -29,6 +31,29 @@ def _linear(out: dict, prefix: str, p: Mapping):
 
 def _oihw(k) -> torch.Tensor:
     return _t(np.transpose(np.asarray(k), (3, 2, 0, 1)))
+
+
+def _conv_or_bank(out: dict, blk: Mapping, name: str):
+    """``blk[name]`` an expert bank, or ``blk[name + '_kernel']`` and
+    ``blk[name + '_bias']`` a plain 3x3 conv -> ``name.weight/.bias``."""
+    if name in blk:
+        bank = np.asarray(blk[name]["bank"])
+        out[f"{name}.weight"] = _t(np.transpose(bank, (0, 4, 3, 1, 2)))
+        out[f"{name}.bias"] = _t(blk[name]["bias_bank"])
+    else:
+        out[f"{name}.weight"] = _oihw(blk[f"{name}_kernel"])
+        out[f"{name}.bias"] = _t(blk[f"{name}_bias"])
+
+
+def block_state_dict(blk: Mapping) -> Dict[str, torch.Tensor]:
+    """One JAX ``DRTBlock``'s params -> the port ``DRTBlock``'s state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv_or_bank(sd, blk, "conv2")
+    _conv_or_bank(sd, blk, "conv1")
+    pk = np.asarray(blk["par_kernel"])
+    for r, name in enumerate(("conv16x16", "conv16x8", "conv8x8")):
+        sd[f"{name}.weight"] = _t(pk[:, r, :].T[:, :, None, None])
+    return sd
 
 
 def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -62,19 +87,8 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
         sd[f"{pre}.input_conv.0.bias"] = _t(rb["input_conv_bias"])
         i = 0
         while f"block{i}" in rb:
-            blk = rb[f"block{i}"]
-            if "conv1_kernel" not in blk:
-                raise NotImplementedError(
-                    "one_layer=False is not ported (ROADMAP Queue A item 2b)"
-                )
-            m = f"{pre}.main.{i}"
-            sd[f"{m}.conv2.weight"] = _t(np.transpose(np.asarray(blk["conv2"]["bank"]), (0, 4, 3, 1, 2)))
-            sd[f"{m}.conv2.bias"] = _t(blk["conv2"]["bias_bank"])
-            sd[f"{m}.conv1.weight"] = _oihw(blk["conv1_kernel"])
-            sd[f"{m}.conv1.bias"] = _t(blk["conv1_bias"])
-            pk = np.asarray(blk["par_kernel"])
-            for r, name in enumerate(("conv16x16", "conv16x8", "conv8x8")):
-                sd[f"{m}.{name}.weight"] = _t(pk[:, r, :].T[:, :, None, None])
+            sd.update({f"{pre}.main.{i}.{k}": v
+                       for k, v in block_state_dict(rb[f"block{i}"]).items()})
             i += 1
 
     fwd = params["forward"]

@@ -22,7 +22,7 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
-__all__ = ["Library", "library", "nvcc_path", "CSRC", "BUILD_ROOT"]
+__all__ = ["Library", "library", "nvcc_path", "CSRC", "BUILD_ROOT", "SMEM_REPORT"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pnp_vcve_torch"
@@ -43,7 +43,10 @@ SIGNATURES = {
     "pnp_drt_block_select": [_I] + [_P] * 11 + [_I, _I, _I, _P],
     "pnp_warp_block": [_I, _P, _P, _P, _I, _I, _I, _P],
     "pnp_head": [_I] + [_P] * 6 + [_I, _I, _I, _P],
+    "pnp_conv3x3": [_I] + [_P] * 4 + [_I] * 5 + [_P],
 }
+# kernels with a pnp_<name>_smem() entry
+SMEM_REPORT = ("input_conv", "drt_block", "head", "conv3x3")
 
 
 @dataclass
@@ -139,7 +142,7 @@ def library() -> Library:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for name in ("input_conv", "drt_block", "head"):
+    for name in SMEM_REPORT:
         fn = getattr(lib, f"pnp_{name}_smem")
         fn.argtypes = []
         fn.restype = ctypes.c_int

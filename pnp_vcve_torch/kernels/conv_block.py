@@ -1,0 +1,88 @@
+"""K5: a 'same' 3x3 convolution with per-sample kernels and biases
+(csrc/conv3x3.cu), named after the JAX module whose first function it ports.
+
+One port function serves three TPU functions that compute the same math in
+three layouts:
+
+- ``pnp_vcve_tpu/kernels/conv_block.py: conv3x3_pallas`` (:86), row bands
+  of the NHWC map;
+- ``pnp_vcve_tpu/kernels/conv_packed.py: conv3x3_packed`` (:48) and
+  ``conv3x3_packed_v2`` (:118), the pixel-pair packed layout (even w).
+
+The TPU layouts and their ``th`` row bands are not carried over: K5 takes
+the NHWC tensor as it is, for any h, w and c_in and any c_out that is a
+multiple of 8. ``drt_block_pallas`` (:180), the module's second function,
+is K3's function: :func:`pnp_vcve_torch.kernels.drt_stack.drt_block` takes
+its arguments reordered, ``(x, par, dyn_kernels, dyn_biases, gamma,
+par_kernel, conv1_kernel, conv1_bias)``.
+
+The wrapper folds an optional per-sample gain into the kernel and the bias
+(``gamma * (conv + b) == conv(.; W * gamma) + b * gamma``), so it also
+serves ``dynamic_conv2d(..., gamma=)`` (pnp_vcve_tpu/ops/dynamic_conv.py:57-119:
+the gain after the bias): the DRT blocks' expert-mixed convs with the SE
+gain. On CUDA tensors each launch runs inside :class:`Conv3x3Function`,
+whose gradients are the plain version's (``launch.plain_grads``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pnp_vcve_torch.ops.dynamic_conv import dynamic_conv2d
+from .launch import check_cuda_args, launch, on_cpu, plain_grads
+
+__all__ = ["conv3x3", "conv3x3_plain", "Conv3x3Function"]
+
+
+def conv3x3_plain(x, kernels, biases=None, gamma=None):
+    """``gamma * (conv3x3(x[b]; kernels[b]) + biases[b])`` in x's type:
+    ``x (b, h, w, c_in)``, ``kernels (b, 3, 3, c_in, c_out)``, ``biases`` and
+    ``gamma`` ``(b, c_out)`` or None."""
+    return dynamic_conv2d(x, kernels, biases, gamma=gamma)
+
+
+def _conv3x3_launch(x, kernels, biases, gamma):
+    b, h, w, c_in = x.shape
+    c_out = kernels.shape[-1]
+    if kernels.shape != (b, 3, 3, c_in, c_out) or c_out % 8:
+        raise ValueError(f"conv3x3: need kernels (b,3,3,c_in,c_out) with c_out % 8 == 0 for x "
+                         f"{tuple(x.shape)}; got {tuple(kernels.shape)}")
+    if biases.shape != (b, c_out) or gamma.shape != (b, c_out):
+        raise ValueError(f"conv3x3: need biases and gamma ({b}, {c_out}); got "
+                         f"{tuple(biases.shape)}, {tuple(gamma.shape)}")
+    gf = gamma.float()
+    wk = (kernels.float() * gf[:, None, None, None, :]).reshape(b, 9, c_in, c_out).contiguous()
+    bk = (biases.float() * gf).contiguous()
+    check_cuda_args("conv3x3", (x,), (wk, bk))
+    out = torch.empty((b, h, w, c_out), dtype=x.dtype, device=x.device)
+    return launch("conv3x3", "pnp_conv3x3", out, x, wk, bk, out, b, h, w, c_in, c_out)
+
+
+class Conv3x3Function(torch.autograd.Function):
+    """``run(x, kernels, biases, gamma)`` forward; :func:`conv3x3_plain`'s
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, run, *args):
+        ctx.save_for_backward(*args)
+        return run(*args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, *plain_grads(conv3x3_plain, ctx.saved_tensors,
+                                  ctx.needs_input_grad[1:], grad)
+
+
+def conv3x3(x, kernels, biases=None, gamma=None):
+    """K5. ``x (b, h, w, c_in)`` float32 or bfloat16; per-sample
+    ``kernels (b, 3, 3, c_in, c_out)`` (HWIO), ``biases (b, c_out)`` or None,
+    gain ``gamma (b, c_out)`` or None. Returns ``(b, h, w, c_out)`` in x's
+    type."""
+    if on_cpu(x):
+        return conv3x3_plain(x, kernels, biases, gamma)
+    b, c_out = x.shape[0], kernels.shape[-1]
+    if biases is None:
+        biases = torch.zeros((b, c_out), device=x.device)
+    if gamma is None:
+        gamma = torch.ones((b, c_out), device=x.device)
+    return Conv3x3Function.apply(_conv3x3_launch, x, kernels, biases, gamma)

@@ -5,6 +5,13 @@ They replace, in ``pnp_vcve_tpu/kernels/drt_stack.py``:
 
 - ``input_conv_pf`` (:649) -> :func:`input_conv` (K2);
 - ``_drt_block_pf`` (:305), chained 8x per step -> :func:`drt_block` (K3);
+- the same block's per-block kernels ``pnp_vcve_tpu/kernels/drt_packed.py:
+  drt_block_packed`` (:149, which JAX's ``DRTBlock`` reaches through its
+  kernel guard, models/bae.py:177-191) and ``conv_block.py:
+  drt_block_pallas`` (:180) -> :func:`drt_block` too, their arguments
+  ``(x, par, dyn_kernels, dyn_biases, par_kernel, conv1_kernel, conv1_bias,
+  gamma)`` reordered to ``(x, par, dyn_kernels, dyn_biases, gamma,
+  par_kernel, conv1_kernel, conv1_bias)``;
 - its key-select variant ``_kernel_select`` (:278, launched at :351), the
   last block of a ``'pf'`` step -> :func:`drt_block_select` (K3s, a second
   entry of the same kernel);
@@ -71,12 +78,12 @@ C = 64  # the kernels' feature width
 def premix_block_params(weights_t, gammas_t, bank, bias_bank):
     """One block's expert-mixed dynamic conv for all frames at once, hoisted
     out of both sweeps (JAX ``premix_block_params`` :1345, without the PF
-    packing): ``weights_t (t, b, E)`` routing, ``gammas_t (t, b, c)`` gains,
-    ``bank (E, c_out, c_in, 3, 3)`` and ``bias_bank (E, c_out)`` as stored
-    under the reference names -> ``{w2 (t, b, 3, 3, c_in, c_out), b2 (t, b, c),
-    g (t, b, c)}`` in float32."""
-    w2 = torch.einsum("tbe,eoiyx->tbyxio", weights_t.float(), bank.float())
-    b2 = torch.einsum("tbe,eo->tbo", weights_t.float(), bias_bank.float())
+    packing): ``weights_t (..., E)`` routing (``(t, b, E)`` in the sweeps),
+    ``gammas_t (..., c)`` gains, ``bank (E, c_out, c_in, 3, 3)`` and
+    ``bias_bank (E, c_out)`` as stored under the reference names ->
+    ``{w2 (..., 3, 3, c_in, c_out), b2 (..., c), g (..., c)}`` in float32."""
+    w2 = torch.einsum("...e,eoiyx->...yxio", weights_t.float(), bank.float())
+    b2 = torch.einsum("...e,eo->...o", weights_t.float(), bias_bank.float())
     return dict(w2=w2, b2=b2, g=gammas_t.float())
 
 

@@ -27,7 +27,7 @@ __all__ = [
 ]
 
 LAUNCHES = {"warp": 0, "warp_block": 0, "input_conv": 0, "drt_block": 0,
-            "drt_block_select": 0, "head": 0}
+            "drt_block_select": 0, "head": 0, "conv3x3": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

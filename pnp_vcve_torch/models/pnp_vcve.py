@@ -17,6 +17,9 @@ with deform='vos' and vsr=False. As in the JAX package:
 The sweeps are Python loops over t. Each step runs the kernels of
 ``self.ops`` (``pnp_vcve_torch.kernels.KERNELS`` by default): the warp, the
 input conv, ``num_blocks`` DRT blocks and, in the forward sweep, the head.
+The blocks take the form ``blocktype``, ``one_layer`` and ``channel_first``
+give them (models/bae.py): one K3 each in the fused forms (the flagship,
+and 'drt_woqp' with its plain conv2), K5 for each 3x3 conv in the others.
 
 ``warp_impl`` picks the warp as the JAX model does (``_align``, JAX
 pnp_vcve.py:140-169):
@@ -24,7 +27,8 @@ pnp_vcve.py:140-169):
 - ``'pf'`` (the serving config): K1b on each 8x8 block's flow clamped to
   +-16 px; the last DRT block of every step is K3s, which also writes the
   keyframe carry (JAX ``_kernel_select``). Needs ``use_pallas_kernels``,
-  64 channels and h, w multiples of 16 (JAX's guards, :530-546);
+  the fused block form, 64 channels and h, w multiples of 16 (JAX's
+  guards, :530-546, and bae.py:391-395);
 - ``'block8'``: K1b on each block's flow, unclamped (K1 where h or w is not
   a multiple of 8);
 - anything else (``'padgather'``, training): K1 on the per-pixel flow.
@@ -101,6 +105,9 @@ class PnPVCVE(nn.Module):
         with_bias: bool = True,
         with_se: bool = True,
         with_cat: bool = True,
+        one_layer: bool = True,
+        channel_first: bool = True,
+        blocktype: str = "drt",
         align_key: bool = True,
         feature_dtype: torch.dtype = torch.float32,
         remat: bool = True,
@@ -108,12 +115,17 @@ class PnPVCVE(nn.Module):
         use_pallas_kernels: bool = False,
     ):
         super().__init__()
+        if blocktype not in ("drt", "drt_woqp"):
+            raise ValueError(f"blocktype must be 'drt' or 'drt_woqp', got {blocktype!r}")
         c = mid_channels
         self.mid_channels = c
         self.use_base_qp = use_base_qp
         self.with_bias = with_bias
         self.with_se = with_se
         self.with_cat = with_cat
+        # the block form (JAX pnp_vcve.py:497-512): 'drt_woqp' is a plain conv2
+        self.use_dynamic = blocktype == "drt"
+        self.fused_blocks = one_layer and channel_first
         self.align_key = align_key
         self.feature_dtype = feature_dtype
         self.remat = remat
@@ -131,11 +143,13 @@ class PnPVCVE(nn.Module):
                 else BiasPredictor(c)
             )
         n_feat = 2 if with_cat else 1  # key warp (+ neighbour)
+        blocks = dict(with_se=with_se, one_layer=one_layer, channel_first=channel_first,
+                      use_dynamic=self.use_dynamic)
         self.backward_resblocks = ResidualBlocksWithInputConvDynamicDRT(
-            3 + c * n_feat, c, num_blocks, num_experts
+            3 + c * n_feat, c, num_blocks, num_experts, **blocks
         )
         self.forward_resblocks = ResidualBlocksWithInputConvDynamicDRT(
-            3 + c * (n_feat + 1), c, num_blocks, num_experts
+            3 + c * (n_feat + 1), c, num_blocks, num_experts, **blocks
         )
         self.conv_hr = nn.Conv2d(c, c, 3, 1, 1)
         self.conv_last = nn.Conv2d(c, 3, 3, 1, 1)
@@ -229,15 +243,20 @@ class PnPVCVE(nn.Module):
                 raise ValueError(
                     "warp_impl='pf' requires use_pallas_kernels=True, deform='vos', vsr=False"
                 )
+            if not self.fused_blocks:  # JAX bae.py:391-395
+                raise ValueError(
+                    "PF-resident parts require the fused Pallas input-stack path "
+                    "(use_pallas + one_layer + channel_first + aligned shapes)"
+                )
             if c != 64 or h % 16 or w % 16:
                 raise ValueError(
                     f"warp_impl='pf' needs mid_channels=64 and h,w % 16 == 0, got c={c}, {h}x{w}"
                 )
 
         weights = self.BasePredictor(base_qps if self.use_base_qp else qps)
-        if self.with_bias and self.with_se:
+        if self.with_bias and self.with_se and self.use_dynamic:
             gammas = self.BiasePredictor(qps)[0]
-        else:  # the gain applies only to the with_se block form
+        else:  # the gain applies only to the with_se dynamic blocks (JAX bae.py:169)
             gammas = torch.ones((b, t, c), device=lrs.device)
 
         # forward step i warps with mvs[:, i, ..., 0:2], backward step i with

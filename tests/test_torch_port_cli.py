@@ -125,9 +125,11 @@ def test_shipped_configs_build_port_generator(name):
                                             / "HR_davis_LR_128x128.py").read_text()
 
 
+# the block forms drt_woqp, one_layer=False and channel_first=False build
+# since they were ported (tests/test_torch_port_blocks.py); these still raise
 @pytest.mark.parametrize("override", [
-    dict(vsr=True), dict(deform="basic"), dict(blocktype="drt_woqp"),
-    dict(one_layer=False), dict(channel_first=False),
+    dict(vsr=True), dict(deform="basic"), dict(deform="fvc"),
+    dict(flow_inter="nearest"), dict(vsr=True, one_layer=False),
 ])
 def test_unported_generator_variants_raise(override):
     from pnp_vcve_torch.core.builder import build_generator

@@ -125,6 +125,40 @@ def test_head_kernel(cuda, shape, dtype):
     _check(got, PLAIN.head(x.float(), hr_k, hr_b, last_k, last_b), dtype)
 
 
+# (c_in, c_out): the model's 64 -> 64; the 3-channel frame and 19 channels
+# (one value at a time); c_out 8 and 136 (a narrow output group, and two
+# groups of 64 plus a tail of 8)
+CONV_CHANNELS = [(64, 64), (3, 64), (8, 8), (64, 8), (19, 136)]
+
+
+@pytest.mark.parametrize("channels", CONV_CHANNELS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_conv3x3_kernel(cuda, shape, dtype, channels):
+    """K5 with different kernels, biases and gains per sample, one launch.
+    bfloat16 max at 0.04 std, as the input conv's: the output reaches 5.5
+    std, where bfloat16's own half-ulp rounding is 0.0207 std."""
+    gen = torch.Generator().manual_seed(12)
+    b, h, w = shape
+    c_in, c_out = channels
+    x = _feat(gen, (b, h, w, c_in), dtype, cuda)
+    k, bias = _w(gen, (b, 3, 3, c_in, c_out), cuda, 0.03), _w(gen, (b, c_out), cuda, 0.1)
+    g = torch.rand((b, c_out), generator=gen).to(cuda)
+    reset_launches()
+    got = KERNELS.conv3x3(x, k, bias, g)
+    assert LAUNCHES["conv3x3"] == 1 and sum(LAUNCHES.values()) == 1
+    _check(got, PLAIN.conv3x3(x.float(), k, bias, g), dtype, 0.04)
+
+
+def test_conv3x3_refuses_what_it_cannot_take(cuda):
+    """c_out must be a multiple of 8; kernels and biases one per sample."""
+    x = torch.zeros((2, 8, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="c_out % 8"):
+        KERNELS.conv3x3(x, torch.zeros((2, 3, 3, 16, 12), device=cuda))
+    with pytest.raises(ValueError, match="c_out % 8"):
+        KERNELS.conv3x3(x, torch.zeros((1, 3, 3, 16, 16), device=cuda))
+
+
 def test_model_kernel_path_matches_plain_path(cuda):
     """PnPVCVE at the flagship width (2 blocks), kernel path against plain
     path; the launch counts show every step went through the kernels."""
@@ -153,7 +187,7 @@ def test_model_kernel_path_matches_plain_path(cuda):
         model.ops = PLAIN
         want = model(**inputs)
     assert counts == {"warp": 2 * t, "warp_block": 0, "input_conv": 2 * t,
-                      "drt_block": 2 * 2 * t, "drt_block_select": 0, "head": t}
+                      "drt_block": 2 * 2 * t, "drt_block_select": 0, "head": t, "conv3x3": 0}
     assert got.shape == (b, t, h, w, 3)
     assert float((got - want).abs().max()) <= 3e-3
 
@@ -253,7 +287,7 @@ def test_model_pf_kernel_path_matches_plain_path(cuda):
         model.ops = PLAIN
         want = model(**inputs)
     assert counts == {"warp": 0, "warp_block": 2 * t, "input_conv": 2 * t, "drt_block": 2 * t,
-                      "drt_block_select": 2 * t, "head": t}
+                      "drt_block_select": 2 * t, "head": t, "conv3x3": 0}
     assert float((got - want).abs().max()) <= 3e-3
 
 
@@ -280,12 +314,15 @@ def _grad_case(name, gen, b, h, w, dev):
         return KERNELS.drt_block, PLAIN.drt_block, [
             x, par, t((b, 3, 3, 64, 64), 0.03), t((b, 64), 0.1), t((b, 64)),
             t((64, 3, 64), 0.03), t((3, 3, 64, 64), 0.03), t((64,), 0.1)]
+    if name == "conv3x3":
+        return KERNELS.conv3x3, PLAIN.conv3x3, [
+            x, t((b, 3, 3, 64, 64), 0.03), t((b, 64), 0.1), t((b, 64))]
     return KERNELS.head, PLAIN.head, [
         x, t((3, 3, 64, 64), 0.03), t((64,), 0.1), t((3, 3, 64, 3), 0.06), t((3,), 0.1)]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("name", ["warp", "input_conv", "drt_block", "head"])
+@pytest.mark.parametrize("name", ["warp", "input_conv", "drt_block", "head", "conv3x3"])
 def test_kernel_function_grads(cuda, shape, name):
     """Through its Function a kernel launches once in the forward and none
     in the backward, and the gradients of every input equal plain
@@ -340,7 +377,7 @@ def test_model_grads_kernel_path_match_plain_path(cuda):
             counts = dict(LAUNCHES)
         grads[ops is KERNELS] = {n: p.grad.clone() for n, p in model.named_parameters()}
     assert counts == {"warp": 4 * t, "warp_block": 0, "input_conv": 4 * t, "drt_block": 8 * t,
-                      "drt_block_select": 0, "head": 2 * t}
+                      "drt_block_select": 0, "head": 2 * t, "conv3x3": 0}
     for n, g in grads[True].items():
         ref = grads[False][n]
         assert float((g - ref).abs().max()) <= 1e-3 * float(ref.abs().max()), n

@@ -283,5 +283,5 @@ def test_model_pf_through_kernel_wrappers(monkeypatch):
         model.ops = K.PLAIN
         want = model(**inp)
     assert counts == {"warp": 0, "warp_block": 2 * t, "input_conv": 2 * t, "drt_block": 14 * t,
-                      "drt_block_select": 2 * t, "head": t}
+                      "drt_block_select": 2 * t, "head": t, "conv3x3": 0}
     torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -447,7 +447,7 @@ def test_model_through_functions(monkeypatch, remat):
             got = dict(counts)
     t, nb = 4, SMALL["num_blocks"]
     per_pass = {"warp": 2 * t, "warp_block": 0, "input_conv": 2 * t, "drt_block": 2 * nb * t,
-                "drt_block_select": 0, "head": t}
+                "drt_block_select": 0, "head": t, "conv3x3": 0}
     assert got == {k: v * (2 if remat else 1) for k, v in per_pass.items()}
     for n, g in grads[True].items():
         torch.testing.assert_close(g, grads[False][n], rtol=1e-5, atol=1e-7)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """The least time an NVIDIA H100 could take for the work of each TPU kernel of
-the JAX package that the port has not ported yet (ROADMAP Queue B: B8, B9,
-B10), worked out from each function's own shapes.
+the JAX package that the port has not ported yet (ROADMAP Queue B: the B10
+probes), worked out from each function's own shapes. The ported kernels'
+bounds are computed by chip_smoke.py from the inputs of its run.
 
 A bound is the larger of two times: the bytes the function must move (each
 input read once, each output written once) over the card's memory rate, and
@@ -10,12 +11,9 @@ type. Rates are the H100 SXM's published dense peaks (NVIDIA's data sheet):
 3.35 TB/s HBM3, 67 TFLOP/s float32 on the CUDA cores, 989 TFLOP/s bf16 and
 1,979 TOP/s int8 on the tensor cores, at the full 700 W power limit.
 
-The kernels that a main path runs (B8 and B9 would do K3's and a 3x3 conv's
-work there) are counted at the flagship shape: b=1, 720x1280, 64 channels,
-float32 features (bf16 weights' and features' bytes halve). The TPU probes
-(B10) are counted at the constants of their own files. Selection matmuls of
-the warp probes count as the tensor-core products the TPU ran them as;
-elementwise selects and blends as float32 operations.
+The TPU probes are counted at the constants of their own files. Selection
+matmuls of the warp probes count as the tensor-core products the TPU ran
+them as; elementwise selects and blends as float32 operations.
 
     python tools/torch_kernel_bounds.py        # a markdown table, then one JSON line
 """
@@ -32,27 +30,6 @@ def n(*shape):
     for s in shape:
         out *= s
     return out
-
-
-def flagship():
-    """B8, B9 at b=1, 720x1280, 64 channels, float32."""
-    b, h, w, c = 1, 720, 1280, 64
-    px = b * h * w
-    feat = n(px, c) * F32
-    drt = dict(  # x, par, per-sample W2 b2 gamma, PK, W1 b1 in; out
-        bytes=feat + n(px, 3) * F32 + n(b, 9, c, c) * F32 + 2 * n(b, c) * F32
-        + n(c, 3, c) * F32 + n(9, c, c) * F32 + c * F32 + feat,
-        ops={"f32": 2 * (9 * c * c + 3 * c * c + 9 * c * c) * px})
-    conv = dict(  # x, per-sample kernels and biases in; out
-        bytes=feat + n(b, 9, c, c) * F32 + n(b, c) * F32 + feat,
-        ops={"f32": 2 * 9 * c * c * px})
-    return [
-        ("B8", "pnp_vcve_tpu/kernels/drt_packed.py:149 drt_block_packed", drt),
-        ("B9", "pnp_vcve_tpu/kernels/conv_block.py:86 conv3x3_pallas", conv),
-        ("B9", "pnp_vcve_tpu/kernels/conv_block.py:180 drt_block_pallas", drt),
-        ("B9", "pnp_vcve_tpu/kernels/conv_packed.py:48 conv3x3_packed", conv),
-        ("B9", "pnp_vcve_tpu/kernels/conv_packed.py:118 conv3x3_packed_v2", conv),
-    ]
 
 
 def probes():
@@ -128,7 +105,7 @@ def main():
     rows = []
     print("| item | TPU function | bytes | operations | bound ms (by) |")
     print("|---|---|---|---|---|")
-    for item, fn, work in flagship() + probes():
+    for item, fn, work in probes():
         ms, by, t_bytes, t_ops = bound(work)
         ops = ", ".join(f"{v:.4g} {k}" for k, v in work["ops"].items()) or "—"
         print(f"| {item} | `{fn}` | {work['bytes']:.4g} | {ops} | {ms:.4g} ({by}) |")
