@@ -87,15 +87,31 @@ Phases (any failure raises and the script exits non-zero):
    last run's launch counts, and for the K5 forms once more under
    ``torch.profiler`` (device busy time, idle share, K5's share) (per
    frame 2 K1, 2 K2, 1 K4 and 16 K3 under 'drt_woqp', 32 K5 in the other
-   two); for one_layer=False also phase 6's gradient check at 192x256.
+   two); for one_layer=False also phase 6's gradient check at 192x256;
+12. the probes (B10a): ``tools/torch_int8_probe.py``,
+   ``tools/torch_warp_kernel_probe2.py`` and ``tools/torch_warp_bisect.py``
+   (all five stages) at their JAX files' shapes on the card, the probe
+   kernels' counts (``kernels/probes.py: LAUNCHES``) zeroed before and read
+   after, each of K6-K10 launched; then every stage's output against its
+   plain version on the same inputs (K6, the int8 forms of K8 and K10, and
+   K9's q and s bitwise; the bf16 forms of K8 and K10 max|diff| <= 1e-5
+   max|ref|; K7 phase 3's bf16 bounds), timed in turns beside it, beside
+   ``torch.matmul`` (k1, bf16 out), ``torch._int_mm`` (k2), ``F.conv2d``
+   (k5, bf16 out) or ``torch.mul`` on the strided window (K6 without a
+   period) and beside its bound (``tools/torch_kernel_bounds.py``'s work
+   functions on this run's shapes and, for K7, the non-zeros of its S and
+   vm); and K10 in bf16 and int8 at K5's geometry (720x1280, 64 -> 64)
+   beside K5 and one cuDNN conv, a measurement only.
 
 Each phase prints its wall time.
 The line before the last is a JSON object with each kernel's launches
 (``launches``: all the driven paths together, each path's counts zeroed just
 before it and read just after; then each path's own: the serving path of
 phase 4, the batched path of phase 8, the handler of phase 10, training in
-phase 7, each block form's last 720p run in phase 11), its error, its
-time beside the plain version's, the library call's, its yardsticks' and the bound; the last line is
+phase 7, each block form's last 720p run in phase 11; the probe tools'
+run of phase 12 for K6-K10), its error, its time beside the plain
+version's, the library call's, its yardsticks' and the bound (K6-K10: the
+headline stage, every stage under ``forms``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -173,6 +189,21 @@ BLOCK_FORMS = {"drt_woqp": dict(blocktype="drt_woqp"), "one_layer_false": dict(o
                "channel_first_false": dict(channel_first=False)}
 FORMS_HW = (256, 448)
 GRAD_B, GRAD_T, GRAD_HW = 2, 4, (192, 256)  # phases 6 and 11
+# phase 12: the probe kernels K6-K10 -> (source, the TPU function it
+# replaces, the others), each at its pallas_call
+PROBE_INFO = {
+    "window_copy": ("pnp_vcve_torch/kernels/csrc/probe_copy.cu", "tools/warp_kernel_probe2.py:78",
+                    ["tools/warp_bisect.py:52", "tools/warp_bisect.py:72"]),
+    "mmsel": ("pnp_vcve_torch/kernels/csrc/probe_mmsel.cu", "tools/warp_kernel_probe2.py:126",
+              ["tools/warp_bisect.py:105"]),
+    "matmul": ("pnp_vcve_torch/kernels/csrc/probe_matmul.cu", "tools/int8_probe.py:70",
+               ["tools/int8_probe.py:80", "tools/int8_probe.py:100"]),
+    "absmax_quantize": ("pnp_vcve_torch/kernels/csrc/probe_matmul.cu", "tools/int8_probe.py:100",
+                        ["tools/int8_probe.py:127"]),
+    "tapconv": ("pnp_vcve_torch/kernels/csrc/probe_tapconv.cu", "tools/int8_probe.py:148",
+                ["tools/int8_probe.py:127"]),
+}
+K5_GEOMETRY = (720, 1280, 64)  # K10 timed at K5's frame, 64 -> 64 (measurement only)
 
 
 def phase_device():
@@ -1185,6 +1216,239 @@ def _print_breakdown(prof, window_s, steady_s):
         print(f"[train]   {v:.4f} s {v / total:.4f}  {name[:110]}")
 
 
+def _probe_check(tag, got, ref, rule):
+    """Hold a probe kernel's output to its plain version's: "bitwise" (every
+    tensor of a tuple), "rel" (max|diff| <= 1e-5 max|ref|) or "bf16"
+    (phase 3's bf16 bounds). Returns max|diff|."""
+    import torch
+
+    torch.cuda.synchronize()
+    if rule == "bf16":
+        return _compare(tag, got, ref, torch.bfloat16, (0.02, 0.002))
+    pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
+    err = max(float((g.double() - r.double()).abs().max()) for g, r in pairs)
+    if rule == "bitwise":
+        ok = all(g.dtype == r.dtype and g.shape == r.shape and torch.equal(g, r) for g, r in pairs)
+        bound = "bitwise"
+    else:
+        scale = float(ref.double().abs().max())
+        ok = bool(torch.isfinite(got).all()) and err <= 1e-5 * scale
+        bound = f"<= 1e-5 max|ref| = {1e-5 * scale:.3g}"
+    print(f"[probes] {tag}: max|diff| {err:.3g} ({bound})")
+    if not ok:
+        raise AssertionError(f"{tag}: kernel disagrees with its plain version")
+    return err
+
+
+def _probe_cases(int8, warp2, bisect):
+    """One dict per stage of the three probe tools: the kernel it times, its
+    TPU function, the timed call and its plain version on the same inputs,
+    the comparison rule, one PyTorch call computing the same function (or
+    None) and, where it gives the kernel's dtype, the part of the kernel's
+    output it gives (held to it by the same rule), the reps the JAX file
+    times over, and the work (bytes, operations by type) of this run's
+    inputs (tools/torch_kernel_bounds.py)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pnp_vcve_torch.kernels import probes as P
+    import torch_kernel_bounds as kb
+
+    cases = []
+
+    def add(kernel, tpu, res, plain, rule, library, reps, work, out=None, lib_of=None):
+        fn, args = res["fn"], res["args"]
+        cases.append(dict(kernel=kernel, tpu=tpu, out=res["out"] if out is None else out,
+                          kern=lambda: fn(*args), plain=plain, rule=rule, library=library,
+                          lib_of=lib_of, reps=reps, work=work))
+
+    # tools/int8_probe.py
+    r = int8["bf16 matmul"]
+    a, b = r["args"]
+    m, k = a.shape
+    n = b.shape[1]
+    add("matmul", "k1 bf16 matmul (:70)", r, lambda: P.matmul_plain(a, b), "rel",
+        lambda: torch.matmul(a, b), 100, kb.matmul_work(m, k, n, "bf16"))
+    r = int8["int8 matmul"]
+    aq, bq = r["args"]
+    add("matmul", "k2 int8 matmul (:80)", r, lambda: P.matmul_plain(aq, bq), "bitwise",
+        lambda: torch._int_mm(aq, bq), 100, kb.matmul_work(m, k, n, "int8", out_bytes=4),
+        lib_of=lambda o: o)
+    r = int8["quantize-in-kernel + int8 matmul"]
+    a3, b3 = r["args"]
+
+    def k3_plain():
+        q, s = P.absmax_quantize_plain(a3)
+        return P.matmul_plain(q, b3, s)
+
+    add("matmul", "k3 K9 + int8 matmul (:100)", r, k3_plain, "bitwise", None, 100,
+        kb.quantized_matmul_work(m, k, n))
+    res_q = dict(fn=P.absmax_quantize, args=(a3,), out=None)
+    add("absmax_quantize", "k3's quantize (:100)", res_q, lambda: P.absmax_quantize_plain(a3),
+        "bitwise", None, 100, kb.quantize_work(a3.numel()), out=P.absmax_quantize(a3))
+    r = int8["bf16 tap-conv (same geometry)"]  # K10's headline: it has a library call
+    band_bf, w_bf = r["args"]
+    c2 = band_bf.shape[2]
+    rows, cols, cout = r["out"].shape
+    x_cl = band_bf.permute(2, 0, 1)[None, :, :rows + 2, :cols + 2]  # NCHW view, channels last
+    w_oihw = w_bf.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    add("tapconv", "k5 bf16 tap conv (:148)", r, lambda: P.tapconv_plain(band_bf, w_bf, rows, cols),
+        "rel", lambda: F.conv2d(x_cl, w_oihw), 50, kb.tapconv_work(rows, cols, c2, cout, "bf16"))
+
+    r = int8["int8 tap-conv (strided slices)"]
+    band, wq = r["args"]
+
+    def k4_plain():
+        q, s = P.absmax_quantize_plain(band)
+        return P.tapconv_plain(q, wq, rows, cols, s)
+
+    add("tapconv", "k4 K9 + int8 tap conv (:127)", r, k4_plain, "bitwise", None, 50,
+        kb.quantized_tapconv_work(*band.shape[:2], rows, cols, c2, cout))
+    add("absmax_quantize", "k4's quantize (:127)", dict(fn=P.absmax_quantize, args=(band,)),
+        lambda: P.absmax_quantize_plain(band), "bitwise", None, 50,
+        kb.quantize_work(band.numel()), out=P.absmax_quantize(band))
+    # tools/warp_kernel_probe2.py
+    r = warp2["band DMA floor (128-lane)"]
+    src, oh, ow, y0, x0 = r["args"]
+    add("window_copy", "probe_floor128 (:78)", r, lambda r=r: P.window_copy_plain(*r["args"]),
+        "bitwise", lambda a=r["args"]: torch.mul(a[0][:, a[3]:a[3] + a[1], a[4]:a[4] + a[2]], 2),
+        30, kb.copy_work(1, oh, oh, ow, src.shape[3]), lib_of=lambda o: o)
+    r = warp2["matmul-select H + dense V"]
+    xp, s_all, vm = r["args"]
+    nb, nt, _, kw = s_all.shape
+    add("mmsel", "probe_mmsel (:126)", r, lambda: P.mmsel_warp_plain(xp, s_all, vm), "bf16",
+        None, 30, kb.mmsel_work(nb, nt, kw, xp.shape[3], vm.shape[2] + 7, nt * 128, vm.shape[2],
+                                s_nnz=int((s_all != 0).sum()), vm_nnz=int((vm != 0).sum())))
+
+    # tools/warp_bisect.py
+    for name, r in bisect.items():
+        form = name.rstrip("0123456789")
+        x = r["args"][0]
+        lanes = x.shape[3]
+        if form == "fori":  # the library's (rows, 128, lanes) is columns 0..127 of the output
+            _, s1, nbb, j0, w_out = r["args"]
+            kw = s1.shape[3]
+            add("mmsel", f"k_fori_dot({lanes}) (:105)", r,
+                lambda r=r: P.mmsel_h_plain(*r["args"]), "bf16",
+                lambda x=x, s1=s1, j0=j0, nbb=nbb, kw=kw:
+                    torch.matmul(s1[0, 0], x[0, j0:j0 + 8 * nbb, :kw]),
+                30, kb.mmsel_work(nbb, 1, kw, lanes, 8, w_out, s_bands=1,
+                                  s_nnz=int((s1 != 0).sum())),
+                lib_of=lambda o: o[0, :, :P.TILE])
+        else:  # the period form repeats rows y0 .. y0 + period: a broadcast view
+            _, oh, ow, y0, x0, *period = r["args"]
+            period = period[0] if period else 0
+            rows_in = min(period, oh) if period else oh
+            add("window_copy", f"k_{form}({lanes}) (:{52 if form == 'dma' else 72})", r,
+                lambda r=r: P.window_copy_plain(*r["args"]), "bitwise",
+                lambda x=x, y0=y0, x0=x0, oh=oh, ow=ow, n=rows_in, c=lanes: torch.mul(
+                    x[:, y0:y0 + n, x0:x0 + ow].unsqueeze(1).expand(-1, oh // n, -1, -1, -1),
+                    2).reshape(1, oh, ow, c),
+                30, kb.copy_work(1, rows_in, oh, ow, lanes), lib_of=lambda o: o)
+    return cases
+
+
+def _k5_geometry(dev, smi):
+    """K10 in bf16 and int8 (with K9) at K5's 720p 64 -> 64 geometry, beside
+    K5 and one cuDNN conv on the same frame, bf16: a measurement only."""
+    import torch
+    import torch.nn.functional as F
+
+    from pnp_vcve_torch.kernels import KERNELS
+    from pnp_vcve_torch.kernels import probes as P
+    import torch_kernel_bounds as kb
+
+    h, w, c = K5_GEOMETRY
+    gen = torch.Generator().manual_seed(SEED + 12)
+    band = torch.randn((h + 2, w + 2, c), generator=gen).to(dev, torch.bfloat16)
+    wt = (torch.randn((3, 3, c, c), generator=gen) * 0.05).to(dev)
+    w_bf = wt.to(torch.bfloat16)
+    wq, _ = P.absmax_quantize(w_bf)
+    q, s = P.absmax_quantize(band)
+    _probe_check("tapconv bf16 at K5's geometry", P.tapconv(band, w_bf, h, w),
+                 P.tapconv_plain(band, w_bf, h, w), "rel")
+    _probe_check("tapconv int8 at K5's geometry", P.tapconv(q, wq, h, w, s),
+                 P.tapconv_plain(q, wq, h, w, s), "bitwise")
+    x = band[1:h + 1, 1:w + 1][None].contiguous()  # K5 pads the frame itself
+    x_cl = band.permute(2, 0, 1)[None]
+    w_oihw = w_bf.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    k5_w = wt[None]
+
+    def k9_k10():
+        q_, s_ = P.absmax_quantize(band)
+        return P.tapconv(q_, wq, h, w, s_)
+
+    calls = {
+        "K10 bf16": lambda: P.tapconv(band, w_bf, h, w),
+        "K10 int8 (s given)": lambda: P.tapconv(q, wq, h, w, s),
+        "K9 + K10 int8": k9_k10,
+        "K5 bf16 ('same' conv of the frame)": lambda: KERNELS.conv3x3(x, k5_w),
+        "cuDNN F.conv2d bf16": lambda: F.conv2d(x_cl, w_oihw),
+    }
+    times = {k: _timed(f, 20) for k, f in calls.items()}
+    for kind in ("bf16", "int8"):
+        b_ms, by, t_bytes, t_ops = kb.bound(kb.tapconv_work(h, w, c, c, kind))
+        print(f"[probes] K5's geometry {h}x{w}, {c} -> {c}: K10 {kind} bound {b_ms:.4f} ms "
+              f"({by}; bytes {t_bytes:.4f}, ops {t_ops:.4f})")
+    print(f"[probes] K5's geometry ({smi}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+    return times
+
+
+def phase_probes(dev, smi):
+    """Phase 12: the three probe tools at their full shapes on the card (the
+    probe path: every launch of K6-K10 counted), then each stage's kernel
+    against its plain version on the same inputs and timed beside it, the
+    library call and the bound; K10 at K5's geometry."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_int8_probe
+    import torch_kernel_bounds as kb
+    import torch_warp_bisect
+    import torch_warp_kernel_probe2
+
+    from pnp_vcve_torch.kernels import probes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[probes] {smi}")
+    probes.reset_launches()
+    int8 = torch_int8_probe.main([])
+    warp2 = torch_warp_kernel_probe2.main([])
+    bisect = torch_warp_bisect.main(list(torch_warp_bisect.STAGES))
+    torch.cuda.synchronize()
+    counts = dict(probes.LAUNCHES)
+    print(f"[probes] launches of the three tools: {counts}")
+    failed = [k for res in (int8, warp2, bisect) for k, v in res.items() if v["out"] is None]
+    if failed or not all(counts.values()):
+        raise AssertionError(f"probe stages failed: {failed}; launches {counts}")
+    rows = {}
+    for c in _probe_cases(int8, warp2, bisect):
+        tag = f"{c['kernel']}: {c['tpu']}"
+        err = _probe_check(tag, c["out"], c["plain"](), c["rule"])
+        if c["lib_of"]:
+            _probe_check(f"{tag}: library call", c["library"](), c["lib_of"](c["out"]), c["rule"])
+        p1, k1, k2, p2 = (_timed(f, c["reps"]) for f in (c["plain"], c["kern"], c["kern"],
+                                                         c["plain"]))
+        lib = _timed(c["library"], c["reps"]) if c["library"] else None
+        b_ms, by, t_bytes, t_ops = kb.bound(c["work"])
+        row = dict(tpu=c["tpu"], max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                   bound_ms=b_ms, bound_by=by, library_ms=lib)
+        rows.setdefault(c["kernel"], []).append(row)
+        print(f"[time] {tag}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+              f"library {'none' if lib is None else f'{lib:.4f} ms'}; bound {b_ms:.4f} ms "
+              f"({by}: bytes {t_bytes:.4f}, ops {t_ops:.4f}); {smi}")
+    k5 = _k5_geometry(dev, smi)
+    out = {}
+    for name, rs in rows.items():  # the first stage is the headline, the rest forms
+        out[name] = dict(max_abs_err=max(r["max_abs_err"] for r in rs),
+                         **{k: rs[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms")},
+                         forms=rs, launches=counts[name])
+    out["tapconv"]["k5_geometry_ms"] = k5
+    return out
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     # deterministic cuBLAS for the resume check of phase 7; read when cuBLAS
@@ -1211,6 +1475,7 @@ def main():
     phase("9 serving curve", phase_curve)
     handler_counts = phase("10 handler", phase_handler, dev)
     forms_counts = phase("11 block forms", phase_block_forms, dev, smi)
+    probe_rows = phase("12 probes", phase_probes, dev, smi)
 
     paths = {"serving_launches": counts, "batched_launches": batched_counts,
              "handler_launches": handler_counts, "train_launches": train_counts,
@@ -1221,6 +1486,10 @@ def main():
          "launches": sum(c[name] for c in paths.values()),
          **{k: c[name] for k, c in paths.items()}, **kern[name]}
         for name, (src, rep) in KERNEL_INFO.items()
+    ] + [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "also_replaces": also,
+         **probe_rows[name]}
+        for name, (src, rep, also) in PROBE_INFO.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

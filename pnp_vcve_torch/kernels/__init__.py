@@ -17,6 +17,9 @@ drt_block_select   K3s   ``csrc/drt_block.cu``, K3 + keyframe-carry select
 head               K4    ``csrc/head.cu``
 conv3x3            K5    ``csrc/conv3x3.cu``, per-sample 3x3 conv + bias
 =================  ====  ==================================================
+
+The probe kernels K6-K10 (the TPU micro-benchmarks of ``tools/``), which no
+model runs, live in :mod:`.probes`.
 """
 
 from types import SimpleNamespace

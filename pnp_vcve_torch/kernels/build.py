@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: name -> argument types (all return a cudaError_t as int);
 # pnp_<kernel>_smem() return a block's dynamic shared memory in bytes
 SIGNATURES = {
@@ -44,9 +45,16 @@ SIGNATURES = {
     "pnp_warp_block": [_I, _P, _P, _P, _I, _I, _I, _P],
     "pnp_head": [_I] + [_P] * 6 + [_I, _I, _I, _P],
     "pnp_conv3x3": [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    # the probe kernels (probes.py)
+    "pnp_window_copy": [_P, _P] + [_I] * 9 + [_P],
+    "pnp_mmsel": [_P] * 4 + [_I] * 6 + [_L, _L] + [_I] * 3 + [_P],
+    "pnp_matmul": [_I] + [_P] * 4 + [_I] * 3 + [_P],
+    "pnp_absmax_quantize": [_P, _L, _P, _P, _P, _P],
+    "pnp_absmax_parts": [],
+    "pnp_tapconv": [_I] + [_P] * 4 + [_I] * 6 + [_P],
 }
 # kernels with a pnp_<name>_smem() entry
-SMEM_REPORT = ("input_conv", "drt_block", "head", "conv3x3")
+SMEM_REPORT = ("input_conv", "drt_block", "head", "conv3x3", "mmsel", "tapconv")
 
 
 @dataclass

@@ -23,7 +23,7 @@ import torch
 from .build import library
 
 __all__ = [
-    "LAUNCHES", "reset_launches", "on_cpu", "check_cuda_args", "launch", "plain_grads",
+    "LAUNCHES", "reset_launches", "on_cpu", "check_cuda_args", "launch", "call", "plain_grads",
 ]
 
 LAUNCHES = {"warp": 0, "warp_block": 0, "input_conv": 0, "drt_block": 0,
@@ -74,14 +74,21 @@ def check_cuda_args(name: str, features, weights=()):
 def launch(name: str, entry: str, out: torch.Tensor, *args):
     """Call C entry point ``entry`` with the dtype code of ``out`` first and
     the current stream of its device last; count the launch."""
-    lib = library()
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-        rc = getattr(lib.lib, entry)(_DTYPE_CODE[out.dtype], *ptrs, stream)
-    lib.check(rc, name)
-    LAUNCHES[name] += 1
+    call(name, entry, out.device, _DTYPE_CODE[out.dtype], *args)
     return out
+
+
+def call(name: str, entry: str, device: torch.device, *args, counts=LAUNCHES):
+    """Call C entry point ``entry`` with ``args`` (tensors as their data
+    pointers, None as a null pointer) and the current stream of ``device``
+    last; raise on an error, count the launch in ``counts[name]``."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+        rc = getattr(lib.lib, entry)(*ptrs, stream)
+    lib.check(rc, name)
+    counts[name] += 1
 
 
 def plain_grads(plain, args, needs, grad_out):

@@ -1,0 +1,345 @@
+"""The probe kernels K6-K10: the TPU micro-benchmarks of ``tools/`` that
+multiply on the matrix unit, and the copy floors beside them, as hand-written
+Hopper kernels (``csrc/probe_*.cu`` on the tensor-core helpers of
+``csrc/mma.cuh``), with their plain PyTorch versions. No model path runs
+them; ``tools/torch_int8_probe.py``, ``tools/torch_warp_kernel_probe2.py``
+and ``tools/torch_warp_bisect.py`` drive them.
+
+======  ===================  ========================  =========================================
+kernel  wrapper              source                    TPU functions (``pallas_call`` at)
+======  ===================  ========================  =========================================
+K6      ``window_copy``      ``csrc/probe_copy.cu``    warp_kernel_probe2.py ``probe_floor128``
+                                                       (:78); warp_bisect.py ``k_dma`` (:52),
+                                                       ``k_nodma`` (:72)
+K7      ``mmsel_warp``,      ``csrc/probe_mmsel.cu``   warp_kernel_probe2.py ``probe_mmsel``
+        ``mmsel_h``                                    (:126); warp_bisect.py ``k_fori_dot`` (:105)
+K8      ``matmul``           ``csrc/probe_matmul.cu``  int8_probe.py k1 (:70), k2 (:80), k3's
+                                                       product (:100)
+K9      ``absmax_quantize``  ``csrc/probe_matmul.cu``  int8_probe.py k3's and k4's quantize
+K10     ``tapconv``          ``csrc/probe_tapconv.cu`` int8_probe.py k4 (:127), k5 (:148)
+======  ===================  ========================  =========================================
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+checks device, dtype, shape, contiguity and 16-byte alignment, then launches
+its kernel or raises. This module's ``LAUNCHES`` (apart from the model
+kernels' ``launch.LAUNCHES``) counts one per kernel call (K9's two passes
+are one call); :func:`reset_launches` zeroes it.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from .build import library
+from .launch import call, on_cpu
+
+__all__ = [
+    "LAUNCHES", "reset_launches",
+    "window_copy", "window_copy_plain", "mmsel_warp", "mmsel_warp_plain", "mmsel_h",
+    "mmsel_h_plain", "build_s", "matmul", "matmul_plain", "absmax_quantize",
+    "absmax_quantize_plain", "tapconv", "tapconv_plain", "timed", "bf16_from_numpy",
+]
+
+TILE = 128       # output columns a tile of the selection matmul (rows of S)
+BAND_ROWS = 8    # output rows a band
+_KP = 192        # K7's depth: S's kw zero-padded to 12 k-steps of 16
+_DV_MAX = 40     # K7's V terms at most
+_TYPE_CODE = {torch.bfloat16: 1, torch.int8: 2}
+
+LAUNCHES = {"window_copy": 0, "mmsel": 0, "matmul": 0, "absmax_quantize": 0, "tapconv": 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _call(name, entry, device, *args):
+    call(name, entry, device, *args, counts=LAUNCHES)
+
+
+def _cuda_args(name, tensors, dtypes):
+    """Every tensor on one CUDA device with the dtype at its place in
+    ``dtypes``, contiguous and 16-byte aligned."""
+    dev = tensors[0].device
+    for t, dt in zip(tensors, dtypes):
+        if t.device != dev:
+            raise TypeError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: expected {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+    return dev
+
+
+# ---- K6: the scaled window copy ------------------------------------------------------------
+
+
+def window_copy_plain(src, out_h, out_w, y0, x0, period=0):
+    """``out[b, r, x] = 2 * src[b, y0 + (r % period if period else r), x0 + x]``."""
+    r = torch.arange(out_h, device=src.device)
+    return src[:, y0 + (r % period if period else r), x0:x0 + out_w] * 2
+
+
+def window_copy(src, out_h, out_w, y0, x0, period=0):
+    """K6. ``src (b, hs, ws, lanes)`` bfloat16, lanes % 8 == 0 on the card;
+    returns ``(b, out_h, out_w, lanes)``. The window must lie inside src."""
+    b, hs, ws, lanes = src.shape
+    if (y0 < 0 or x0 < 0 or period < 0 or x0 + out_w > ws
+            or y0 + (min(period, out_h) if period else out_h) > hs):
+        raise ValueError(f"window_copy: window ({out_h}, {out_w}) at ({y0}, {x0}), period "
+                         f"{period}, outside src {tuple(src.shape)}")
+    if on_cpu(src):
+        return window_copy_plain(src, out_h, out_w, y0, x0, period)
+    _cuda_args("window_copy", [src], [torch.bfloat16])
+    if lanes % 8:
+        raise ValueError(f"window_copy: lanes must be a multiple of 8, got {lanes}")
+    out = torch.empty((b, out_h, out_w, lanes), dtype=src.dtype, device=src.device)
+    _call("window_copy", "pnp_window_copy", src.device, src, out, b, hs, ws, out_h, out_w, lanes,
+         y0, x0, period)
+    return out
+
+
+# ---- K7: the selection-matmul warp ---------------------------------------------------------
+
+
+def build_s(m0, w0, w1, kw=184):
+    """(nb, w) taps -> (nb, w // 128, 128, kw) bfloat16 selection matrices:
+    row o of tile tj holds w0 at column m0 - 128 tj and w1 one further
+    (tools/warp_kernel_probe2.py: build_s, :150)."""
+    nb, w = m0.shape
+    nt = w // TILE
+    m = m0.reshape(nb, nt, TILE) - (torch.arange(nt, device=m0.device) * TILE).reshape(1, nt, 1)
+    iota = torch.arange(kw, device=m0.device, dtype=m.dtype)
+    m = m[..., None]
+    zero = torch.zeros((), dtype=torch.float32, device=m0.device)
+    s = torch.where(iota == m, w0.reshape(nb, nt, TILE, 1), zero)
+    s = s + torch.where(iota == m + 1, w1.reshape(nb, nt, TILE, 1), zero)
+    return s.to(torch.bfloat16)
+
+
+def _mmsel_hband(src, s, nb, j0, nrows):
+    """``hband (nb, nrows, nt * 128, c)`` bfloat16: the H pass on rows
+    ``8 ri + j0 + j``, float32 sums of exact bf16 products, one rounding."""
+    _, hs, ws, c = src.shape
+    nt, kw = s.shape[1], s.shape[3]
+    dev = src.device
+    rows = torch.arange(nb, device=dev)[:, None] * BAND_ROWS + j0 + torch.arange(nrows, device=dev)
+    cols = torch.arange(nt, device=dev)[:, None] * TILE + torch.arange(kw, device=dev)
+    win = src[0][rows][:, :, cols].float()  # (nb, nrows, nt, kw, c)
+    h = torch.einsum("btok,brtkc->brtoc", s.float().expand(nb, -1, -1, -1), win)
+    return h.reshape(nb, nrows, nt * TILE, c).to(torch.bfloat16)
+
+
+def mmsel_warp_plain(xp, s, vm):
+    """The selection-matmul warp (tools/warp_kernel_probe2.py: _mmsel_kernel,
+    :93). ``xp (1, hs, ws, c)`` bfloat16, ``s (nb, nt, 128, kw)`` bfloat16,
+    ``vm (nb, 128 nt, dv)`` float32 -> ``(1, 8 nb, 128 nt, c)`` bfloat16:
+    the H pass rounded to bfloat16 on rows 0 .. dv + 6 of each band, then
+    ``sum_d vm[ri, x, d] * hband[d + i, x]`` in float32 in the order d = 0,
+    1, ..., each term a fused multiply-add, as XLA compiles the TPU kernel's
+    ``acc + h * w`` (the exact product added in float64, then rounded)."""
+    nb, dv = s.shape[0], vm.shape[2]
+    hb = _mmsel_hband(xp, s, nb, 0, dv + BAND_ROWS - 1).double()
+    acc = torch.zeros((nb, BAND_ROWS) + hb.shape[2:], dtype=torch.float32, device=xp.device)
+    for d in range(dv):
+        acc = (acc.double() + hb[:, d:d + BAND_ROWS] * vm[:, None, :, d, None].double()).float()
+    return acc.to(torch.bfloat16).reshape(1, nb * BAND_ROWS, *hb.shape[2:])
+
+
+def mmsel_h_plain(x, s, nb, j0, out_w):
+    """The H pass alone (tools/warp_bisect.py: k_fori_dot, :84): ``out[0,
+    8 ri + i, o] = bf16(s[0, tj] @ x[0, 8 ri + j0 + i, 128 tj .. + kw])`` for
+    o < 128 nt, zeros past it. ``s (1, nt, 128, kw)`` serves every band."""
+    h = _mmsel_hband(x, s, nb, j0, BAND_ROWS)
+    out = torch.zeros((1, nb * BAND_ROWS, out_w, x.shape[3]), dtype=torch.bfloat16, device=x.device)
+    out[0, :, :h.shape[2]] = h.reshape(nb * BAND_ROWS, h.shape[2], x.shape[3])
+    return out
+
+
+def _mmsel_launch(src, s, vm, nb, j0, out_w):
+    _, hs, ws, c = src.shape
+    ns, nt, tile, kw = s.shape
+    dev = _cuda_args("mmsel", [src, s] + ([vm] if vm is not None else []),
+                     [torch.bfloat16, torch.bfloat16, torch.float32])
+    if src.shape[0] != 1 or c % 8 or tile != TILE or not 1 <= kw <= _KP or ns not in (1, nb):
+        raise ValueError(f"mmsel: need src (1, h, w, c % 8 == 0) and s ({nb} or 1, nt, 128, "
+                         f"kw <= {_KP}); got {tuple(src.shape)}, {tuple(s.shape)}")
+    if TILE * (nt - 1) + kw > ws:
+        raise ValueError(f"mmsel: the last tile's window (to {TILE * (nt - 1) + kw}) passes src "
+                         f"width {ws}")
+    dv = 0
+    if vm is not None:
+        dv = vm.shape[2]
+        if vm.shape != (nb, TILE * nt, dv) or not 1 <= dv <= _DV_MAX:
+            raise ValueError(f"mmsel: need vm ({nb}, {TILE * nt}, dv <= {_DV_MAX}); got "
+                             f"{tuple(vm.shape)}")
+        if BAND_ROWS * (nb - 1) + dv + BAND_ROWS - 1 > hs:
+            raise ValueError(f"mmsel: src has {hs} rows, the bands need "
+                             f"{BAND_ROWS * (nb - 1) + dv + BAND_ROWS - 1}")
+    elif j0 < 0 or BAND_ROWS * nb + j0 > hs or out_w < TILE * nt:
+        raise ValueError(f"mmsel: {nb} bands from row {j0} or width {out_w} do not fit src "
+                         f"{tuple(src.shape)}")
+    out = torch.empty((1, nb * BAND_ROWS, out_w, c), dtype=torch.bfloat16, device=dev)
+    s_band = 0 if ns == 1 else nt * TILE * kw  # one S for every band, or one a band
+    _call("mmsel", "pnp_mmsel", dev, src, s, vm, out, nb, nt, hs, ws, c, kw, s_band, TILE * kw, j0,
+         dv, out_w)
+    return out
+
+
+def mmsel_warp(xp, s, vm):
+    """K7 in the V mode (probe_mmsel): see :func:`mmsel_warp_plain`."""
+    if on_cpu(xp):
+        return mmsel_warp_plain(xp, s, vm)
+    return _mmsel_launch(xp, s, vm, s.shape[0], 0, s.shape[1] * TILE)
+
+
+def mmsel_h(x, s, nb, j0, out_w):
+    """K7 in the H mode (k_fori_dot): see :func:`mmsel_h_plain`."""
+    if on_cpu(x):
+        return mmsel_h_plain(x, s, nb, j0, out_w)
+    return _mmsel_launch(x, s, None, nb, j0, out_w)
+
+
+# ---- K8 and K9: matrix product and per-tensor int8 quantization ----------------------------
+
+
+def matmul_plain(a, b, scale=None):
+    """``a @ b``: bfloat16 -> float32 (float32 sums), int8 -> int32 (exact,
+    through float64), int8 with a one-element ``scale`` -> float32
+    ``float(a @ b) * scale``."""
+    if a.dtype == torch.bfloat16:
+        return a.float() @ b.float()
+    acc = (a.double() @ b.double()).to(torch.int32)
+    return acc if scale is None else acc.float() * scale
+
+
+def matmul(a, b, scale=None):
+    """K8. ``a (m, k)``, ``b (k, n)`` both bfloat16 (float32 out) or both
+    int8 (int32 out, or float32 with a float32 ``scale`` of one element in
+    device memory); m % 16 == 0, n % 8 == 0, k % 16 (bf16) or % 32 (int8)."""
+    if on_cpu(a):
+        return matmul_plain(a, b, scale)
+    if a.dtype not in _TYPE_CODE or b.dtype != a.dtype:
+        raise TypeError(f"matmul: need two bfloat16 or two int8 matrices, got {a.dtype}, {b.dtype}")
+    if a.dtype == torch.bfloat16 and scale is not None:
+        raise ValueError("matmul: a scale goes with int8 inputs")
+    dev = _cuda_args("matmul", [a, b] + ([scale] if scale is not None else []),
+                     [a.dtype, a.dtype, torch.float32])
+    (m, k), (k2, n) = a.shape, b.shape
+    step = 16 if a.dtype == torch.bfloat16 else 32
+    if k2 != k or m % 16 or n % 8 or k % step or (scale is not None and scale.numel() != 1):
+        raise ValueError(f"matmul: need (m % 16, k % {step}) @ (k, n % 8) and one scale; got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    int_out = a.dtype == torch.int8 and scale is None
+    out = torch.empty((m, n), dtype=torch.int32 if int_out else torch.float32, device=dev)
+    _call("matmul", "pnp_matmul", dev, _TYPE_CODE[a.dtype], a, b, scale, out, m, n, k)
+    return out
+
+
+def absmax_quantize_plain(x):
+    """``(q, s)``: ``s = max(max|x|, 1e-6) / 127`` (float32, one element),
+    ``q = clip(round_half_even(x / s), -127, 127)`` int8. The divisions
+    take tensor divisors: a Python scalar divisor on CUDA becomes a
+    multiplication by its reciprocal, which is not IEEE division."""
+    a = x.float()
+    amax = torch.clamp_min(a.abs().max(), 1e-6)
+    s = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(a / s), -127, 127).to(torch.int8)
+    return q, s.reshape(1)
+
+
+def absmax_quantize(x):
+    """K9. ``x`` bfloat16, numel % 8 == 0 on the card -> ``(q, s)`` as
+    :func:`absmax_quantize_plain`, s in device memory."""
+    if on_cpu(x):
+        return absmax_quantize_plain(x)
+    dev = _cuda_args("absmax_quantize", [x], [torch.bfloat16])
+    if x.numel() == 0 or x.numel() % 8:
+        raise ValueError(f"absmax_quantize: need a multiple of 8 values, got {x.numel()}")
+    parts = torch.empty(library().lib.pnp_absmax_parts(), dtype=torch.float32, device=dev)
+    q = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    s = torch.empty(1, dtype=torch.float32, device=dev)
+    _call("absmax_quantize", "pnp_absmax_quantize", dev, x, x.numel(), parts, q, s)
+    return q, s
+
+
+# ---- K10: the valid 3x3 tap conv -----------------------------------------------------------
+
+
+def tapconv_plain(band, w, rows, cols, scale=None):
+    """``out[r, c] = sum_{dy, dx < 3} band[dy + r, dx + c] @ w[dy, dx]``
+    (float32, the taps in the TPU's order): bfloat16 with float32 sums, or
+    int8 with exact int32 sums times the one-element ``scale``."""
+    cin, cout = w.shape[2], w.shape[3]
+    exact = band.dtype == torch.int8
+    acc = torch.zeros((rows * cols, cout), dtype=torch.float64 if exact else torch.float32,
+                      device=band.device)
+    for dy in range(3):
+        for dx in range(3):
+            win = band[dy:dy + rows, dx:dx + cols].reshape(rows * cols, cin)
+            acc = acc + (win.to(acc.dtype) @ w[dy, dx].to(acc.dtype))
+    if exact:
+        acc = acc.to(torch.int32).float() * scale
+    return acc.reshape(rows, cols, cout)
+
+
+def tapconv(band, w, rows, cols, scale=None):
+    """K10. ``band (bh, bw, cin)`` with bh >= rows + 2, bw >= cols + 2, ``w
+    (3, 3, cin, cout)``: both bfloat16 (no scale), or both int8 with a
+    float32 ``scale`` of one element in device memory. Returns ``(rows,
+    cols, cout)`` float32. On the card cin % 16 (bf16) or % 32 (int8),
+    cout % 8 == 0."""
+    bh, bw, cin = band.shape
+    if w.shape[:3] != (3, 3, cin) or bh < rows + 2 or bw < cols + 2 or rows < 1 or cols < 1:
+        raise ValueError(f"tapconv: need band (>= rows + 2, >= cols + 2, cin) and w (3, 3, cin, "
+                         f"cout) for {rows} x {cols}; got {tuple(band.shape)}, {tuple(w.shape)}")
+    if (band.dtype == torch.int8) != (scale is not None):
+        raise ValueError("tapconv: int8 inputs take a scale, bfloat16 inputs none")
+    if on_cpu(band):
+        return tapconv_plain(band, w, rows, cols, scale)
+    if band.dtype not in _TYPE_CODE:
+        raise TypeError(f"tapconv: need bfloat16 or int8, got {band.dtype}")
+    dev = _cuda_args("tapconv", [band, w] + ([scale] if scale is not None else []),
+                     [band.dtype, band.dtype, torch.float32])
+    cout = w.shape[3]
+    step = 16 if band.dtype == torch.bfloat16 else 32
+    if cin % step or cout % 8 or (scale is not None and scale.numel() != 1):
+        raise ValueError(f"tapconv: need cin % {step} == 0, cout % 8 == 0 and one scale; got "
+                         f"cin {cin}, cout {cout}")
+    out = torch.empty((rows, cols, cout), dtype=torch.float32, device=dev)
+    _call("tapconv", "pnp_tapconv", dev, _TYPE_CODE[band.dtype], band, w, scale, out, bh, bw, cin,
+         cout, rows, cols)
+    return out
+
+
+# ---- what the probe tools share ------------------------------------------------------------
+
+
+def timed(f, n):
+    """``(mean milliseconds a call over n calls after one warm-up, the last
+    output)``: CUDA events where the output lies on the card, the host clock
+    elsewhere."""
+    out = f()
+    if (out[0] if isinstance(out, tuple) else out).device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = f()
+        return (time.perf_counter() - t0) / n * 1e3, out
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        out = f()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n, out
+
+
+def bf16_from_numpy(x, dev):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev).to(torch.bfloat16)

@@ -381,3 +381,186 @@ def test_model_grads_kernel_path_match_plain_path(cuda):
     for n, g in grads[True].items():
         ref = grads[False][n]
         assert float((g - ref).abs().max()) <= 1e-3 * float(ref.abs().max()), n
+
+
+# ---- the probe kernels K6-K10 (kernels/probes.py) --------------------------------------------
+# Each against its plain version on the same inputs, at a ragged size and at
+# the full shapes of its TPU probe. Bounds: K6, K8 and K10 in int8 and K9
+# bitwise (copies, exact int32 sums, the same IEEE division and rounding);
+# K8 and K10 in bf16 max|diff| <= 1e-5 max|ref| (float32 sums in another
+# order); K7 the bf16 bounds above (its H pass rounds to bf16 a float32 sum
+# taken in another order).
+
+
+def _probe_launches(name):
+    from pnp_vcve_torch.kernels import probes
+
+    assert probes.LAUNCHES[name] == 1 and sum(probes.LAUNCHES.values()) == 1
+
+
+def _bf16(gen, shape, dev, scale=1.0):
+    return (torch.randn(shape, generator=gen) * scale).to(dev, torch.bfloat16)
+
+
+def _int8(gen, shape, dev):
+    return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
+
+
+# (src shape, out_h, out_w, y0, x0, period): ragged; k_nodma; probe_floor128
+COPY_CASES = [((2, 30, 50, 24), 10, 40, 3, 5, 0), ((1, 64, 320, 64), 64, 256, 16, 32, 8),
+              ((1, 760, 672, 128), 720, 640, 16, 16, 0)]
+
+
+@pytest.mark.parametrize("case", COPY_CASES)
+def test_window_copy_kernel(cuda, case):
+    from pnp_vcve_torch.kernels import probes
+
+    shape, oh, ow, y0, x0, period = case
+    src = _bf16(torch.Generator().manual_seed(20), shape, cuda)
+    probes.reset_launches()
+    got = probes.window_copy(src, oh, ow, y0, x0, period)
+    _probe_launches("window_copy")
+    torch.cuda.synchronize()
+    assert torch.equal(got, probes.window_copy_plain(src, oh, ow, y0, x0, period))
+
+
+# (nb, nt, kw, c, dv): ragged (a short depth, 16 channels, 13 V terms); the
+# probe's 720p warp
+MMSEL_CASES = [(3, 2, 100, 16, 13), (90, 10, 184, 64, 40)]
+
+
+@pytest.mark.parametrize("case", MMSEL_CASES)
+def test_mmsel_warp_kernel(cuda, case):
+    """K7, V mode: a dense random S (any depth's products, not only two
+    taps) and dense random vm at the ragged size; build_s's S at 720p."""
+    from pnp_vcve_torch.kernels import probes
+
+    gen = torch.Generator().manual_seed(21)
+    nb, nt, kw, c, dv = case
+    xp = _bf16(gen, (1, 8 * (nb - 1) + dv + 7 + 5, 128 * (nt - 1) + kw + 9, c), cuda)
+    w = 128 * nt
+    if nb == 90:
+        m0 = (torch.arange(w) + 32)[None] + torch.randint(-17, 18, (nb, w), generator=gen)
+        s = probes.build_s(m0.to(cuda), torch.rand((nb, w), generator=gen).to(cuda),
+                           torch.rand((nb, w), generator=gen).to(cuda))
+    else:
+        s = _bf16(gen, (nb, nt, 128, kw), cuda, 0.1)
+    vm = torch.rand((nb, w, dv), generator=gen).to(cuda)
+    probes.reset_launches()
+    got = probes.mmsel_warp(xp, s, vm)
+    _probe_launches("mmsel")
+    _check(got, probes.mmsel_warp_plain(xp, s, vm), torch.bfloat16)
+
+
+@pytest.mark.parametrize("lanes,hw", [(16, (24, 300)), (64, (64, 256)), (128, (64, 256))])
+def test_mmsel_h_kernel(cuda, lanes, hw):
+    """K7, H mode (k_fori_dot): one dense S for every band, columns past the
+    tile zeros."""
+    from pnp_vcve_torch.kernels import probes
+
+    gen = torch.Generator().manual_seed(22)
+    h, w = hw
+    x = _bf16(gen, (1, h + 40, w + 64, lanes), cuda)
+    s = _bf16(gen, (1, 1, 128, 184), cuda, 0.1)
+    probes.reset_launches()
+    got = probes.mmsel_h(x, s, h // 8, 16, w)
+    _probe_launches("mmsel")
+    assert not got[..., 128:, :].any()
+    _check(got, probes.mmsel_h_plain(x, s, h // 8, 16, w), torch.bfloat16)
+
+
+# (m, k, n): ragged (no multiple of the 128 x 64 block tile); the probe's
+MATMUL_CASES = [(48, 96, 24), (4096, 128, 128)]
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8", "int8_scaled"])
+@pytest.mark.parametrize("case", MATMUL_CASES)
+def test_matmul_kernel(cuda, case, form):
+    from pnp_vcve_torch.kernels import probes
+
+    gen = torch.Generator().manual_seed(23)
+    m, k, n = case
+    if form == "bf16":
+        a, b, scale = _bf16(gen, (m, k), cuda), _bf16(gen, (k, n), cuda), None
+    else:
+        a, b = _int8(gen, (m, k), cuda), _int8(gen, (k, n), cuda)
+        scale = torch.tensor([0.0123], device=cuda) if form == "int8_scaled" else None
+    probes.reset_launches()
+    got = probes.matmul(a, b, scale)
+    _probe_launches("matmul")
+    ref = probes.matmul_plain(a, b, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if form == "bf16":
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    else:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape", [(37, 8), (4096, 128), (24, 656, 128)])
+def test_absmax_quantize_kernel(cuda, shape):
+    """K9: q and s bitwise, on normal values and on values on the rounding
+    ties of x / s."""
+    from pnp_vcve_torch.kernels import probes
+
+    gen = torch.Generator().manual_seed(24)
+    for x in (_bf16(gen, shape, cuda), (torch.randint(-254, 255, shape, generator=gen) / 2.0)
+              .to(cuda, torch.bfloat16)):
+        probes.reset_launches()
+        q, s = probes.absmax_quantize(x)
+        _probe_launches("absmax_quantize")
+        q_ref, s_ref = probes.absmax_quantize_plain(x)
+        torch.cuda.synchronize()
+        assert torch.equal(s, s_ref) and torch.equal(q, q_ref)
+
+
+# (band, rows, cols, cout): ragged (no multiple of the 16 x 16 tile, a
+# narrow output group); the probe's; K5's 720p geometry, 64 -> 64
+TAPCONV_CASES = [((9, 23, 64), 5, 19, 24), ((24, 656, 128), 16, 320, 128),
+                 ((722, 1282, 64), 720, 1280, 64)]
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+@pytest.mark.parametrize("case", TAPCONV_CASES)
+def test_tapconv_kernel(cuda, case, form):
+    from pnp_vcve_torch.kernels import probes
+
+    gen = torch.Generator().manual_seed(25)
+    band_shape, rows, cols, cout = case
+    cin = band_shape[2]
+    if form == "bf16":
+        band, w, scale = (_bf16(gen, band_shape, cuda), _bf16(gen, (3, 3, cin, cout), cuda, 0.05),
+                          None)
+    else:
+        band, w = _int8(gen, band_shape, cuda), _int8(gen, (3, 3, cin, cout), cuda)
+        scale = torch.tensor([0.0123], device=cuda)
+    probes.reset_launches()
+    got = probes.tapconv(band, w, rows, cols, scale)
+    _probe_launches("tapconv")
+    ref = probes.tapconv_plain(band, w, rows, cols, scale)
+    torch.cuda.synchronize()
+    if form == "bf16":
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    else:
+        assert torch.equal(got, ref)
+
+
+def test_probe_kernels_refuse_what_they_cannot_take(cuda):
+    """Each wrapper raises on a dtype, a shape or a layout its kernel does
+    not take (it never runs the plain version on a CUDA tensor)."""
+    from pnp_vcve_torch.kernels import probes
+
+    a = torch.zeros((32, 48), dtype=torch.int8, device=cuda)  # k % 32 != 0
+    with pytest.raises(ValueError, match="matmul"):
+        probes.matmul(a, torch.zeros((48, 16), dtype=torch.int8, device=cuda))
+    with pytest.raises(TypeError, match="matmul"):
+        probes.matmul(a.float(), torch.zeros((48, 16), device=cuda))
+    band = torch.zeros((6, 20, 16), dtype=torch.int8, device=cuda)  # cin % 32 != 0
+    with pytest.raises(ValueError, match="tapconv"):
+        probes.tapconv(band, torch.zeros((3, 3, 16, 16), dtype=torch.int8, device=cuda), 4, 18,
+                       torch.ones(1, device=cuda))
+    x = torch.zeros((1, 40, 64, 16), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        probes.window_copy(x.transpose(1, 2), 8, 8, 0, 0)
+    with pytest.raises(TypeError, match="absmax_quantize"):
+        probes.absmax_quantize(torch.zeros(16, device=cuda))

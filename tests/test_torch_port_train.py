@@ -302,8 +302,9 @@ def test_train_cli_resume_equals_uninterrupted_run(fixture_root, tmp_path):
 def test_port_and_clis_import_no_jax(fixture_root, tmp_path):
     """One process imports every module of pnp_vcve_torch (serving and apis
     among them), runs both CLIs on the CPU, a batched dispatch, the serving
-    curve, the packager and the handler; neither jax nor any pnp_vcve_tpu
-    module gets imported."""
+    curve, the packager, the handler and the three probe tools (K6-K10's
+    plain versions at small shapes); neither jax nor any pnp_vcve_tpu module
+    gets imported."""
     cfg = _write_cli_cfg(tmp_path, fixture_root)
     ckpt = tmp_path / "w" / "ckpt" / "1.pth"
     code = f"""
@@ -316,6 +317,7 @@ for m in mods:
     importlib.import_module(m)
 import torch_test, torch_train, torch_serving_curve, torch_pnp2servable, torch_serving_handler
 import torch_kernel_bounds
+import torch_int8_probe, torch_warp_kernel_probe2, torch_warp_bisect
 from pnp_vcve_torch import apis, serving
 torch_train.main([{str(cfg)!r}, "--device", "cpu", "--work-dir", {str(tmp_path / 'w')!r},
                   "--total-iters", "1"])
@@ -337,6 +339,14 @@ from PIL import Image
 buf = io.BytesIO()
 Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="PNG")
 assert Image.open(io.BytesIO(h.handle(buf.getvalue()))).size == (8, 8)
+probe_runs = [
+    torch_int8_probe.main(["--device", "cpu", "--mkn", "64", "32", "16", "--band", "6", "20",
+                           "32", "--out", "4", "18", "--n", "1"]),
+    torch_warp_kernel_probe2.main(["--device", "cpu", "--hw", "16", "256", "--channels", "16",
+                                   "--n", "1"]),
+    torch_warp_bisect.main(["dma64", "nodma64", "fori64", "--device", "cpu", "--hw", "32", "256"]),
+]
+assert all(r["out"] is not None for run in probe_runs for r in run.values())
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pnp_vcve_tpu")]
 print("MODULES", len(mods), "BAD", bad)
 """
@@ -344,6 +354,9 @@ print("MODULES", len(mods), "BAD", bad)
                           cwd=tmp_path, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "iter 1/1 loss=" in proc.stdout and "dataset mean" in proc.stdout
+    for line in ("[ok] quantize-in-kernel + int8 matmul", "[ok] int8 tap-conv",
+                 "[ok] matmul-select H + dense V", "[ok] fori+dot 64-lane"):
+        assert line in proc.stdout
     assert "BAD []" in proc.stdout
     assert int(proc.stdout.split("MODULES ")[1].split()[0]) >= 30
 
