@@ -20,7 +20,12 @@ Phases (any failure raises and the script exits non-zero):
    (``drt_block_pallas``, ``drt_block_packed``); K5 (the per-sample 3x3
    conv) at 64 -> 64, at 720p also for b=2 with its own kernels per
    sample, and at the ragged size for c_in in {3, 8, 64} and c_out in
-   {8, 64}. At 720p each is timed with CUDA events in turns (plain,
+   {8, 64}; K1, K1b, K2, K3 and K4 also at the widths 8, 24 and 128 at
+   the ragged sizes in both types (weights scaled by 8 / sqrt(c)), and K2,
+   K3 and K4 at 720p at 128 channels, timed beside their bounds (K3s runs
+   at 64 only, the pf path's width); the wrappers' width limits
+   (``launch.MAX_WIDTH``) must be the widest blocks the sources' shared
+   memory formulas fit (phase 2). At 720p each is timed with CUDA events in turns (plain,
    kernel, kernel, plain), beside one PyTorch call that computes the same
    function where there is one (``F.grid_sample`` for the warps, one
    ``F.conv2d`` over the concatenated parts for the input conv, one
@@ -39,7 +44,10 @@ Phases (any failure raises and the script exits non-zero):
    8 frames at 256x448 with block-constant MVs up to +-24 px
    (max|diff| <= 3e-3, float32), and, on the same inputs, its output
    against the ``block8`` model's on the MVs clamped to +-16 px beforehand
-   (the same bound);
+   (the same bound); then the flagship generator (use_pallas_kernels) at
+   mid_channels 8 and 128 (2 blocks, 2 experts, seeded weights), with
+   ``padgather`` and ``block8``, kernel path against plain path on the same
+   clip (the same bound) and each pass's launch counts;
 6. gradients at the flagship width (64 channels, 8 blocks, 6 experts): one
    Charbonnier loss on b=2 clips of 4 frames at 192x256, backpropagated
    through the kernels and through the plain path (float32, TF32 off);
@@ -101,7 +109,16 @@ Phases (any failure raises and the script exits non-zero):
    period) and beside its bound (``tools/torch_kernel_bounds.py``'s work
    functions on this run's shapes and, for K7, the non-zeros of its S and
    vm); and K10 in bf16 and int8 at K5's geometry (720x1280, 64 -> 64)
-   beside K5 and one cuDNN conv, a measurement only.
+   beside K5 and one cuDNN conv, a measurement only;
+13. the probes that move data (B10b): ``tools/torch_warp_kernel_probe.py``
+   and ``tools/torch_dma_probe.py`` (manual, then pipelined) at their JAX
+   files' shapes on the card, the probe counts zeroed before and read
+   after, each of K6, K11, K12 and K13 (``ring_copy`` and ``stream_copy``)
+   launched; then every stage's output bitwise against its plain version
+   on the same inputs, timed in turns beside it, beside ``torch.mul`` on
+   the strided window (probe_floor) or ``z.clone()`` (the copies that
+   write the array out), and beside its bound (K11's and K12's input bytes
+   the distinct pixels this run's tables pick).
 
 Each phase prints its wall time.
 The line before the last is a JSON object with each kernel's launches
@@ -109,9 +126,11 @@ The line before the last is a JSON object with each kernel's launches
 before it and read just after; then each path's own: the serving path of
 phase 4, the batched path of phase 8, the handler of phase 10, training in
 phase 7, each block form's last 720p run in phase 11; the probe tools'
-run of phase 12 for K6-K10), its error, its time beside the plain
-version's, the library call's, its yardsticks' and the bound (K6-K10: the
-headline stage, every stage under ``forms``); the last line is
+runs of phases 12 and 13 for K6-K13), its error, its time beside the plain
+version's, the library call's, its yardsticks' and the bound (K1-K4: also
+the worst error at the other widths and K2-K4's 720p row at 128 channels;
+K6-K13: the headline stage, every stage under ``forms``), and phase 5's
+errors at the other widths; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -147,16 +166,23 @@ BF16_BOUNDS = {"warp": (0.08, 0.01), "warp_block": (0.08, 0.01), "input_conv": (
                "head": (0.02, 0.002), "conv3x3": (0.04, 0.002)}
 # K5 at the ragged size: the 3-channel frame, 8 channels and the model's 64
 CONV_RAGGED_CHANNELS = [(ci, co) for ci in (3, 8, 64) for co in (8, 64)]
+# K1-K4 at widths other than the flagship's 64: at the ragged sizes (one
+# narrow group, a group of 24, two full groups), and K2-K4 timed at 720p at 128
+WIDTHS, WIDE = (8, 24, 128), 128
+# phase 5: the flagship generator at other widths (random weights, seeded)
+MODEL_WIDTHS, MODEL_WIDTH_BLOCKS, MODEL_WIDTH_EXPERTS = (8, 128), 2, 2
 
-# FLOP per output pixel at 64 channels (2 per multiply-add), from the shapes
-FLOP_PER_PIXEL = {
-    "input_conv (backward, 3 parts)": 2 * 9 * (3 + 128) * 64,
-    "input_conv (forward, 4 parts)": 2 * 9 * (3 + 192) * 64,
-    "drt_block": 2 * (9 * 64 * 64 + 3 * 64 * 64 + 9 * 64 * 64),
-    "drt_block_select": 2 * (9 * 64 * 64 + 3 * 64 * 64 + 9 * 64 * 64),
-    "head": 2 * 9 * 64 * (64 + 3),
-    "conv3x3": 2 * 9 * 64 * 64,
-}
+
+def flop_per_pixel(label, c=64):
+    """FLOP per output pixel at width c (2 per multiply-add), from the shapes."""
+    return {
+        "input_conv (backward, 3 parts)": 2 * 9 * (3 + 2 * c) * c,
+        "input_conv (forward, 4 parts)": 2 * 9 * (3 + 3 * c) * c,
+        "drt_block": 2 * (9 * c * c + 3 * c * c + 9 * c * c),
+        "drt_block_select": 2 * (9 * c * c + 3 * c * c + 9 * c * c),
+        "head": 2 * 9 * c * (c + 3),
+        "conv3x3": 2 * 9 * c * c,
+    }.get(label, 0)
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM3, float32 on
 # the CUDA cores, dense bf16 on the tensor cores
 HBM_BYTES_S, F32_FLOP_S, BF16_TC_FLOP_S = 3.35e12, 67e12, 989e12
@@ -193,7 +219,8 @@ GRAD_B, GRAD_T, GRAD_HW = 2, 4, (192, 256)  # phases 6 and 11
 # replaces, the others), each at its pallas_call
 PROBE_INFO = {
     "window_copy": ("pnp_vcve_torch/kernels/csrc/probe_copy.cu", "tools/warp_kernel_probe2.py:78",
-                    ["tools/warp_bisect.py:52", "tools/warp_bisect.py:72"]),
+                    ["tools/warp_bisect.py:52", "tools/warp_bisect.py:72",
+                     "tools/warp_kernel_probe.py:69"]),
     "mmsel": ("pnp_vcve_torch/kernels/csrc/probe_mmsel.cu", "tools/warp_kernel_probe2.py:126",
               ["tools/warp_bisect.py:105"]),
     "matmul": ("pnp_vcve_torch/kernels/csrc/probe_matmul.cu", "tools/int8_probe.py:70",
@@ -202,6 +229,13 @@ PROBE_INFO = {
                         ["tools/int8_probe.py:127"]),
     "tapconv": ("pnp_vcve_torch/kernels/csrc/probe_tapconv.cu", "tools/int8_probe.py:148",
                 ["tools/int8_probe.py:127"]),
+    # phase 13: the probes that move data (B10b)
+    "gather2": ("pnp_vcve_torch/kernels/csrc/probe_gather.cu", "tools/warp_kernel_probe.py:124",
+                []),
+    "block_windows": ("pnp_vcve_torch/kernels/csrc/probe_blockdma.cu",
+                      "tools/warp_kernel_probe.py:179", []),
+    "ring_copy": ("pnp_vcve_torch/kernels/csrc/probe_ring.cu", "tools/dma_probe.py:104", []),
+    "stream_copy": ("pnp_vcve_torch/kernels/csrc/probe_ring.cu", "tools/dma_probe.py:173", []),
 }
 K5_GEOMETRY = (720, 1280, 64)  # K10 timed at K5's frame, 64 -> 64 (measurement only)
 
@@ -222,7 +256,8 @@ def phase_device():
 
 
 def phase_build():
-    from pnp_vcve_torch.kernels.build import SMEM_REPORT, library
+    from pnp_vcve_torch.kernels.build import PROBE_SMEM_REPORT, SMEM_REPORT, library
+    from pnp_vcve_torch.kernels.launch import MAX_WIDTH, SMEM_MAX
 
     t0 = time.perf_counter()
     lib = library()
@@ -231,8 +266,18 @@ def phase_build():
     for line in lib.log.splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling" in line) or "spill" in line:
             print("[build]", line.strip())
-    smem = {n: getattr(lib.lib, f"pnp_{n}_smem")() for n in SMEM_REPORT}
-    print(f"[build] dynamic shared memory per block (bytes): {smem}")
+    smem = {n: {c: getattr(lib.lib, f"pnp_{n}_smem")(c) for c in (64, *WIDTHS)}
+            for n in SMEM_REPORT}
+    smem.update({n: getattr(lib.lib, f"pnp_{n}_smem")() for n in PROBE_SMEM_REPORT})
+    print(f"[build] dynamic shared memory per block (bytes, model kernels by width): {smem}")
+    # the wrappers' width limits are the widest blocks the sources' formulas fit
+    def fits(n, c):
+        return getattr(lib.lib, f"pnp_{n}_smem")(c) <= SMEM_MAX
+
+    off = [(n, top) for n, top in MAX_WIDTH.items()
+           if n in SMEM_REPORT and top is not None and not (fits(n, top) and not fits(n, top + 8))]
+    if off:
+        raise AssertionError(f"launch.MAX_WIDTH is not the widest block that fits: {off}")
 
 
 def _timed(fn, reps):
@@ -283,12 +328,14 @@ def _grid(flow, h, w, dtype):
                         (ys + flow[..., 1].float()) * 2 / (h - 1) - 1], -1).to(dtype)
 
 
-def _cases(dev, dtype, b, h, w, gen):
-    """One dict per case: label, kernel name, the kernel call, the plain
-    call in float32 on the same values, the plain call in the working type,
-    the library call (or None), yardsticks to time beside it, an extra
-    check (or None), reps for timing, and the bytes the function must move
-    (each input read once, each output written once)."""
+def _cases(dev, dtype, b, h, w, gen, c=64):
+    """One dict per case at width c: label, kernel name, the kernel call,
+    the plain call in float32 on the same values, the plain call in the
+    working type, the library call (or None), yardsticks to time beside it,
+    an extra check (or None), reps for timing, and the bytes the function
+    must move (each input read once, each output written once). K5 and K3
+    in the TPU's per-block argument order only at 64 (K5 has its own
+    widths); weights scaled by 8 / sqrt(c), 0.03 at 64 as before."""
     import torch
     import torch.nn.functional as F
 
@@ -306,7 +353,8 @@ def _cases(dev, dtype, b, h, w, gen):
         return sum(t.numel() * t.element_size() for t in ts)
 
     f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
-    x = feat(64)
+    sc = 8 / c ** 0.5  # weight scale: 1 at the flagship's 64
+    x = feat(c)
     # block-constant motion vectors as the rasterizer emits them, +-24 px
     fb = torch.rand((b, -(-h // 8), -(-w // 8), 2), generator=gen) * (2 * MV_REACH) - MV_REACH
     flow = fb.repeat_interleave(8, 1).repeat_interleave(8, 2)[:, :h, :w].contiguous()
@@ -335,9 +383,9 @@ def _cases(dev, dtype, b, h, w, gen):
             bytes=nbytes(x, table, x)))
     gate = torch.ones(b, device=dev)
     for n_parts, tag in ((3, "backward"), (4, "forward")):
-        parts = [feat(3)] + [feat(64) for _ in range(n_parts - 1)]
-        kernel = wt((3, 3, 3 + 64 * (n_parts - 1), 64), 0.03)
-        bias = wt((64,), 0.1)
+        parts = [feat(3)] + [feat(c) for _ in range(n_parts - 1)]
+        kernel = wt((3, 3, 3 + c * (n_parts - 1), c), 0.03 * sc)
+        bias = wt((c,), 0.1)
         ks = part_kernels(kernel, [p.shape[-1] for p in parts], b, gate)
         cat = torch.cat(parts, -1).permute(0, 3, 1, 2).contiguous()
         w_oihw = kernel.permute(3, 2, 0, 1).contiguous().to(dtype)
@@ -349,40 +397,41 @@ def _cases(dev, dtype, b, h, w, gen):
             library=lambda c=cat, k=w_oihw, bb=bias.to(dtype): F.conv2d(c, k, bb, padding=1),
             yardsticks={}, check=None, reps=5, bytes=nbytes(*parts, *ks, bias, x)))
     par = (torch.rand((b, h, w, 3), generator=gen) > 0.5).to(dev, dtype)
-    blk = (wt((b, 3, 3, 64, 64), 0.03), wt((b, 64), 0.1),
-           torch.rand((b, 64), generator=gen).to(dev),
-           wt((64, 3, 64), 0.03), wt((3, 3, 64, 64), 0.03), wt((64,), 0.1))
+    blk = (wt((b, 3, 3, c, c), 0.03 * sc), wt((b, c), 0.1),
+           torch.rand((b, c), generator=gen).to(dev),
+           wt((c, 3, c), 0.03 * sc), wt((3, 3, c, c), 0.03 * sc), wt((c,), 0.1))
     cases.append(dict(
         label="drt_block", name="drt_block", kern=lambda: KERNELS.drt_block(x, par, *blk),
         ref32=lambda: PLAIN.drt_block(x.float(), par.float(), *blk),
         plain=lambda: PLAIN.drt_block(x, par, *blk), library=None, yardsticks={},
         check=None, reps=5, bytes=nbytes(x, par, *blk, x)))
-    last_key = feat(64)
-    is_key = (torch.arange(b, device=dev) % 2 == 0).float()  # keyframes and not
+    if c == 64:  # K3s runs at the pf path's width only
+        last_key = feat(c)
+        is_key = (torch.arange(b, device=dev) % 2 == 0).float()  # keyframes and not
 
-    def select_check():
-        """new_last_key is bitwise torch.where on K3s's own out, for each
-        sample's flag and its opposite."""
-        for key in (is_key, 1.0 - is_key):
-            out, new_lk = KERNELS.drt_block_select(x, par, *blk, last_key, key)
-            want = torch.where(key.reshape(-1, 1, 1, 1) > 0.5, out, last_key)
-            if not torch.equal(new_lk.view(torch.int16 if dtype == torch.bfloat16 else
-                                           torch.int32),
-                               want.view(torch.int16 if dtype == torch.bfloat16 else
-                                         torch.int32)):
-                raise AssertionError("drt_block_select: new_last_key is not the select of out")
-        return "new_last_key == where(is_key, out, last_key) bitwise, both flags"
+        def select_check():
+            """new_last_key is bitwise torch.where on K3s's own out, for each
+            sample's flag and its opposite."""
+            for key in (is_key, 1.0 - is_key):
+                out, new_lk = KERNELS.drt_block_select(x, par, *blk, last_key, key)
+                want = torch.where(key.reshape(-1, 1, 1, 1) > 0.5, out, last_key)
+                if not torch.equal(new_lk.view(torch.int16 if dtype == torch.bfloat16 else
+                                               torch.int32),
+                                   want.view(torch.int16 if dtype == torch.bfloat16 else
+                                             torch.int32)):
+                    raise AssertionError("drt_block_select: new_last_key is not the select of out")
+            return "new_last_key == where(is_key, out, last_key) bitwise, both flags"
 
-    cases.append(dict(
-        label="drt_block_select", name="drt_block_select",
-        kern=lambda: KERNELS.drt_block_select(x, par, *blk, last_key, is_key)[0],
-        ref32=lambda: PLAIN.drt_block(x.float(), par.float(), *blk),
-        plain=lambda: PLAIN.drt_block_select(x, par, *blk, last_key, is_key),
-        library=None,
-        yardsticks={"k3_where_ms": lambda: torch.where(
-            is_key.reshape(-1, 1, 1, 1) > 0.5, KERNELS.drt_block(x, par, *blk), last_key)},
-        check=select_check, reps=5, bytes=nbytes(x, par, *blk, last_key, is_key, x, x)))
-    if (h, w) in (MAIN_HW, RAGGED_HW):
+        cases.append(dict(
+            label="drt_block_select", name="drt_block_select",
+            kern=lambda: KERNELS.drt_block_select(x, par, *blk, last_key, is_key)[0],
+            ref32=lambda: PLAIN.drt_block(x.float(), par.float(), *blk),
+            plain=lambda: PLAIN.drt_block_select(x, par, *blk, last_key, is_key),
+            library=None,
+            yardsticks={"k3_where_ms": lambda: torch.where(
+                is_key.reshape(-1, 1, 1, 1) > 0.5, KERNELS.drt_block(x, par, *blk), last_key)},
+            check=select_check, reps=5, bytes=nbytes(x, par, *blk, last_key, is_key, x, x)))
+    if (h, w) in (MAIN_HW, RAGGED_HW) and c == 64:
         # K3 called with drt_block_pallas's / drt_block_packed's argument order
         # (x, par, dyn_kernels, dyn_biases, par_kernel, conv1_kernel, conv1_bias,
         # gamma), the B8/B9 entry: the same wrapper, its arguments reordered
@@ -396,7 +445,7 @@ def _cases(dev, dtype, b, h, w, gen):
             ref32=lambda: pallas_order(PLAIN.drt_block)(x.float(), par.float(), *jargs),
             plain=lambda: pallas_order(PLAIN.drt_block)(x, par, *jargs), library=None,
             yardsticks={}, check=None, reps=5, time=False, bytes=nbytes(x, par, *blk, x)))
-    hd = (wt((3, 3, 64, 64), 0.03), wt((64,), 0.1), wt((3, 3, 64, 3), 0.06), wt((3,), 0.1))
+    hd = (wt((3, 3, c, c), 0.03 * sc), wt((c,), 0.1), wt((3, 3, c, 3), 0.06 * sc), wt((3,), 0.1))
     cases.append(dict(
         label="head", name="head", kern=lambda: KERNELS.head(x, *hd),
         ref32=lambda: PLAIN.head(x.float(), *hd), plain=lambda: PLAIN.head(x, *hd),
@@ -425,6 +474,8 @@ def _cases(dev, dtype, b, h, w, gen):
             yardsticks={}, check=None, reps=5, time=timed,
             bytes=nbytes(xc, k, bias, g) + bb * h * w * c_out * xc.element_size())
 
+    if c != 64:
+        return cases
     # K5 at the model's 64 -> 64; at 720p also two samples with their own
     # kernels; at the ragged size every pair of CONV_RAGGED_CHANNELS
     cases.append(conv_case(b, 64, 64, True))
@@ -436,17 +487,39 @@ def _cases(dev, dtype, b, h, w, gen):
     return cases
 
 
+def _time_case(c, tag, b, h, w, width=64):
+    """Time case c in turns (plain, kernel, kernel, plain), its library call
+    and yardsticks; print the line and return the row."""
+    p1, k1, k2, p2 = (_timed(f, c["reps"]) for f in (c["plain"], c["kern"], c["kern"], c["plain"]))
+    lib = _timed(c["library"], c["reps"]) if c["library"] else None
+    yard = {k: _timed(f, c["reps"]) for k, f in c["yardsticks"].items()}
+    flop = flop_per_pixel(c["label"], width) * b * h * w
+    t_bytes, t_ops = c["bytes"] / HBM_BYTES_S * 1e3, flop / F32_FLOP_S * 1e3
+    rate = f"{flop / (k1 + k2) * 2e-9:.1f} TFLOP/s, " if flop else ""
+    yard_txt = "".join(f", {k[:-3]} {v:.3f} ms" for k, v in yard.items())
+    print(f"[time] {tag}: kernel {k1:.3f} / {k2:.3f} ms, "
+          f"plain {p1:.3f} / {p2:.3f} ms, library "
+          f"{'none' if lib is None else f'{lib:.3f} ms'}{yard_txt}; {rate}"
+          f"{c['bytes'] / ((k1 + k2) / 2) * 1e-6:.0f} GB/s; bound "
+          f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, float32 ops "
+          f"{t_ops:.3f}, bf16 tensor-core ops {flop / BF16_TC_FLOP_S * 1e3:.3f})")
+    return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib, t_bytes=t_bytes,
+                t_ops=t_ops, t_bf16=flop / BF16_TC_FLOP_S * 1e3, **yard)
+
+
 def phase_kernels(dev):
     """Returns {kernel: row} in float32 at 720p: the worst error, the mean
     times of the kernel, its plain version, the library call and the
     yardsticks, and the bounds. The input conv's row covers its two forms
-    (worst error, mean time and bound)."""
+    (worst error, mean time and bound). K1-K4 also at WIDTHS at the ragged
+    sizes (the worst error there under ``width_max_abs_err``), and K2-K4
+    timed at 720p at width WIDE (under ``wide``)."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(SEED)
-    rows = {}
+    rows, wide, width_err = {}, {}, {}
     sizes = ((1, MAIN_HW, True), (BATCH_B, BATCH_HW, False), (1, RAGGED_HW, False),
              (1, BLOCK_RAGGED_HW, False))
     for dtype in (torch.float32, torch.bfloat16):
@@ -458,40 +531,50 @@ def phase_kernels(dev):
                     print(f"[kernel] {tag}: {c['check']()}")
                 if not (timed and c.get("time", True)):
                     continue
-                p1, k1, k2, p2 = (_timed(f, c["reps"])
-                                  for f in (c["plain"], c["kern"], c["kern"], c["plain"]))
-                lib = _timed(c["library"], c["reps"]) if c["library"] else None
-                yard = {k: _timed(f, c["reps"]) for k, f in c["yardsticks"].items()}
-                flop = FLOP_PER_PIXEL.get(c["label"], 0) * b * h * w
-                t_bytes, t_ops = c["bytes"] / HBM_BYTES_S * 1e3, flop / F32_FLOP_S * 1e3
-                rate = f"{flop / (k1 + k2) * 2e-9:.1f} TFLOP/s, " if flop else ""
-                yard_txt = "".join(f", {k[:-3]} {v:.3f} ms" for k, v in yard.items())
-                print(f"[time] {tag}: kernel {k1:.3f} / {k2:.3f} ms, "
-                      f"plain {p1:.3f} / {p2:.3f} ms, library "
-                      f"{'none' if lib is None else f'{lib:.3f} ms'}{yard_txt}; {rate}"
-                      f"{c['bytes'] / ((k1 + k2) / 2) * 1e-6:.0f} GB/s; bound "
-                      f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, float32 ops "
-                      f"{t_ops:.3f}, bf16 tensor-core ops {flop / BF16_TC_FLOP_S * 1e3:.3f})")
+                row = _time_case(c, tag, b, h, w)
                 if dtype == torch.float32:
-                    rows.setdefault(c["name"], []).append(dict(
-                        err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib,
-                        t_bytes=t_bytes, t_ops=t_ops, t_bf16=flop / BF16_TC_FLOP_S * 1e3,
-                        **yard))
+                    rows.setdefault(c["name"], []).append(dict(err=err, **row))
             torch.cuda.empty_cache()
+        # the other widths: every case at the ragged sizes (K1b at its own)
+        for width in WIDTHS:
+            for h, w in (RAGGED_HW, BLOCK_RAGGED_HW):
+                for c in _cases(dev, dtype, 1, h, w, gen, width):
+                    if (c["name"] == "warp_block") != ((h, w) == BLOCK_RAGGED_HW):
+                        continue
+                    tag = f"{c['label']} c={width} {str(dtype)[6:]} b=1 {h}x{w}"
+                    err = _compare(tag, c["kern"](), c["ref32"](), dtype, BF16_BOUNDS[c["name"]])
+                    if c["check"] is not None:
+                        print(f"[kernel] {tag}: {c['check']()}")
+                    if dtype == torch.float32:
+                        width_err[c["name"]] = max(width_err.get(c["name"], 0.0), err)
+    # K2-K4 at 720p at width WIDE, float32, timed beside their bounds
+    h, w = MAIN_HW
+    for c in _cases(dev, torch.float32, 1, h, w, gen, WIDE):
+        if c["name"] not in ("input_conv", "drt_block", "head"):
+            continue
+        tag = f"{c['label']} c={WIDE} float32 b=1 {h}x{w}"
+        err = _compare(tag, c["kern"](), c["ref32"](), torch.float32, None)
+        wide.setdefault(c["name"], []).append(dict(err=err, **_time_case(c, tag, 1, h, w, WIDE)))
+    torch.cuda.empty_cache()
 
     def mean(rs, k):
         return None if rs[0][k] is None else sum(r[k] for r in rs) / len(rs)
 
-    out = {}
-    for name, rs in rows.items():
+    def summary(rs):
         t_bytes, t_ops = mean(rs, "t_bytes"), mean(rs, "t_ops")
         extra = {k: mean(rs, k) for k in rs[0] if k.endswith("_ms") and k != "library_ms"}
-        out[name] = dict(
+        return dict(
             max_abs_err=max(r["err"] for r in rs), ms=mean(rs, "ms"),
             plain_ms=mean(rs, "plain_ms"), bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=mean(rs, "library_ms"), bound_bf16_tensor_ms=mean(rs, "t_bf16"),
             **{k: v for k, v in extra.items() if k not in ("ms", "plain_ms")})
+
+    out = {name: summary(rs) for name, rs in rows.items()}
+    for name, err in width_err.items():
+        out[name]["width_max_abs_err"] = {"widths": list(WIDTHS), "max_abs_err": err}
+    for name, rs in wide.items():
+        out[name]["wide"] = {"c": WIDE, **summary(rs)}
     return out
 
 
@@ -567,7 +650,8 @@ def phase_main_path(dev):
     if len(pngs) != n:
         raise AssertionError(f"expected {n} enhanced frames under {out_dir}, found {len(pngs)}")
     print(f"[main] {n} frames at {h}x{w}: generator {sum(fwd_s):.3f} s = "
-          f"{n / sum(fwd_s):.3f} frames/s; tools/torch_test.py incl. loading and "
+          f"{n / sum(fwd_s):.3f} frames/s (per clip "
+          f"{', '.join(f'{v:.3f}' for v in fwd_s)} s); tools/torch_test.py incl. loading and "
           f"host metrics {wall:.3f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     return counts
@@ -614,12 +698,14 @@ def _flagship_generator(config, dev):
 
 def _launches_per_pass(t, num_blocks, warp_impl="padgather", fused_blocks=True):
     """Kernel launches of one forward over t frames: each sweep step warps
-    (K1b under 'pf', K1 in training), runs the input conv and the blocks
-    (under 'pf' the last is K3s; the unfused block forms run two K5 per
-    block instead of one K3); the forward sweep's steps run the head."""
+    (K1b under 'pf' and 'block8' on frames of multiples of 8, K1 in
+    training), runs the input conv and the blocks (under 'pf' the last is
+    K3s; the unfused block forms run two K5 per block instead of one K3);
+    the forward sweep's steps run the head."""
     pf = warp_impl == "pf"
+    k1b = warp_impl in ("pf", "block8")
     k3 = 2 * (num_blocks - pf) * t if fused_blocks else 0
-    return {"warp": 0 if pf else 2 * t, "warp_block": 2 * t if pf else 0,
+    return {"warp": 0 if k1b else 2 * t, "warp_block": 2 * t if k1b else 0,
             "input_conv": 2 * t, "drt_block": k3, "drt_block_select": 2 * t if pf else 0,
             "head": t, "conv3x3": 0 if fused_blocks else 4 * num_blocks * t}
 
@@ -661,6 +747,44 @@ def phase_model_vs_plain(dev):
           f"to +-{PF_MAX_MV:g} px: max|diff| {err8:.3g} (each <= {TOL_MODEL})")
     if not (err <= TOL_MODEL and err8 <= TOL_MODEL):
         raise AssertionError("pf model kernel path disagrees with its plain path or block8")
+    return _model_widths(dev, inputs, t, h, w)
+
+
+def _model_widths(dev, inputs, t, h, w):
+    """The flagship generator (use_pallas_kernels, 'padgather' and 'block8')
+    at MODEL_WIDTHS channels, MODEL_WIDTH_BLOCKS blocks and
+    MODEL_WIDTH_EXPERTS experts, weights from a seed: kernel path against
+    plain path on phase 5's clip, with each pass's launch counts. Returns
+    {c: {warp_impl: max|diff|}}."""
+    import torch
+
+    from pnp_vcve_torch.core.builder import build_generator
+    from pnp_vcve_torch.kernels import LAUNCHES, PLAIN, reset_launches
+
+    errs = {}
+    for c in MODEL_WIDTHS:
+        for warp_impl in ("padgather", "block8"):
+            model = build_generator(dict(
+                type="PnPVCVE", mid_channels=c, num_blocks=MODEL_WIDTH_BLOCKS,
+                num_experts=MODEL_WIDTH_EXPERTS, use_pallas_kernels=True, warp_impl=warp_impl),
+                device=dev, seed=SEED + c)
+            with torch.inference_mode():
+                reset_launches()
+                got = model(**inputs)
+                counts = dict(LAUNCHES)
+                model.ops = PLAIN
+                want = model(**inputs)
+            expected = _launches_per_pass(t, MODEL_WIDTH_BLOCKS, warp_impl)
+            err = float((got - want).abs().max())
+            print(f"[model] c={c} {warp_impl} ({MODEL_WIDTH_BLOCKS} blocks, "
+                  f"{MODEL_WIDTH_EXPERTS} experts) kernel path vs plain path, {t} frames {h}x{w} "
+                  f"float32: max|diff| {err:.3g} (<= {TOL_MODEL}); launches {counts}")
+            if counts != expected:
+                raise AssertionError(f"c={c} {warp_impl}: launches {counts}, expected {expected}")
+            if not (bool(torch.isfinite(got).all()) and err <= TOL_MODEL):
+                raise AssertionError(f"c={c} {warp_impl}: kernel path disagrees with plain path")
+            errs.setdefault(c, {})[warp_impl] = err
+    return errs
 
 
 def phase_grads(dev):
@@ -1403,7 +1527,6 @@ def phase_probes(dev, smi):
 
     sys.path.insert(0, str(ROOT / "tools"))
     import torch_int8_probe
-    import torch_kernel_bounds as kb
     import torch_warp_bisect
     import torch_warp_kernel_probe2
 
@@ -1420,10 +1543,24 @@ def phase_probes(dev, smi):
     counts = dict(probes.LAUNCHES)
     print(f"[probes] launches of the three tools: {counts}")
     failed = [k for res in (int8, warp2, bisect) for k, v in res.items() if v["out"] is None]
-    if failed or not all(counts.values()):
+    if failed or not all(counts[k] for k in ("window_copy", "mmsel", "matmul", "absmax_quantize",
+                                             "tapconv")):
         raise AssertionError(f"probe stages failed: {failed}; launches {counts}")
+    rows = _probe_rows(_probe_cases(int8, warp2, bisect), smi)
+    k5 = _k5_geometry(dev, smi)
+    out = _probe_summary(rows, counts, "phase12_launches")
+    out["tapconv"]["k5_geometry_ms"] = k5
+    return out
+
+
+def _probe_rows(cases, smi):
+    """Each case's kernel output against its plain version (and the library
+    call's against the kernel's, where it gives the kernel's dtype), then
+    timed in turns beside the library call and the bound: {kernel: [row]}."""
+    import torch_kernel_bounds as kb
+
     rows = {}
-    for c in _probe_cases(int8, warp2, bisect):
+    for c in cases:
         tag = f"{c['kernel']}: {c['tpu']}"
         err = _probe_check(tag, c["out"], c["plain"](), c["rule"])
         if c["lib_of"]:
@@ -1433,20 +1570,104 @@ def phase_probes(dev, smi):
         lib = _timed(c["library"], c["reps"]) if c["library"] else None
         b_ms, by, t_bytes, t_ops = kb.bound(c["work"])
         row = dict(tpu=c["tpu"], max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                   bound_ms=b_ms, bound_by=by, library_ms=lib)
+                   bound_ms=b_ms, bound_by=by, library_ms=lib, **c.get("extra", {}))
         rows.setdefault(c["kernel"], []).append(row)
         print(f"[time] {tag}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
               f"library {'none' if lib is None else f'{lib:.4f} ms'}; bound {b_ms:.4f} ms "
               f"({by}: bytes {t_bytes:.4f}, ops {t_ops:.4f}); {smi}")
-    k5 = _k5_geometry(dev, smi)
-    out = {}
-    for name, rs in rows.items():  # the first stage is the headline, the rest forms
-        out[name] = dict(max_abs_err=max(r["max_abs_err"] for r in rs),
-                         **{k: rs[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                  "library_ms")},
-                         forms=rs, launches=counts[name])
-    out["tapconv"]["k5_geometry_ms"] = k5
-    return out
+    return rows
+
+
+def _probe_summary(rows, counts, path):
+    """{kernel: its JSON row}: the first stage is the headline, every stage
+    under ``forms``; ``launches`` the path's count (``path`` names it too)."""
+    return {name: dict(max_abs_err=max(r["max_abs_err"] for r in rs),
+                       **{k: rs[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")},
+                       forms=rs, launches=counts[name], **{path: counts[name]})
+            for name, rs in rows.items()}
+
+
+def _probe_cases_b10b(wkp, dma):
+    """One dict per stage of tools/torch_warp_kernel_probe.py and per
+    configuration of tools/torch_dma_probe.py, as _probe_cases makes them:
+    every rule bitwise (K11 by its test's rule: the same fused multiply-adds
+    in the same order); the library calls ``torch.mul`` on the strided
+    window (probe_floor) and ``z.clone()`` (the copies that write the
+    array out)."""
+    import torch
+
+    from pnp_vcve_torch.kernels import probes as P
+    import torch_kernel_bounds as kb
+
+    cases = []
+
+    def add(kernel, tpu, res, plain, library, reps, work, extra=None):
+        fn, args = res["fn"], res["args"]
+        cases.append(dict(kernel=kernel, tpu=tpu, out=res["out"], kern=lambda: fn(*args),
+                          plain=plain, rule="bitwise", library=library,
+                          lib_of=(lambda o: o) if library else None, reps=reps, work=work,
+                          extra=extra or {}))
+
+    r = wkp["band DMA floor"]
+    src, oh, ow, y0, x0 = a = r["args"]
+    add("window_copy", "probe_floor (:69)", r, lambda a=a: P.window_copy_plain(*a),
+        lambda: torch.mul(src[:, y0:y0 + oh, x0:x0 + ow], 2), 30,
+        kb.copy_work(1, oh, oh, ow, src.shape[3]))
+    # K11 and K12: the input bytes are the distinct pixels this run's tables pick
+    r = wkp["dense select (35H+35V)"]
+    xp, shidx, _, _, dyidx, _, _, sel_x0 = a = r["args"]
+    add("gather2", "probe_select (:124)", r, lambda a=a: P.gather2_plain(*a), None, 30,
+        kb.gather2_work(shidx.cpu().numpy(), dyidx.cpu().numpy(), *xp.shape[1:], sel_x0))
+    r = wkp["per-block window DMAs (320/band)"]
+    xp, sy, sx = (a := r["args"])[:3]
+    add("block_windows", "probe_dma (:179)", r, lambda a=a: P.block_windows_plain(*a), None, 30,
+        kb.block_windows_work(sy.cpu().numpy(), sx.cpu().numpy(), *xp.shape[1:]))
+    def writes_out(res):
+        return res["args"][1 if res["fn"] is P.stream_copy else 2]
+
+    # the configurations that write the array out first: each kernel's
+    # headline has a library call (z.clone())
+    for label, res in sorted(dma.items(), key=lambda kv: not writes_out(kv[1])):
+        z, write_out = res["args"][0], writes_out(res)
+        kernel = "stream_copy" if res["fn"] is P.stream_copy else "ring_copy"
+        line = 173 if kernel == "stream_copy" else 104
+        add(kernel, f"{'run_pipelined' if line == 173 else 'run'} {label} (:{line})", res,
+            lambda z=z, wo=write_out: P.ring_copy_plain(z, wo),
+            (lambda z=z: z.clone()) if write_out else None, 30,
+            kb.chunk_copy_work(*z.shape[1:], write_out),
+            extra=dict(chained_ms=res["ms"]))
+    return cases
+
+
+def phase_probes_b10b(dev, smi):
+    """Phase 13: tools/torch_warp_kernel_probe.py and tools/torch_dma_probe.py
+    (both modes) at their JAX files' shapes on the card (the probe path:
+    every launch of K6 and K11-K13 counted), then each stage's kernel
+    against its plain version on the same inputs, bitwise, timed beside
+    it, the library call and the bound."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_dma_probe
+    import torch_warp_kernel_probe
+
+    from pnp_vcve_torch.kernels import probes
+
+    print(f"[probes] {smi}")
+    probes.reset_launches()
+    wkp = torch_warp_kernel_probe.main([])
+    dma = torch_dma_probe.main([])
+    dma.update(torch_dma_probe.main(["--mode", "pipelined"]))
+    torch.cuda.synchronize()
+    counts = dict(probes.LAUNCHES)
+    print(f"[probes] launches of the two tools: {counts}")
+    failed = [k for res in (wkp, dma) for k, v in res.items() if v["out"] is None]
+    needed = ("window_copy", "gather2", "block_windows", "ring_copy", "stream_copy")
+    if failed or not all(counts[k] for k in needed):
+        raise AssertionError(f"probe stages failed: {failed}; launches {counts}")
+    return _probe_summary(_probe_rows(_probe_cases_b10b(wkp, dma), smi), counts,
+                          "phase13_launches")
 
 
 def main():
@@ -1468,7 +1689,7 @@ def main():
     phase("2 build", phase_build)
     kern = phase("3 kernels", phase_kernels, dev)
     counts = phase("4 serving path", phase_main_path, dev)
-    phase("5 model vs plain", phase_model_vs_plain, dev)
+    model_widths = phase("5 model vs plain", phase_model_vs_plain, dev)
     phase("6 gradients", phase_grads, dev)
     train_counts = phase("7 training", phase_train, dev, smi)
     batched_counts = phase("8 batched serving", phase_batched, dev, smi)
@@ -1476,6 +1697,15 @@ def main():
     handler_counts = phase("10 handler", phase_handler, dev)
     forms_counts = phase("11 block forms", phase_block_forms, dev, smi)
     probe_rows = phase("12 probes", phase_probes, dev, smi)
+    b10b_rows = phase("13 probes that move data", phase_probes_b10b, dev, smi)
+    # K6 runs in both probe phases: one row, the forms and counts of both
+    k6 = b10b_rows.pop("window_copy")
+    probe_rows["window_copy"]["forms"] += k6["forms"]
+    probe_rows["window_copy"]["launches"] += k6["launches"]
+    probe_rows["window_copy"]["phase13_launches"] = k6["launches"]
+    probe_rows["window_copy"]["max_abs_err"] = max(probe_rows["window_copy"]["max_abs_err"],
+                                                   k6["max_abs_err"])
+    probe_rows.update(b10b_rows)
 
     paths = {"serving_launches": counts, "batched_launches": batched_counts,
              "handler_launches": handler_counts, "train_launches": train_counts,
@@ -1490,7 +1720,7 @@ def main():
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "also_replaces": also,
          **probe_rows[name]}
         for name, (src, rep, also) in PROBE_INFO.items()
-    ]}))
+    ], "model_widths_max_abs_err": model_widths}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

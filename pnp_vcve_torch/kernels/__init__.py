@@ -18,8 +18,9 @@ head               K4    ``csrc/head.cu``
 conv3x3            K5    ``csrc/conv3x3.cu``, per-sample 3x3 conv + bias
 =================  ====  ==================================================
 
-The probe kernels K6-K10 (the TPU micro-benchmarks of ``tools/``), which no
-model runs, live in :mod:`.probes`.
+K1-K4 take any width that is a multiple of 8 (:func:`.launch.check_width`
+says which they refuse). The probe kernels K6-K13 (the TPU micro-benchmarks
+of ``tools/``), which no model runs, live in :mod:`.probes`.
 """
 
 from types import SimpleNamespace

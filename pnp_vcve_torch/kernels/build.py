@@ -22,7 +22,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
-__all__ = ["Library", "library", "nvcc_path", "CSRC", "BUILD_ROOT", "SMEM_REPORT"]
+__all__ = ["Library", "library", "nvcc_path", "CSRC", "BUILD_ROOT", "SMEM_REPORT",
+           "PROBE_SMEM_REPORT"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pnp_vcve_torch"
@@ -36,14 +37,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> argument types (all return a cudaError_t as int);
-# pnp_<kernel>_smem() return a block's dynamic shared memory in bytes
+# the model kernels take the width c after the sizes
 SIGNATURES = {
-    "pnp_warp": [_I, _P, _P, _P, _I, _I, _I, _P],
-    "pnp_input_conv": [_I] + [_P] * 10 + [_I, _I, _I, _I, _P],
-    "pnp_drt_block": [_I] + [_P] * 8 + [_I, _I, _I, _P],
-    "pnp_drt_block_select": [_I] + [_P] * 11 + [_I, _I, _I, _P],
-    "pnp_warp_block": [_I, _P, _P, _P, _I, _I, _I, _P],
-    "pnp_head": [_I] + [_P] * 6 + [_I, _I, _I, _P],
+    "pnp_warp": [_I, _P, _P, _P] + [_I] * 4 + [_P],
+    "pnp_input_conv": [_I] + [_P] * 10 + [_I] * 5 + [_P],
+    "pnp_drt_block": [_I] + [_P] * 8 + [_I] * 4 + [_P],
+    "pnp_drt_block_select": [_I] + [_P] * 11 + [_I] * 4 + [_P],
+    "pnp_warp_block": [_I, _P, _P, _P] + [_I] * 4 + [_P],
+    "pnp_head": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     "pnp_conv3x3": [_I] + [_P] * 4 + [_I] * 5 + [_P],
     # the probe kernels (probes.py)
     "pnp_window_copy": [_P, _P] + [_I] * 9 + [_P],
@@ -52,9 +53,16 @@ SIGNATURES = {
     "pnp_absmax_quantize": [_P, _L, _P, _P, _P, _P],
     "pnp_absmax_parts": [],
     "pnp_tapconv": [_I] + [_P] * 4 + [_I] * 6 + [_P],
+    "pnp_gather2": [_P] * 8 + [_I] * 6 + [_P],
+    "pnp_block_windows": [_P] * 4 + [_I] * 4 + [_P],
+    "pnp_ring_copy": [_P, _P] + [_I] * 6 + [_P],
+    "pnp_stream_copy": [_P, _P] + [_I] * 4 + [_P],
+    "pnp_ring_copy_smem": [_I] * 3,
 }
-# kernels with a pnp_<name>_smem() entry
-SMEM_REPORT = ("input_conv", "drt_block", "head", "conv3x3", "mmsel", "tapconv")
+# pnp_<name>_smem(c) return a block's dynamic shared memory in bytes at width
+# c (chip_smoke.py checks launch.MAX_WIDTH on it); pnp_<name>_smem() that of a probe
+SMEM_REPORT = ("warp_block", "input_conv", "drt_block", "head", "conv3x3")
+PROBE_SMEM_REPORT = ("mmsel", "tapconv")
 
 
 @dataclass
@@ -150,10 +158,11 @@ def library() -> Library:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for name in SMEM_REPORT:
-        fn = getattr(lib, f"pnp_{name}_smem")
-        fn.argtypes = []
-        fn.restype = ctypes.c_int
+    for names, argtypes in ((SMEM_REPORT, [_I]), (PROBE_SMEM_REPORT, [])):
+        for name in names:
+            fn = getattr(lib, f"pnp_{name}_smem")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     lib.pnp_error_string.argtypes = [ctypes.c_int]
     lib.pnp_error_string.restype = ctypes.c_char_p
     return Library(lib=lib, path=so, log=log, build_seconds=seconds)

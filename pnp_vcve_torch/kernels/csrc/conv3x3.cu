@@ -33,52 +33,6 @@ constexpr int CV_IR = TH + 2, CV_IC = TW + 2, CV_NI = CV_IR * CV_IC;  // input t
 constexpr int CV_PM = TH * TW / PG;                                   // 4 pixels per thread
 constexpr size_t CV_SMEM = sizeof(float) * (C * CV_NI + C * C);
 
-// Stage channels [c0, c0 + kc) of src (one image, h x w x cs) over rows
-// [y0, y0+rows) and columns [x0, x0+cols) into dst[ci * plane + p] as float,
-// zeros outside the image. cs % 8 == 0 takes 16-byte loads (then c0 and kc
-// are multiples of 8 too); any other cs reads one value at a time.
-template <typename T>
-__device__ void load_chunk(float* dst, int plane, const T* src, int cs, int c0, int kc, int h,
-                           int w, int y0, int x0, int rows, int cols) {
-  const int npix = rows * cols;
-  if (cs % PN == 0) {
-    for (int i = threadIdx.x; i < npix * (kc / PN); i += NT) {
-      const int p = i % npix, g = i / npix;
-      const int y = y0 + p / cols, x = x0 + p % cols;
-      float v[8];
-      if (y >= 0 && y < h && x >= 0 && x < w) {
-        load8(src + ((size_t)y * w + x) * cs + c0 + g * PN, v);
-      } else {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] = 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) dst[(g * PN + k) * plane + p] = v[k];
-    }
-  } else {
-    for (int i = threadIdx.x; i < npix * kc; i += NT) {
-      const int p = i % npix, ci = i / npix;
-      const int y = y0 + p / cols, x = x0 + p % cols;
-      const bool in = y >= 0 && y < h && x >= 0 && x < w;
-      dst[ci * plane + p] = in ? to_f(src[((size_t)y * w + x) * cs + c0 + ci]) : 0.f;
-    }
-  }
-}
-
-// ws[ci * C + n] = wb[tap][c0 + ci][co0 + n] for n < cw, 0 for cw <= n < C.
-// wb is one sample's (9, cin, cout) kernel; cout, co0 and cw are multiples
-// of 8, so each float4 lies wholly inside or outside the group.
-__device__ __forceinline__ void stage_tap(float* ws, const float* wb, int tap, int cin, int cout,
-                                          int c0, int kc, int co0, int cw) {
-  for (int i = threadIdx.x * 4; i < kc * C; i += NT * 4) {
-    const int ci = i / C, n = i % C;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (n < cw)
-      v = __ldg(reinterpret_cast<const float4*>(wb + ((size_t)tap * cin + c0 + ci) * cout + co0 + n));
-    *reinterpret_cast<float4*>(ws + i) = v;
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(NT, 2)
     conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ wk,
@@ -102,13 +56,8 @@ __global__ void __launch_bounds__(NT, 2)
   for (int c0 = 0; c0 < cin; c0 += C) {
     const int kc = min(C, cin - c0);
     __syncthreads();  // every thread is done with the previous chunk
-    load_chunk<T>(xs, CV_NI, x + img * cin, cin, c0, kc, h, w, y0 - 1, x0 - 1, CV_IR, CV_IC);
-    for (int tap = 0; tap < 9; ++tap) {
-      if (tap) __syncthreads();  // every thread is done with the previous tap's weights
-      stage_tap(ws, wb, tap, cin, cout, c0, kc, co0, cw);
-      __syncthreads();
-      conv_tap<CV_PM>(acc, xs, CV_NI, base, (tap / 3) * CV_IC + tap % 3, ws, kc, tn);
-    }
+    load_tile<T>(xs, CV_NI, x + img * cin, cin, c0, kc, h, w, y0 - 1, x0 - 1, CV_IR, CV_IC);
+    conv3x3<CV_PM>(acc, xs, CV_NI, CV_IC, base, wb, ws, cin, cout, c0, kc, co0, cw, tn);
   }
 
   if (tn * PN >= cw) return;  // past the last group's width
@@ -158,5 +107,6 @@ extern "C" int pnp_conv3x3(int dtype, const void* x, const void* wk, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-// dynamic shared memory of one block, for the build report
-extern "C" int pnp_conv3x3_smem() { return (int)pnp::CV_SMEM; }
+// dynamic shared memory of one block (the same at every width), for the
+// build report and the wrappers' width check
+extern "C" int pnp_conv3x3_smem(int) { return (int)pnp::CV_SMEM; }

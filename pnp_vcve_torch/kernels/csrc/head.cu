@@ -1,17 +1,27 @@
 // K4: the reconstruction head, y = conv3x3(lrelu_0.1(conv3x3(x; W_hr) + b_hr); W_last) + b_last,
-// 64 -> 64 -> 3 channels. The caller adds lr.
+// c -> c -> 3 channels. The caller adds lr.
 //
 // Replaces the TPU kernel pnp_vcve_tpu/kernels/drt_stack.py: head_pf (:1058,
 // kernel _head_kernel :977). Same two-stage structure as the DRT block (K3):
-// stage 1 computes the 64-channel hidden map on the output tile plus a
+// stage 1 computes the c-channel hidden map on the output tile plus a
 // 1-pixel halo into shared memory, zeroed outside the image (conv_last's
 // zero padding), and stage 2 reduces it to 3 channels without it leaving
 // the chip.
 //
-// Bound: CUDA-core float32 FMAs, ~71 GFLOP per 720p frame, nearly all in
-// stage 1 (recomputed on the 10 x 18 halo region of each 8 x 16 tile).
+// Bound: CUDA-core float32 FMAs, ~71 GFLOP per 720p frame at c = 64, nearly
+// all in stage 1 (recomputed on the 10 x 18 halo region of each 8 x 16 tile).
 // Stage 2 is 1/21 of the work: one thread per output pixel, all nine taps
-// of W_last (6.9 KB) held in shared memory.
+// of W_last (6.9 KB at c = 64) held in shared memory. As in K3, c = 64 reuses
+// the x tile for the hidden map; any other width (a multiple of 8) runs
+// stage 1 in output groups and input chunks of up to 64 channels into a
+// hidden region of its own (c * 720 bytes). The width is a template
+// parameter CF (64, or 0: read at run time).
+//
+// The hidden map stays float32 in both feature types. The TPU kernel rounds
+// its VMEM copy to the feature type (and the plain version does the same);
+// here the buffer is float anyway, and in bfloat16 that second rounding put
+// the head's mean error against float32 at 0.88-1.05 of its parity bound
+// (0.002 std), where the output's own rounding alone is ~0.0012 std.
 #include "common.cuh"
 
 namespace pnp {
@@ -20,44 +30,66 @@ constexpr int HD_HR = TH + 2, HD_HC = TW + 2, HD_NH = HD_HR * HD_HC;  // hidden 
 constexpr int HD_XR = TH + 4, HD_XC = TW + 4, HD_NX = HD_XR * HD_XC;  // x tile 12 x 20
 constexpr int HD_PM = (HD_NH + PG - 1) / PG;                          // 6 pixels per thread
 constexpr int HD_CO = 3;                                              // output channels
-constexpr size_t HD_SMEM = sizeof(float) * (C * HD_NX + C * C + 9 * C * HD_CO);
 
-template <typename T>
+// dynamic shared memory of one block at width c: the x chunk tile, one tap
+// of W_hr, W_last and, at widths other than 64, the hidden region
+constexpr size_t head_smem(int c) {
+  return sizeof(float) * (C * HD_NX + C * C + (size_t)9 * c * HD_CO +
+                          (c == C ? 0 : (size_t)c * HD_NH));
+}
+// the widest block that fits (launch.MAX_WIDTH holds the same number)
+constexpr int HD_MAX_WIDTH = 184;
+static_assert(head_smem(HD_MAX_WIDTH) <= SMEM_MAX && head_smem(HD_MAX_WIDTH + PN) > SMEM_MAX,
+              "HD_MAX_WIDTH is the widest block that fits");
+
+template <typename T, int CF>
 __global__ void __launch_bounds__(NT, 2)
     head_kernel(const T* __restrict__ x, const float* __restrict__ whr,
                 const float* __restrict__ bhr, const float* __restrict__ wlast,
-                const float* __restrict__ blast, T* __restrict__ out, int h, int w) {
+                const float* __restrict__ blast, T* __restrict__ out, int h, int w, int c_rt) {
   extern __shared__ float smem[];
-  float* xs = smem;            // C x HD_NX input tile; C x HD_NH hidden map after stage 1
+  const int c = CF ? CF : c_rt;
+  float* xs = smem;            // C x HD_NX input chunk tile
   float* ws = xs + C * HD_NX;  // one tap of W_hr
-  float* wl = ws + C * C;      // W_last (9, C, 3)
+  float* wl = ws + C * C;      // W_last (9, c, 3)
+  float* hs = CF == C ? xs : wl + 9 * c * HD_CO;  // c x HD_NH hidden map (the x tile at c = 64)
 
   const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
   const int tn = threadIdx.x % CG, pg = threadIdx.x / CG;
   const size_t img = (size_t)b * h * w;
 
-  load_tile<T>(xs, HD_NX, x + img * C, h, w, y0 - 2, x0 - 2, HD_XR, HD_XC);
-  copy_weights(wl, wlast, 9 * C * HD_CO);
+  copy_weights(wl, wlast, 9 * c * HD_CO);
   int base1[HD_PM];
   tile_bases<HD_PM>(base1, HD_NH, HD_HC, HD_XC);
-  float acc[HD_PM][PN];
-  zero(acc);
-  conv3x3<HD_PM>(acc, xs, HD_NX, HD_XC, base1, whr, ws, C, tn);
+  for (int co0 = 0; co0 < c; co0 += C) {  // output groups of the hidden map
+    const int cw = min(C, c - co0);
+    float acc[HD_PM][PN];
+    zero(acc);
+    for (int c0 = 0; c0 < c; c0 += C) {  // input chunks of x
+      const int kc = min(C, c - c0);
+      __syncthreads();  // every thread is done with the previous chunk
+      load_tile<T>(xs, HD_NX, x + img * c, c, c0, kc, h, w, y0 - 2, x0 - 2, HD_XR, HD_XC);
+      conv3x3<HD_PM>(acc, xs, HD_NX, HD_XC, base1, whr, ws, c, c, c0, kc, co0, cw, tn);
+    }
 
-  float bv[PN];
+    const bool live = tn * PN < cw;  // this thread's channels lie in the group
+    float bv[PN];
 #pragma unroll
-  for (int n = 0; n < PN; ++n) bv[n] = bhr[tn * PN + n];
-  __syncthreads();  // every thread is done reading x before the hidden map overwrites it
+    for (int n = 0; n < PN; ++n) bv[n] = live ? bhr[co0 + tn * PN + n] : 0.f;
+    __syncthreads();  // every thread is done reading x before the hidden map overwrites it
+    if (live) {
 #pragma unroll
-  for (int j = 0; j < HD_PM; ++j) {
-    const int p = pg + PG * j;
-    if (p >= HD_NH) continue;
-    const int y = y0 - 1 + p / HD_HC, xx = x0 - 1 + p % HD_HC;
-    const bool in = y >= 0 && y < h && xx >= 0 && xx < w;
+      for (int j = 0; j < HD_PM; ++j) {
+        const int p = pg + PG * j;
+        if (p >= HD_NH) continue;
+        const int y = y0 - 1 + p / HD_HC, xx = x0 - 1 + p % HD_HC;
+        const bool in = y >= 0 && y < h && xx >= 0 && xx < w;
 #pragma unroll
-    for (int n = 0; n < PN; ++n) {
-      const float v = acc[j][n] + bv[n];
-      xs[(tn * PN + n) * HD_NH + p] = in ? round_to<T>(v >= 0.f ? v : 0.1f * v) : 0.f;
+        for (int n = 0; n < PN; ++n) {
+          const float v = acc[j][n] + bv[n];
+          hs[(co0 + tn * PN + n) * HD_NH + p] = in ? (v >= 0.f ? v : 0.1f * v) : 0.f;
+        }
+      }
     }
   }
   __syncthreads();
@@ -70,10 +102,10 @@ __global__ void __launch_bounds__(NT, 2)
   const int base = (p / TW) * HD_HC + p % TW;
   float o[HD_CO] = {blast[0], blast[1], blast[2]};
   for (int tap = 0; tap < 9; ++tap) {
-    const float* row = xs + base + (tap / 3) * HD_HC + tap % 3;
-    const float* wt = wl + tap * C * HD_CO;
+    const float* row = hs + base + (tap / 3) * HD_HC + tap % 3;
+    const float* wt = wl + tap * c * HD_CO;
 #pragma unroll 8
-    for (int ci = 0; ci < C; ++ci) {
+    for (int ci = 0; ci < c; ++ci) {
       const float v = row[ci * HD_NH];
 #pragma unroll
       for (int k = 0; k < HD_CO; ++k) o[k] = fmaf(v, wt[ci * HD_CO + k], o[k]);
@@ -86,32 +118,37 @@ __global__ void __launch_bounds__(NT, 2)
 
 template <typename T>
 cudaError_t launch_head(const void* x, const void* whr, const void* bhr, const void* wlast,
-                        const void* blast, void* out, int b, int h, int w, cudaStream_t stream) {
+                        const void* blast, void* out, int b, int h, int w, int c,
+                        cudaStream_t stream) {
+  if (c < PN || c % PN || c > HD_MAX_WIDTH) return cudaErrorInvalidValue;
   if ((size_t)b * h * w == 0) return cudaSuccess;
-  auto k = head_kernel<T>;
-  cudaError_t e = allow_smem(k, HD_SMEM);
+  const size_t smem = head_smem(c);
+  auto k = c == C ? head_kernel<T, C> : head_kernel<T, 0>;
+  cudaError_t e = allow_smem(k, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, b);
-  k<<<grid, NT, HD_SMEM, stream>>>(static_cast<const T*>(x), static_cast<const float*>(whr),
-                                   static_cast<const float*>(bhr),
-                                   static_cast<const float*>(wlast),
-                                   static_cast<const float*>(blast), static_cast<T*>(out), h, w);
+  k<<<grid, NT, smem, stream>>>(static_cast<const T*>(x), static_cast<const float*>(whr),
+                                static_cast<const float*>(bhr), static_cast<const float*>(wlast),
+                                static_cast<const float*>(blast), static_cast<T*>(out), h, w, c);
   return cudaGetLastError();
 }
 
 }  // namespace pnp
 
-// dtype: 0 float32, 1 bfloat16. x: (b, h, w, 64); whr: (9, 64, 64);
-// bhr: (64,); wlast: (9, 64, 3); blast: (3,), weights float32; out: (b, h, w, 3).
+// dtype: 0 float32, 1 bfloat16. x: (b, h, w, c), c a multiple of 8;
+// whr: (9, c, c); bhr: (c,); wlast: (9, c, 3); blast: (3,), weights float32;
+// out: (b, h, w, 3).
 extern "C" int pnp_head(int dtype, const void* x, const void* whr, const void* bhr,
                         const void* wlast, const void* blast, void* out, int b, int h, int w,
-                        void* stream) {
+                        int c, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)pnp::launch_head<float>(x, whr, bhr, wlast, blast, out, b, h, w, s);
+  if (dtype == 0)
+    return (int)pnp::launch_head<float>(x, whr, bhr, wlast, blast, out, b, h, w, c, s);
   if (dtype == 1)
-    return (int)pnp::launch_head<__nv_bfloat16>(x, whr, bhr, wlast, blast, out, b, h, w, s);
+    return (int)pnp::launch_head<__nv_bfloat16>(x, whr, bhr, wlast, blast, out, b, h, w, c, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// dynamic shared memory of one block, for the build report
-extern "C" int pnp_head_smem() { return (int)pnp::HD_SMEM; }
+// dynamic shared memory of one block at width c, for the build report and
+// chip_smoke.py's check of launch.MAX_WIDTH
+extern "C" int pnp_head_smem(int c) { return (int)pnp::head_smem(c); }

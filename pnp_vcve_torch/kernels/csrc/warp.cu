@@ -7,11 +7,13 @@
 // grid_sample(align_corners=True, padding_mode='zeros') for any flow, and the
 // JAX block8 warp on block-constant flows.
 //
-// Bound: device memory. Each output pixel reads 4 taps of 64 channels and
-// writes 64 channels; at 720p that is ~0.5 GB per call in float32 when the
-// cache serves the overlapping taps. One thread per (pixel, 4 channels):
-// the 16 threads of a pixel read each tap's 64 channels as one coalesced
-// 256-byte (float) or 128-byte (bf16) run.
+// Bound: device memory. Each output pixel reads 4 taps of c channels and
+// writes c channels; at 720p and c = 64 that is ~0.5 GB per call in float32
+// when the cache serves the overlapping taps. One thread per (pixel,
+// 4 channels): the c / 4 threads of a pixel read each tap's channels as one
+// coalesced run (256 bytes in float, 128 in bf16 at c = 64). The width is a
+// template parameter CF (64, the flagship's, or 0: any multiple of 8 read at
+// run time), so the flagship's index arithmetic divides by a constant.
 #include "common.cuh"
 
 namespace pnp {
@@ -37,11 +39,13 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
-template <typename T>
+template <typename T, int CF>
 __global__ void __launch_bounds__(256) warp_kernel(const T* __restrict__ x,
                                                    const T* __restrict__ flow,
-                                                   T* __restrict__ out, int b, int h, int w) {
-  constexpr int G = C / 4;  // channel vectors per pixel
+                                                   T* __restrict__ out, int b, int h, int w,
+                                                   int c_rt) {
+  const int c = CF ? CF : c_rt;
+  const int G = c / 4;  // channel vectors per pixel
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)b * h * w * G) return;
   const int g = idx % G;
@@ -61,7 +65,7 @@ __global__ void __launch_bounds__(256) warp_kernel(const T* __restrict__ x,
   const float wx = px - fx0, wy = py - fy0;  // floor of a negative fraction rounds down
   const int x0 = (int)fx0, y0 = (int)fy0;
 
-  const T* base = x + img * h * w * C + g * 4;
+  const T* base = x + img * h * w * c + g * 4;
   float v[2][2][4];  // [dy][dx][channel]; taps outside the image are zero
 #pragma unroll
   for (int dy = 0; dy < 2; ++dy)
@@ -69,7 +73,7 @@ __global__ void __launch_bounds__(256) warp_kernel(const T* __restrict__ x,
     for (int dx = 0; dx < 2; ++dx) {
       const int yy = y0 + dy, xx = x0 + dx;
       if (yy >= 0 && yy < h && xx >= 0 && xx < w) {
-        load4(base + ((size_t)yy * w + xx) * C, v[dy][dx]);
+        load4(base + ((size_t)yy * w + xx) * c, v[dy][dx]);
       } else {
 #pragma unroll
         for (int k = 0; k < 4; ++k) v[dy][dx][k] = 0.f;
@@ -85,28 +89,31 @@ __global__ void __launch_bounds__(256) warp_kernel(const T* __restrict__ x,
     const float r1 = v[0][1][k] * wy0 + v[1][1][k] * wy;
     o[k] = r0 * wx0 + r1 * wx;
   }
-  store4(out + pix * C + g * 4, o);
+  store4(out + pix * c + g * 4, o);
 }
 
 template <typename T>
-cudaError_t launch_warp(const void* x, const void* flow, void* out, int b, int h, int w,
+cudaError_t launch_warp(const void* x, const void* flow, void* out, int b, int h, int w, int c,
                         cudaStream_t stream) {
-  const size_t n = (size_t)b * h * w * (C / 4);
+  if (c < PN || c % PN) return cudaErrorInvalidValue;
+  const size_t n = (size_t)b * h * w * (c / 4);
   if (n == 0) return cudaSuccess;
   const int threads = 256;
-  warp_kernel<T><<<(unsigned)((n + threads - 1) / threads), threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(flow), static_cast<T*>(out), b, h, w);
+  auto k = c == C ? warp_kernel<T, C> : warp_kernel<T, 0>;
+  k<<<(unsigned)((n + threads - 1) / threads), threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(flow), static_cast<T*>(out), b, h, w, c);
   return cudaGetLastError();
 }
 
 }  // namespace pnp
 
-// dtype: 0 float32, 1 bfloat16. x, out: (b, h, w, 64); flow: (b, h, w, 2), x first.
+// dtype: 0 float32, 1 bfloat16. x, out: (b, h, w, c), c a multiple of 8;
+// flow: (b, h, w, 2), x first.
 extern "C" int pnp_warp(int dtype, const void* x, const void* flow, void* out, int b, int h,
-                        int w, void* stream) {
+                        int w, int c, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)pnp::launch_warp<float>(x, flow, out, b, h, w, s);
-  if (dtype == 1) return (int)pnp::launch_warp<__nv_bfloat16>(x, flow, out, b, h, w, s);
+  if (dtype == 0) return (int)pnp::launch_warp<float>(x, flow, out, b, h, w, c, s);
+  if (dtype == 1) return (int)pnp::launch_warp<__nv_bfloat16>(x, flow, out, b, h, w, c, s);
   return (int)cudaErrorInvalidValue;
 }
 

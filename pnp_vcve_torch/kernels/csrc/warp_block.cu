@@ -12,10 +12,11 @@
 // for integer y, so all their taps lie in one 9 x 9 source window at that
 // offset (the (9, 9, C) slab of the JAX block8 warp, ops/warp.py:381-386).
 // One CUDA block per 8x8 block: its 256 threads stage the window's 81 pixels
-// x 64 channels into shared memory once (zeros outside the image, for any
-// displacement), then blend the 64 outputs from there with the block's
-// fractions. Channels are on the threads as in K1: the 16 threads of a pixel
-// read and write its 64 channels as one coalesced run.
+// x c channels into shared memory once (81 * c * 4 bytes, zeros outside the
+// image, for any displacement), then blend the 64 outputs from there with
+// the block's fractions. Channels are on the threads as in K1: the c / 4
+// threads of a pixel read and write its c channels as one coalesced run.
+// The width is a template parameter as in K1 (64, or 0: read at run time).
 //
 // Bound: device memory, the bytes of K1 without the per-pixel flow: the
 // windows of neighbouring blocks overlap by one row and one column, which the
@@ -26,8 +27,15 @@ namespace pnp {
 
 constexpr int WB = 8;               // block edge
 constexpr int WW = WB + 1;          // window edge
-constexpr int WG = C / 4;           // 4-channel groups per pixel (16)
 constexpr int WB_THREADS = 256;
+
+// the window's shared memory at width c
+constexpr size_t warp_block_smem(int c) { return sizeof(float4) * WW * WW * (c / 4); }
+// the widest window that fits (launch.MAX_WIDTH holds the same number)
+constexpr int WB_MAX_WIDTH = 712;
+static_assert(warp_block_smem(WB_MAX_WIDTH) <= SMEM_MAX &&
+                  warp_block_smem(WB_MAX_WIDTH + 8) > SMEM_MAX,
+              "WB_MAX_WIDTH is the widest window that fits");
 
 __device__ __forceinline__ void ld4(const float* p, float4& v) {
   v = *reinterpret_cast<const float4*>(p);
@@ -49,11 +57,13 @@ __device__ __forceinline__ void st4(__nv_bfloat16* p, const float4& v) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
-template <typename T>
+template <typename T, int CF>
 __global__ void __launch_bounds__(WB_THREADS)
     warp_block_kernel(const T* __restrict__ x, const float* __restrict__ fb,
-                      T* __restrict__ out, int h, int w) {
-  __shared__ float4 win[WW * WW * WG];  // [window pixel][channel group]
+                      T* __restrict__ out, int h, int w, int c_rt) {
+  extern __shared__ float4 win[];  // [window pixel][channel group]
+  const int c = CF ? CF : c_rt;
+  const int WG = c / 4;  // 4-channel groups per pixel
 
   const int bx = blockIdx.x, by = blockIdx.y, b = blockIdx.z;
   const int nbx = gridDim.x, nby = gridDim.y;
@@ -72,7 +82,7 @@ __global__ void __launch_bounds__(WB_THREADS)
     const int p = i / WG, g = i % WG;
     const int yy = sy0 + p / WW, xx = sx0 + p % WW;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (yy >= 0 && yy < h && xx >= 0 && xx < w) ld4(x + (img + (size_t)yy * w + xx) * C + g * 4, v);
+    if (yy >= 0 && yy < h && xx >= 0 && xx < w) ld4(x + (img + (size_t)yy * w + xx) * c + g * 4, v);
     win[i] = v;
   }
   __syncthreads();
@@ -93,29 +103,37 @@ __global__ void __launch_bounds__(WB_THREADS)
     o.z = (v00.z * wy0 + v10.z * wy) * wx0 + (v01.z * wy0 + v11.z * wy) * wx;
     o.w = (v00.w * wy0 + v10.w * wy) * wx0 + (v01.w * wy0 + v11.w * wy) * wx;
     const int y = by * WB + oy, xo = bx * WB + ox;
-    st4(out + (img + (size_t)y * w + xo) * C + g * 4, o);
+    st4(out + (img + (size_t)y * w + xo) * c + g * 4, o);
   }
 }
 
 template <typename T>
 cudaError_t launch_warp_block(const void* x, const void* fb, void* out, int b, int h, int w,
-                              cudaStream_t stream) {
-  if (h % WB || w % WB) return cudaErrorInvalidValue;
+                              int c, cudaStream_t stream) {
+  if (h % WB || w % WB || c < PN || c % PN || c > WB_MAX_WIDTH) return cudaErrorInvalidValue;
   if ((size_t)b * h * w == 0) return cudaSuccess;
+  const size_t smem = warp_block_smem(c);
+  auto k = c == C ? warp_block_kernel<T, C> : warp_block_kernel<T, 0>;
+  cudaError_t e = allow_smem(k, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid(w / WB, h / WB, b);
-  warp_block_kernel<T><<<grid, WB_THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(fb), static_cast<T*>(out), h, w);
+  k<<<grid, WB_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(fb), static_cast<T*>(out), h, w, c);
   return cudaGetLastError();
 }
 
 }  // namespace pnp
 
-// dtype: 0 float32, 1 bfloat16. x, out: (b, h, w, 64) with h, w multiples of
-// 8; fb: (b, h/8, w/8, 2) float32, x first.
+// dtype: 0 float32, 1 bfloat16. x, out: (b, h, w, c) with h, w multiples of
+// 8 and c of 8; fb: (b, h/8, w/8, 2) float32, x first.
 extern "C" int pnp_warp_block(int dtype, const void* x, const void* fb, void* out, int b, int h,
-                              int w, void* stream) {
+                              int w, int c, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)pnp::launch_warp_block<float>(x, fb, out, b, h, w, s);
-  if (dtype == 1) return (int)pnp::launch_warp_block<__nv_bfloat16>(x, fb, out, b, h, w, s);
+  if (dtype == 0) return (int)pnp::launch_warp_block<float>(x, fb, out, b, h, w, c, s);
+  if (dtype == 1) return (int)pnp::launch_warp_block<__nv_bfloat16>(x, fb, out, b, h, w, c, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// dynamic shared memory of one block at width c, for the build report and
+// chip_smoke.py's check of launch.MAX_WIDTH
+extern "C" int pnp_warp_block_smem(int c) { return (int)pnp::warp_block_smem(c); }

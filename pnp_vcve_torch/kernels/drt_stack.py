@@ -18,10 +18,14 @@ They replace, in ``pnp_vcve_tpu/kernels/drt_stack.py``:
 - ``head_pf`` (:1058) -> :func:`head` (K4).
 
 The TPU kernels' pixel-pair packed layout and band DMAs are not carried
-over: the kernels take the NHWC tensors as they are, for any h and w, at the
-flagship width of 64 channels, in float32 or bfloat16 with float32 sums.
-Each is bound by CUDA-core float32 FMAs; the source notes in ``csrc/`` say
-how each tiles its work.
+over: the kernels take the NHWC tensors as they are, for any h and w and any
+width c that is a multiple of 8 (the flagship's 64 on a path of its own; K3
+up to 208 and K4 up to 184 channels, the h region they keep in shared
+memory), in float32 or bfloat16 with float32 sums. Each is bound by
+CUDA-core float32 FMAs; the source notes in ``csrc/`` say how each tiles its
+work. :func:`input_conv_args`, :func:`drt_block_args` and :func:`head_args`
+hold the checks a launch makes of the shapes and the width, and the weight
+repacking; they run on any device.
 
 Each wrapper has a plain PyTorch version beside it (``*_plain``), the XLA
 composition of the JAX package written in PyTorch (``_xla_input_stack_compose``
@@ -53,7 +57,7 @@ from pnp_vcve_torch.ops.dynamic_conv import (
     dynamic_conv2d,
     per_sample_conv,
 )
-from .launch import check_cuda_args, launch, on_cpu, plain_grads
+from .launch import check_cuda_args, check_width, launch, on_cpu, plain_grads
 
 __all__ = [
     "premix_block_params",
@@ -70,9 +74,11 @@ __all__ = [
     "DRTBlockFunction",
     "DRTBlockSelectFunction",
     "HeadFunction",
+    "input_conv_args",
+    "drt_block_args",
+    "drt_block_select_args",
+    "head_args",
 ]
-
-C = 64  # the kernels' feature width
 
 
 def premix_block_params(weights_t, gammas_t, bank, bias_bank):
@@ -125,24 +131,36 @@ def input_conv_plain(parts, kernels, bias):
     return F.leaky_relu(acc + bias.float(), 0.1).to(parts[0].dtype)
 
 
-def _input_conv_launch(parts, kernels, bias):
+def input_conv_args(parts, kernels, bias):
+    """K2's shape and width checks and its weights as the kernel takes them:
+    ``(per-part kernels (b, 9, c_p, c), bias (c,) float32, c)``."""
     lr, wide = parts[0], list(parts[1:])
     b, h, w, clr = lr.shape
     if clr != 3 or not 1 <= len(wide) <= 3 or len(kernels) != len(parts):
         raise ValueError("input_conv: need lr (b,h,w,3) + 1-3 features and one kernel each")
+    c = wide[0].shape[-1]
+    check_width("input_conv", c)
     for p in wide:
-        if p.shape != (b, h, w, C):
-            raise ValueError(f"input_conv: feature {tuple(p.shape)} != {(b, h, w, C)}")
+        if p.shape != (b, h, w, c):
+            raise ValueError(f"input_conv: feature {tuple(p.shape)} != {(b, h, w, c)}")
     ks = [k.reshape(b, 9, k.shape[3], k.shape[4]) for k in kernels]
-    if ks[0].shape != (b, 9, 3, C) or any(k.shape != (b, 9, C, C) for k in ks[1:]):
-        raise ValueError("input_conv: kernels must be (b,3,3,c_p,64)")
-    bias = bias.float().contiguous()
+    if ks[0].shape != (b, 9, 3, c) or any(k.shape != (b, 9, c, c) for k in ks[1:]):
+        raise ValueError(f"input_conv: kernels must be (b,3,3,c_p,{c})")
+    if bias.shape != (c,):
+        raise ValueError(f"input_conv: bias {tuple(bias.shape)} != ({c},)")
+    return ks, bias.float().contiguous(), c
+
+
+def _input_conv_launch(parts, kernels, bias):
+    ks, bias, c = input_conv_args(parts, kernels, bias)
+    lr, wide = parts[0], list(parts[1:])
+    b, h, w, _ = lr.shape
     check_cuda_args("input_conv", parts, (*ks, bias))
-    out = torch.empty((b, h, w, C), dtype=lr.dtype, device=lr.device)
+    out = torch.empty((b, h, w, c), dtype=lr.dtype, device=lr.device)
     pad = [None] * (3 - len(wide))
     return launch(
         "input_conv", "pnp_input_conv", out, lr, *wide, *pad, ks[0], *ks[1:], *pad,
-        bias, out, b, h, w, len(wide),
+        bias, out, b, h, w, len(wide), c,
     )
 
 
@@ -168,8 +186,8 @@ class InputConvFunction(torch.autograd.Function):
 
 def input_conv(parts, kernels, bias):
     """K2. ``parts``: the lr frame ``(b, h, w, 3)`` then 1-3 features
-    ``(b, h, w, 64)``; ``kernels``: per-part ``(b, 3, 3, c_p, 64)`` float32
-    (from :func:`part_kernels`); ``bias (64,)``. Returns ``(b, h, w, 64)``."""
+    ``(b, h, w, c)``; ``kernels``: per-part ``(b, 3, 3, c_p, c)`` float32
+    (from :func:`part_kernels`); ``bias (c,)``. Returns ``(b, h, w, c)``."""
     if on_cpu(parts[0]):
         return input_conv_plain(parts, kernels, bias)
     return InputConvFunction.apply(_input_conv_launch, len(parts), *parts, *kernels, bias)
@@ -193,30 +211,31 @@ def drt_block_plain(x, par, w2, b2, g, pk, w1, b1):
     return x + conv2d_nhwc(hmid, w1, b1)
 
 
-def _drt_block_args(x, par, w2, b2, g, pk, w1, b1):
+def drt_block_args(x, par, w2, b2, g, pk, w1, b1, name="drt_block"):
     """Check K3's arguments and repack its weights: the gain folded into W2
     and b2, the taps flattened."""
     b, h, w, c = x.shape
-    if c != C or par.shape != (b, h, w, 3):
-        raise ValueError(f"drt_block: need x (b,h,w,64), par (b,h,w,3); got "
+    if par.shape != (b, h, w, 3):
+        raise ValueError(f"{name}: need x (b,h,w,c), par (b,h,w,3); got "
                          f"{tuple(x.shape)}, {tuple(par.shape)}")
-    if w2.shape != (b, 3, 3, C, C) or pk.shape != (C, 3, C) or w1.shape != (3, 3, C, C):
-        raise ValueError("drt_block: weight shapes do not match 64 channels")
+    check_width(name, c)
+    if (w2.shape != (b, 3, 3, c, c) or b2.shape != (b, c) or g.shape != (b, c)
+            or pk.shape != (c, 3, c) or w1.shape != (3, 3, c, c) or b1.shape != (c,)):
+        raise ValueError(f"{name}: weight shapes do not match {c} channels")
     gf = g.float()
-    w2g = (w2.float() * gf[:, None, None, None, :]).reshape(b, 9, C, C).contiguous()
+    w2g = (w2.float() * gf[:, None, None, None, :]).reshape(b, 9, c, c).contiguous()
     b2g = (b2.float() * gf).contiguous()
     pkr = pk.float().permute(1, 0, 2).contiguous()
-    w1r = w1.float().reshape(9, C, C).contiguous()
+    w1r = w1.float().reshape(9, c, c).contiguous()
     b1f = b1.float().contiguous()
     return w2g, b2g, pkr, w1r, b1f
 
 
 def _drt_block_launch(x, par, w2, b2, g, pk, w1, b1):
-    b, h, w, _ = x.shape
-    weights = _drt_block_args(x, par, w2, b2, g, pk, w1, b1)
+    weights = drt_block_args(x, par, w2, b2, g, pk, w1, b1)
     check_cuda_args("drt_block", (x, par), weights)
     out = torch.empty_like(x)
-    return launch("drt_block", "pnp_drt_block", out, x, par, *weights, out, b, h, w)
+    return launch("drt_block", "pnp_drt_block", out, x, par, *weights, out, *x.shape)
 
 
 class DRTBlockFunction(torch.autograd.Function):
@@ -235,9 +254,9 @@ class DRTBlockFunction(torch.autograd.Function):
 
 
 def drt_block(x, par, w2, b2, g, pk, w1, b1):
-    """K3. ``x (b, h, w, 64)``, ``par (b, h, w, 3)`` of x's type; per-sample
-    ``w2 (b, 3, 3, 64, 64)``, ``b2 (b, 64)``, ``g (b, 64)``; static
-    ``pk (64, 3, 64)``, ``w1 (3, 3, 64, 64)``, ``b1 (64,)``. Out of place."""
+    """K3. ``x (b, h, w, c)``, ``par (b, h, w, 3)`` of x's type; per-sample
+    ``w2 (b, 3, 3, c, c)``, ``b2 (b, c)``, ``g (b, c)``; static
+    ``pk (c, 3, c)``, ``w1 (3, 3, c, c)``, ``b1 (c,)``. Out of place."""
     if on_cpu(x):
         return drt_block_plain(x, par, w2, b2, g, pk, w1, b1)
     return DRTBlockFunction.apply(_drt_block_launch, x, par, w2, b2, g, pk, w1, b1)
@@ -253,17 +272,23 @@ def drt_block_select_plain(x, par, w2, b2, g, pk, w1, b1, last_key, is_key):
     return out, torch.where(is_key.reshape(-1, 1, 1, 1) > 0.5, out, last_key)
 
 
+def drt_block_select_args(x, par, w2, b2, g, pk, w1, b1, last_key, is_key):
+    """K3s's checks: K3's (:func:`drt_block_args`, whose repacked weights it
+    returns) and the select's operands."""
+    weights = drt_block_args(x, par, w2, b2, g, pk, w1, b1, name="drt_block_select")
+    if last_key.shape != x.shape or is_key.shape != (x.shape[0],):
+        raise ValueError(f"drt_block_select: need last_key {tuple(x.shape)} and is_key "
+                         f"({x.shape[0]},); got {tuple(last_key.shape)}, {tuple(is_key.shape)}")
+    return weights
+
+
 def _drt_block_select_launch(x, par, w2, b2, g, pk, w1, b1, last_key, is_key):
-    b, h, w, _ = x.shape
-    weights = _drt_block_args(x, par, w2, b2, g, pk, w1, b1)
-    if last_key.shape != x.shape or is_key.shape != (b,):
-        raise ValueError(f"drt_block_select: need last_key {tuple(x.shape)} and is_key ({b},); "
-                         f"got {tuple(last_key.shape)}, {tuple(is_key.shape)}")
+    weights = drt_block_select_args(x, par, w2, b2, g, pk, w1, b1, last_key, is_key)
     key = is_key.to(torch.float32, copy=True)  # a fresh, aligned (b,) float32
     check_cuda_args("drt_block_select", (x, par, last_key), (*weights, key))
     out, new_last_key = torch.empty_like(x), torch.empty_like(x)
     launch("drt_block_select", "pnp_drt_block_select", out, x, par, *weights, last_key, key,
-           out, new_last_key, b, h, w)
+           out, new_last_key, *x.shape)
     return out, new_last_key
 
 
@@ -305,16 +330,26 @@ def head_plain(x, hr_k, hr_b, last_k, last_b):
     return (conv2d_f32(y, last_k) + last_b.float()).to(x.dtype)
 
 
-def _head_launch(x, hr_k, hr_b, last_k, last_b):
+def head_args(x, hr_k, hr_b, last_k, last_b):
+    """K4's shape and width checks and its weights as the kernel takes them:
+    ``(whr (9, c, c), bhr (c,), wl (9, c, 3), bl (3,))`` float32."""
     b, h, w, c = x.shape
-    if c != C or hr_k.shape != (3, 3, C, C) or last_k.shape != (3, 3, C, 3):
-        raise ValueError("head: need x (b,h,w,64) and 64->64->3 kernels")
-    whr = hr_k.float().reshape(9, C, C).contiguous()
-    wl = last_k.float().reshape(9, C, 3).contiguous()
-    bhr, bl = hr_b.float().contiguous(), last_b.float().contiguous()
-    check_cuda_args("head", (x,), (whr, bhr, wl, bl))
+    check_width("head", c)
+    if (hr_k.shape != (3, 3, c, c) or hr_b.shape != (c,) or last_k.shape != (3, 3, c, 3)
+            or last_b.shape != (3,)):
+        raise ValueError(f"head: need x (b,h,w,c) and c->c->3 weights; got x {tuple(x.shape)}, "
+                         f"{tuple(hr_k.shape)}, {tuple(last_k.shape)}")
+    whr = hr_k.float().reshape(9, c, c).contiguous()
+    wl = last_k.float().reshape(9, c, 3).contiguous()
+    return whr, hr_b.float().contiguous(), wl, last_b.float().contiguous()
+
+
+def _head_launch(x, hr_k, hr_b, last_k, last_b):
+    weights = head_args(x, hr_k, hr_b, last_k, last_b)
+    check_cuda_args("head", (x,), weights)
+    b, h, w, c = x.shape
     out = torch.empty((b, h, w, 3), dtype=x.dtype, device=x.device)
-    return launch("head", "pnp_head", out, x, whr, bhr, wl, bl, out, b, h, w)
+    return launch("head", "pnp_head", out, x, *weights, out, b, h, w, c)
 
 
 class HeadFunction(torch.autograd.Function):
@@ -333,8 +368,8 @@ class HeadFunction(torch.autograd.Function):
 
 
 def head(x, hr_k, hr_b, last_k, last_b):
-    """K4. ``x (b, h, w, 64)``; ``hr_k (3, 3, 64, 64)``, ``hr_b (64,)``,
-    ``last_k (3, 3, 64, 3)``, ``last_b (3,)``. Returns ``(b, h, w, 3)``."""
+    """K4. ``x (b, h, w, c)``; ``hr_k (3, 3, c, c)``, ``hr_b (c,)``,
+    ``last_k (3, 3, c, 3)``, ``last_b (3,)``. Returns ``(b, h, w, 3)``."""
     if on_cpu(x):
         return head_plain(x, hr_k, hr_b, last_k, last_b)
     return HeadFunction.apply(_head_launch, x, hr_k, hr_b, last_k, last_b)

@@ -24,10 +24,36 @@ from .build import library
 
 __all__ = [
     "LAUNCHES", "reset_launches", "on_cpu", "check_cuda_args", "launch", "call", "plain_grads",
+    "SMEM_MAX", "MAX_WIDTH", "check_width",
 ]
 
 LAUNCHES = {"warp": 0, "warp_block": 0, "input_conv": 0, "drt_block": 0,
             "drt_block_select": 0, "head": 0, "conv3x3": 0}
+
+SMEM_MAX = 227 * 1024  # dynamic shared memory a block may use on an H100
+# The widest c each model kernel takes (None: any multiple of 8). K1b, K3
+# and K4 stop at the widest block that fits in SMEM_MAX: each source
+# static_asserts the same number against its own shared-memory formula
+# (WB_, DB_, HD_MAX_WIDTH) and refuses a wider launch, and chip_smoke.py's
+# build phase reads that formula at the limit. K3s runs at 64 only, the pf
+# path's width.
+MAX_WIDTH = {"warp": None, "warp_block": 712, "input_conv": None, "drt_block": 208,
+             "drt_block_select": 64, "head": 184, "conv3x3": None}
+
+
+def check_width(name: str, c: int):
+    """Raise ``ValueError`` unless kernel ``name`` takes ``c`` channels: a
+    multiple of 8 up to ``MAX_WIDTH[name]`` (K3s: 64 only)."""
+    if c < 8 or c % 8:
+        raise ValueError(f"{name}: width {c} is not a multiple of 8; the kernels take "
+                         f"widths 8, 16, 24, ... (8-channel vectors)")
+    if name == "drt_block_select" and c != 64:
+        raise ValueError(f"{name}: width {c}; K3s takes 64 channels only, the pf path's width")
+    top = MAX_WIDTH[name]
+    if top is not None and c > top:
+        raise ValueError(f"{name}: width {c} is above {top}, the widest block that fits in "
+                         f"an H100 block's {SMEM_MAX} bytes of shared memory")
+
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -1,29 +1,36 @@
-"""The probe kernels K6-K10: the TPU micro-benchmarks of ``tools/`` that
-multiply on the matrix unit, and the copy floors beside them, as hand-written
-Hopper kernels (``csrc/probe_*.cu`` on the tensor-core helpers of
-``csrc/mma.cuh``), with their plain PyTorch versions. No model path runs
-them; ``tools/torch_int8_probe.py``, ``tools/torch_warp_kernel_probe2.py``
-and ``tools/torch_warp_bisect.py`` drive them.
+"""The probe kernels K6-K13: the TPU micro-benchmarks of ``tools/`` as
+hand-written Hopper kernels (``csrc/probe_*.cu``; K7-K10 on the tensor-core
+helpers of ``csrc/mma.cuh``), with their plain PyTorch versions. K7-K10
+multiply on the matrix unit; K6 and K11-K13 move data. No model path runs
+them; ``tools/torch_int8_probe.py``, ``tools/torch_warp_kernel_probe2.py``,
+``tools/torch_warp_bisect.py``, ``tools/torch_warp_kernel_probe.py`` and
+``tools/torch_dma_probe.py`` drive them.
 
 ======  ===================  ========================  =========================================
 kernel  wrapper              source                    TPU functions (``pallas_call`` at)
 ======  ===================  ========================  =========================================
 K6      ``window_copy``      ``csrc/probe_copy.cu``    warp_kernel_probe2.py ``probe_floor128``
                                                        (:78); warp_bisect.py ``k_dma`` (:52),
-                                                       ``k_nodma`` (:72)
+                                                       ``k_nodma`` (:72); warp_kernel_probe.py
+                                                       ``probe_floor`` (:69)
 K7      ``mmsel_warp``,      ``csrc/probe_mmsel.cu``   warp_kernel_probe2.py ``probe_mmsel``
         ``mmsel_h``                                    (:126); warp_bisect.py ``k_fori_dot`` (:105)
 K8      ``matmul``           ``csrc/probe_matmul.cu``  int8_probe.py k1 (:70), k2 (:80), k3's
                                                        product (:100)
 K9      ``absmax_quantize``  ``csrc/probe_matmul.cu``  int8_probe.py k3's and k4's quantize
 K10     ``tapconv``          ``csrc/probe_tapconv.cu`` int8_probe.py k4 (:127), k5 (:148)
+K11     ``gather2``          ``csrc/probe_gather.cu``  warp_kernel_probe.py ``probe_select`` (:124)
+K12     ``block_windows``    ``csrc/probe_blockdma.cu`` warp_kernel_probe.py ``probe_dma`` (:179)
+K13     ``ring_copy``,       ``csrc/probe_ring.cu``    dma_probe.py ``run`` (:104),
+        ``stream_copy``                                ``run_pipelined`` (:173)
 ======  ===================  ========================  =========================================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 checks device, dtype, shape, contiguity and 16-byte alignment, then launches
 its kernel or raises. This module's ``LAUNCHES`` (apart from the model
 kernels' ``launch.LAUNCHES``) counts one per kernel call (K9's two passes
-are one call); :func:`reset_launches` zeroes it.
+are one call; K13 counts its two kernels apart); :func:`reset_launches`
+zeroes it.
 """
 
 from __future__ import annotations
@@ -34,13 +41,15 @@ import numpy as np
 import torch
 
 from .build import library
-from .launch import call, on_cpu
+from .launch import SMEM_MAX, call, on_cpu
 
 __all__ = [
     "LAUNCHES", "reset_launches",
     "window_copy", "window_copy_plain", "mmsel_warp", "mmsel_warp_plain", "mmsel_h",
     "mmsel_h_plain", "build_s", "matmul", "matmul_plain", "absmax_quantize",
-    "absmax_quantize_plain", "tapconv", "tapconv_plain", "timed", "bf16_from_numpy",
+    "absmax_quantize_plain", "tapconv", "tapconv_plain", "gather2", "gather2_plain",
+    "block_windows", "block_windows_plain", "ring_copy", "stream_copy", "ring_copy_plain",
+    "timed", "bf16_from_numpy",
 ]
 
 TILE = 128       # output columns a tile of the selection matmul (rows of S)
@@ -49,7 +58,13 @@ _KP = 192        # K7's depth: S's kw zero-padded to 12 k-steps of 16
 _DV_MAX = 40     # K7's V terms at most
 _TYPE_CODE = {torch.bfloat16: 1, torch.int8: 2}
 
-LAUNCHES = {"window_copy": 0, "mmsel": 0, "matmul": 0, "absmax_quantize": 0, "tapconv": 0}
+GATHER_SHIFTS = 35  # K11: the TPU kernel's masked sums run over 35 shifts a pass
+GATHER_BAND = GATHER_SHIFTS - 1 + BAND_ROWS  # band rows K11's V pass can reach (42)
+RING_SPLITS = (1, 2, 4)
+RING_MAX_DEPTH = 9  # K13: a ring of depth + 1 stages, at most the TPU ring's 10 slots
+
+LAUNCHES = {"window_copy": 0, "mmsel": 0, "matmul": 0, "absmax_quantize": 0, "tapconv": 0,
+            "gather2": 0, "block_windows": 0, "ring_copy": 0, "stream_copy": 0}
 
 
 def reset_launches():
@@ -315,6 +330,189 @@ def tapconv(band, w, rows, cols, scale=None):
     out = torch.empty((rows, cols, cout), dtype=torch.float32, device=dev)
     _call("tapconv", "pnp_tapconv", dev, _TYPE_CODE[band.dtype], band, w, scale, out, bh, bw, cin,
          cout, rows, cols)
+    return out
+
+
+# ---- K11: the two-tap gather warp -----------------------------------------------------------
+
+
+def _fma(a, w, acc):
+    """float32 ``fma(a, w, acc)`` for bf16 ``a``, rounded once, as the card's
+    ``__fmaf_rn``: the product is exact in float64 (8 x 24 bits), a two-sum
+    gives the float64 sum's rounding error, and the sum rounded to odd in
+    float64 (53 bits, 2 more than float32 needs) rounds to float32 as the
+    exact sum would."""
+    p, q = a.double() * w.double(), acc.double()
+    s = p + q
+    t = s - p
+    e = (p - (s - t)) + (q - t)  # s + e == p + q exactly
+    bits = s.view(torch.int64)
+    # to odd: truncate toward zero (one ulp down where e points to zero),
+    # then set the last bit where s was inexact
+    bits = torch.where((e != 0) & ((e < 0) != (s < 0)), bits - 1, bits)
+    bits = torch.where(e != 0, bits | 1, bits)
+    return bits.view(torch.float64).float()
+
+
+def gather2_plain(xp, shidx, wx0, wx1, dyidx, wy0, wy1, x0=15):
+    """The two-pass gather warp (tools/warp_kernel_probe.py: _select_kernel,
+    :88) as its two live terms a pass. ``xp (1, hp, wp, c)`` bf16, ``shidx``,
+    ``dyidx (nb, w)`` int32, the weights ``(nb, w)`` float32 -> ``(1, 8 nb,
+    w, c)`` bf16: ``h[j, x] = bf16(fma(xp[8 ri + j, col + 1], a1, fma(xp[8 ri
+    + j, col], a0, 0)))`` with ``col = x + shidx + x0``, then ``out[8 ri + r,
+    x] = bf16(fma(h[r + d + 1], b1, fma(h[r + d], b0, 0)))`` with ``d =
+    dyidx``; a weight is zero where its shift lies outside the TPU kernel's
+    35 (csrc/probe_gather.cu). Each term is a fused multiply-add in the TPU
+    kernel's shift order, as XLA compiles its ``acc + sl * w``."""
+    nb, w = shidx.shape
+    src = xp[0]
+    hp, wp, _ = src.shape
+    dev = xp.device
+    k, d = shidx.long(), dyidx.long()
+    zero = torch.zeros((), device=dev)
+    a0 = torch.where((k >= 0) & (k < GATHER_SHIFTS), wx0, zero)[:, None, :, None]
+    a1 = torch.where((k >= -1) & (k < GATHER_SHIFTS - 1), wx1, zero)[:, None, :, None]
+    b0 = torch.where((d >= 0) & (d < GATHER_SHIFTS), wy0, zero)[:, None, :, None]
+    b1 = torch.where((d >= -1) & (d < GATHER_SHIFTS - 1), wy1, zero)[:, None, :, None]
+    col = (torch.arange(w, device=dev) + k + x0)[:, None, :]  # (nb, 1, w): the a0 tap
+    band_row = d[:, None, :] + torch.arange(BAND_ROWS + 1, device=dev)[None, :, None]
+    live = ((band_row >= 0) & (band_row < GATHER_BAND))[..., None]  # rows a live V term reads
+    row = (torch.arange(nb, device=dev)[:, None, None] * BAND_ROWS + band_row).clamp(0, hp - 1)
+    p = src[row, col.clamp(0, wp - 1).expand_as(row)]  # (nb, 9, w, c)
+    q = src[row, (col + 1).clamp(0, wp - 1).expand_as(row)]
+    h = _fma(q, a1, _fma(p, a0, zero)).to(torch.bfloat16)
+    h = torch.where(live, h, torch.zeros((), dtype=h.dtype, device=dev))
+    out = _fma(h[:, 1:], b1, _fma(h[:, :-1], b0, zero)).to(torch.bfloat16)  # (nb, 8, w, c)
+    return out.reshape(1, nb * BAND_ROWS, w, xp.shape[3])
+
+
+def gather2(xp, shidx, wx0, wx1, dyidx, wy0, wy1, x0=15):
+    """K11. See :func:`gather2_plain`. ``xp (1, hp, wp, c)`` bf16 with
+    hp >= 8 nb + 34, wp >= w + x0 + 34 and x0 >= 1 (every tap a live weight
+    reads lies inside xp), c % 8 == 0 on the card."""
+    nb, w = shidx.shape
+    _, hp, wp, c = xp.shape
+    tables = (shidx, wx0, wx1, dyidx, wy0, wy1)
+    if xp.shape[0] != 1 or any(t.shape != (nb, w) for t in tables):
+        raise ValueError(f"gather2: need xp (1, hp, wp, c) and six (nb, w) tables; got "
+                         f"{tuple(xp.shape)}, {[tuple(t.shape) for t in tables]}")
+    if x0 < 1 or wp < w + x0 + GATHER_SHIFTS - 1 or hp < BAND_ROWS * (nb - 1) + GATHER_BAND:
+        raise ValueError(f"gather2: xp {tuple(xp.shape)} does not hold the taps of {nb} bands "
+                         f"of width {w} from column {x0} (need hp >= {8 * nb + 34}, wp >= "
+                         f"{w + x0 + 34}, x0 >= 1)")
+    if on_cpu(xp):
+        return gather2_plain(xp, shidx, wx0, wx1, dyidx, wy0, wy1, x0)
+    i32, f32 = torch.int32, torch.float32
+    dev = _cuda_args("gather2", [xp, *tables], [torch.bfloat16, i32, f32, f32, i32, f32, f32])
+    if c % 8:
+        raise ValueError(f"gather2: channels must be a multiple of 8, got {c}")
+    out = torch.empty((1, nb * BAND_ROWS, w, c), dtype=torch.bfloat16, device=dev)
+    _call("gather2", "pnp_gather2", dev, xp, *tables, out, nb, hp, wp, w, c, x0)
+    return out
+
+
+# ---- K12: per-block window averages, block-major -------------------------------------------
+
+
+def block_windows_plain(xp, sy, sx, h, w):
+    """Per 8x8 block j of an ``(h, w)`` output (row-major over the blocks):
+    ``0.5 * (xp[ya + r, xa + cc] + xp[ya + 1 + r, xb + cc])`` in float32,
+    rounded to bf16, with ``ya = clamp(sy[j], 0, hp - 9)``, ``xa =
+    clamp(sx[j], 0, wp - 8)``, ``xb = clamp(sx[j] + 8, 0, wp - 8)`` (the
+    windows of tools/warp_kernel_probe.py: _dma_kernel, :145, as clamped
+    dynamic slices), stored block-major as there: block j's 64 pixels
+    row-major at flat pixel 64 j of the ``(1, h, w, c)`` output."""
+    src = xp[0]
+    hp, wp, c = src.shape
+    i = torch.arange(BAND_ROWS, device=xp.device)
+    ya = sy.long().clamp(0, hp - BAND_ROWS - 1)[:, None, None] + i[None, :, None]  # (n, 8, 1)
+    xa = sx.long().clamp(0, wp - BAND_ROWS)[:, None, None] + i[None, None, :]      # (n, 1, 8)
+    xb = (sx.long() + BAND_ROWS).clamp(0, wp - BAND_ROWS)[:, None, None] + i[None, None, :]
+    a, b = src[ya, xa].float(), src[ya + 1, xb].float()  # (n, 8, 8, c)
+    return ((a + b) * 0.5).to(torch.bfloat16).reshape(1, h, w, c)
+
+
+def block_windows(xp, sy, sx, h, w):
+    """K12. See :func:`block_windows_plain`. ``xp (1, hp, wp, c)`` bf16 with
+    hp >= 9, wp >= 16; ``sy``, ``sx`` ``(h/8 * w/8,)`` int32; h and w
+    multiples of 8; c % 8 == 0 on the card."""
+    _, hp, wp, c = xp.shape
+    nblk = (h // BAND_ROWS) * (w // BAND_ROWS)
+    if (xp.shape[0] != 1 or h % BAND_ROWS or w % BAND_ROWS or nblk < 1 or sy.shape != (nblk,)
+            or sx.shape != (nblk,) or hp < BAND_ROWS + 1 or wp < 2 * BAND_ROWS):
+        raise ValueError(f"block_windows: need xp (1, >= 9, >= 16, c), an (h, w) output of 8x8 "
+                         f"blocks and ({nblk},) tables; got {tuple(xp.shape)}, ({h}, {w}), "
+                         f"{tuple(sy.shape)}, {tuple(sx.shape)}")
+    if on_cpu(xp):
+        return block_windows_plain(xp, sy, sx, h, w)
+    dev = _cuda_args("block_windows", [xp, sy, sx], [torch.bfloat16, torch.int32, torch.int32])
+    if c % 8:
+        raise ValueError(f"block_windows: channels must be a multiple of 8, got {c}")
+    out = torch.empty((1, h, w, c), dtype=torch.bfloat16, device=dev)
+    _call("block_windows", "pnp_block_windows", dev, xp, sy, sx, out, nblk, hp, wp, c)
+    return out
+
+
+# ---- K13: the chunked copies ---------------------------------------------------------------
+
+
+def ring_copy_plain(z, write_out=True):
+    """What tools/dma_probe.py's kernels write: ``z`` itself, or (no
+    write_out) the last 8-row chunk's first row, pixels 0..7: ``(1, 8,
+    lanes)``."""
+    if write_out:
+        return z.clone()
+    return z[:, BAND_ROWS * (z.shape[1] // BAND_ROWS - 1), :BAND_ROWS].clone()
+
+
+def _copy_args(name, z):
+    _, hp, wp, lanes = z.shape
+    if z.shape[0] != 1 or hp < BAND_ROWS or hp % BAND_ROWS or wp < BAND_ROWS:
+        raise ValueError(f"{name}: need z (1, hp, wp, lanes) with hp a multiple of 8 and wp >= 8; "
+                         f"got {tuple(z.shape)}")
+    if on_cpu(z):
+        return None
+    dev = _cuda_args(name, [z], [torch.bfloat16])
+    if lanes % 8:
+        raise ValueError(f"{name}: lanes must be a multiple of 8, got {lanes}")
+    return dev
+
+
+def _copy_out(z, write_out):
+    shape = z.shape if write_out else (1, BAND_ROWS, z.shape[3])
+    return torch.empty(shape, dtype=z.dtype, device=z.device)
+
+
+def ring_copy(z, split=1, write_out=True, depth=3):
+    """K13, tools/dma_probe.py: run. Copies ``z (1, hp, wp, lanes)`` bf16 in
+    chunks of 8 rows through a per-block ring of ``depth + 1`` shared-memory
+    stages fed by TMA bulk copies, each chunk's copy in ``split`` (1, 2 or 4)
+    column segments; returns :func:`ring_copy_plain`'s output."""
+    if split not in RING_SPLITS or not 0 <= depth <= RING_MAX_DEPTH:
+        raise ValueError(f"ring_copy: need split in {RING_SPLITS} and depth in 0..{RING_MAX_DEPTH}, "
+                         f"got {split}, {depth}")
+    dev = _copy_args("ring_copy", z)
+    if dev is None:
+        return ring_copy_plain(z, write_out)
+    _, hp, wp, lanes = z.shape
+    smem = library().lib.pnp_ring_copy_smem(lanes, depth, split)
+    if smem > SMEM_MAX:
+        raise ValueError(f"ring_copy: {depth + 1} stages of {lanes} lanes need {smem} bytes of "
+                         f"shared memory a block, above {SMEM_MAX}")
+    out = _copy_out(z, write_out)
+    _call("ring_copy", "pnp_ring_copy", dev, z, out, hp, wp, lanes, split, depth, int(write_out))
+    return out
+
+
+def stream_copy(z, write_out=True):
+    """K13, tools/dma_probe.py: run_pipelined. The same copy as
+    :func:`ring_copy` as a plain streamed copy, one block per chunk."""
+    dev = _copy_args("stream_copy", z)
+    if dev is None:
+        return ring_copy_plain(z, write_out)
+    _, hp, wp, lanes = z.shape
+    out = _copy_out(z, write_out)
+    _call("stream_copy", "pnp_stream_copy", dev, z, out, hp, wp, lanes, int(write_out))
     return out
 
 

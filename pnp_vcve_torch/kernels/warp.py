@@ -1,5 +1,7 @@
-"""K1 and K1b: the MV warps of the sweeps' 64-channel carry (csrc/warp.cu,
-csrc/warp_block.cu).
+"""K1 and K1b: the MV warps of the sweeps' c-channel carry (csrc/warp.cu,
+csrc/warp_block.cu), for any width c that is a multiple of 8 (the
+flagship's 64 on a path of its own; K1b up to 712 channels, its 9 x 9
+window's shared memory).
 
 K1 replaces ``pnp_vcve_tpu/kernels/warp_pf.py: warp_pf`` (:488) where the
 port trains and evaluates with ``padgather``: the flow is read per pixel and
@@ -17,7 +19,9 @@ the flow field (clamped to +-``max_mv``, 16 px for ``'pf'``). JAX's
 has no Function: its wrapper refuses an input that requires a gradient.
 
 Both are bound by device memory (one read of the taps, one write); the
-source notes say how the threads map onto the channels.
+source notes say how the threads map onto the channels. :func:`warp_args`
+and :func:`warp_block_args` hold the checks a launch makes of the shapes and
+the width; they run on any device.
 """
 
 from __future__ import annotations
@@ -25,10 +29,11 @@ from __future__ import annotations
 import torch
 
 from pnp_vcve_torch.ops.warp import block_flow, flow_warp as _flow_warp, warp_blocks
-from .launch import check_cuda_args, launch, on_cpu, plain_grads
+from .launch import check_cuda_args, check_width, launch, on_cpu, plain_grads
 
 __all__ = [
     "flow_warp", "flow_warp_plain", "WarpFunction", "flow_warp_block", "flow_warp_block_plain",
+    "warp_args", "warp_block_args",
 ]
 
 
@@ -37,14 +42,21 @@ def flow_warp_plain(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return _flow_warp(x, flow, impl="padgather")
 
 
-def _launch(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def warp_args(x: torch.Tensor, flow: torch.Tensor) -> int:
+    """K1's shape and width checks; returns the width."""
     b, h, w, c = x.shape
-    if c != 64 or flow.shape != (b, h, w, 2):
-        raise ValueError(f"warp: need x (b,h,w,64), flow (b,h,w,2); got "
+    if flow.shape != (b, h, w, 2):
+        raise ValueError(f"warp: need x (b,h,w,c), flow (b,h,w,2); got "
                          f"{tuple(x.shape)}, {tuple(flow.shape)}")
+    check_width("warp", c)
+    return c
+
+
+def _launch(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    c = warp_args(x, flow)
     check_cuda_args("warp", (x, flow))
     out = torch.empty_like(x)
-    return launch("warp", "pnp_warp", out, x, flow, out, b, h, w)
+    return launch("warp", "pnp_warp", out, x, flow, out, *x.shape[:3], c)
 
 
 class WarpFunction(torch.autograd.Function):
@@ -64,7 +76,7 @@ class WarpFunction(torch.autograd.Function):
 
 
 def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """K1. Warp ``x (b, h, w, 64)`` by ``flow (b, h, w, 2)`` of the same type."""
+    """K1. Warp ``x (b, h, w, c)`` by ``flow (b, h, w, 2)`` of the same type."""
     if on_cpu(x):
         return flow_warp_plain(x, flow)
     return WarpFunction.apply(_launch, x, flow)
@@ -77,20 +89,27 @@ def flow_warp_block_plain(x: torch.Tensor, flow: torch.Tensor,
     return warp_blocks(x, block_flow(flow, max_mv))
 
 
-def _block_launch(x: torch.Tensor, flow: torch.Tensor, max_mv: float | None) -> torch.Tensor:
+def warp_block_args(x: torch.Tensor, flow: torch.Tensor) -> int:
+    """K1b's shape and width checks; returns the width."""
     b, h, w, c = x.shape
-    if c != 64 or h % 8 or w % 8 or flow.shape != (b, h, w, 2):
-        raise ValueError(f"warp_block: need x (b,h,w,64) with h, w multiples of 8 and flow "
+    if h % 8 or w % 8 or flow.shape != (b, h, w, 2):
+        raise ValueError(f"warp_block: need x (b,h,w,c) with h, w multiples of 8 and flow "
                          f"(b,h,w,2); got {tuple(x.shape)}, {tuple(flow.shape)}")
+    check_width("warp_block", c)
+    return c
+
+
+def _block_launch(x: torch.Tensor, flow: torch.Tensor, max_mv: float | None) -> torch.Tensor:
+    c = warp_block_args(x, flow)
     fb = block_flow(flow, max_mv)
     check_cuda_args("warp_block", (x,), (fb,))
     out = torch.empty_like(x)
-    return launch("warp_block", "pnp_warp_block", out, x, fb, out, b, h, w)
+    return launch("warp_block", "pnp_warp_block", out, x, fb, out, *x.shape[:3], c)
 
 
 def flow_warp_block(x: torch.Tensor, flow: torch.Tensor,
                     max_mv: float | None = None) -> torch.Tensor:
-    """K1b. Warp ``x (b, h, w, 64)``, h and w multiples of 8, by the flow of
+    """K1b. Warp ``x (b, h, w, c)``, h and w multiples of 8, by the flow of
     ``flow (b, h, w, 2)`` at each 8x8 block's top-left pixel, clamped to
     +-``max_mv`` in float32. Inference only."""
     if x.requires_grad:

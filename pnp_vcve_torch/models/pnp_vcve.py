@@ -115,15 +115,14 @@ class PnPVCVE(nn.Module):
         use_pallas_kernels: bool = False,
     ):
         super().__init__()
-        if blocktype not in ("drt", "drt_woqp"):
-            raise ValueError(f"blocktype must be 'drt' or 'drt_woqp', got {blocktype!r}")
         c = mid_channels
         self.mid_channels = c
         self.use_base_qp = use_base_qp
         self.with_bias = with_bias
         self.with_se = with_se
         self.with_cat = with_cat
-        # the block form (JAX pnp_vcve.py:497-512): 'drt_woqp' is a plain conv2
+        # the block form (JAX pnp_vcve.py:497-512): 'drt' mixes experts in
+        # conv2; any other blocktype is 'drt_woqp', a plain conv2, as in JAX
         self.use_dynamic = blocktype == "drt"
         self.fused_blocks = one_layer and channel_first
         self.align_key = align_key

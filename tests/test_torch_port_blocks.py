@@ -362,3 +362,21 @@ def test_pf_needs_the_fused_block_form():
     inp = {k: _t(v) for k, v in _inputs(np.random.default_rng(0), 1, 2).items()}
     with pytest.raises(ValueError, match="fused Pallas input-stack"), torch.inference_mode():
         model(**inp)
+
+
+def test_other_blocktype_is_drt_woqp_as_in_jax():
+    """JAX takes any blocktype but 'drt' as 'drt_woqp' (pnp_vcve.py:507,
+    ``use_dynamic = blocktype == "drt"``); so does the port. One such value
+    on both sides: JAX's parameters load strictly into the port's plain-conv2
+    blocks, and the forwards agree."""
+    jm = JaxPnPVCVE(**SMALL, blocktype="dcn", remat=False)
+    inp = _inputs(np.random.default_rng(11))
+    params = _jax_params(jm, 12, **{k: jnp.asarray(v) for k, v in inp.items()})
+    want = np.asarray(jm.apply({"params": params}, **{k: jnp.asarray(v) for k, v in inp.items()}))
+    model = build_generator(dict(type="PnPVCVE", **SMALL, blocktype="dcn", remat=False),
+                            device="cpu")
+    assert not model.use_dynamic
+    model.load_state_dict(from_jax_params(params), strict=True)
+    with torch.inference_mode():
+        got = model(**{k: _t(v) for k, v in inp.items()}).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)

@@ -564,3 +564,186 @@ def test_probe_kernels_refuse_what_they_cannot_take(cuda):
         probes.window_copy(x.transpose(1, 2), 8, 8, 0, 0)
     with pytest.raises(TypeError, match="absmax_quantize"):
         probes.absmax_quantize(torch.zeros(16, device=cuda))
+
+
+# ---- every width: K1, K1b, K2, K3, K3s and K4 at c != 64 ---------------------------------------
+
+WIDTHS = [8, 24, 128]  # one narrow group; a group of 24; two full groups (one block an SM)
+
+
+def _width_case(name, c, dtype, gen, dev):
+    """(kernel call, plain call in float32 on the same values, bf16 bounds)
+    for model kernel ``name`` at width ``c`` on a ragged frame."""
+    b, h, w = (2, 40, 56) if name == "warp_block" else SHAPES[0]
+    x = _feat(gen, (b, h, w, c), dtype, dev)
+    if name in ("warp", "warp_block"):
+        fb = torch.rand((b, -(-h // 8), -(-w // 8), 2), generator=gen) * 48 - 24
+        flow = fb.repeat_interleave(8, 1).repeat_interleave(8, 2)[:, :h, :w].to(dev, dtype)
+        if name == "warp":
+            return (lambda: KERNELS.flow_warp(x, flow),
+                    lambda: PLAIN.flow_warp(x.float(), flow.float()), (0.08, 0.01))
+        return (lambda: KERNELS.flow_warp_block(x, flow, 16.0),
+                lambda: PLAIN.flow_warp_block(x.float(), flow.float(), 16.0), (0.08, 0.01))
+    if name.startswith("input_conv"):
+        n_parts = int(name[-1])
+        parts = [_feat(gen, (b, h, w, 3), dtype, dev)] + [x] + [
+            _feat(gen, (b, h, w, c), dtype, dev) for _ in range(n_parts - 2)]
+        kernel = _w(gen, (3, 3, 3 + c * (n_parts - 1), c), dev, 0.24 / c ** 0.5)
+        bias = _w(gen, (c,), dev, 0.1)
+        ks = kd.part_kernels(kernel, [p.shape[-1] for p in parts], b,
+                             torch.tensor([1.0, 0.0], device=dev))
+        return (lambda: KERNELS.input_conv(parts, ks, bias),
+                lambda: PLAIN.input_conv([p.float() for p in parts], ks, bias), (0.04, 0.002))
+    par = (torch.rand((b, h, w, 3), generator=gen) > 0.5).to(dev, dtype)
+    s = 0.24 / c ** 0.5  # 0.03 at c = 64
+    blk = (_w(gen, (b, 3, 3, c, c), dev, s), _w(gen, (b, c), dev, 0.1),
+           torch.rand((b, c), generator=gen).to(dev), _w(gen, (c, 3, c), dev, s),
+           _w(gen, (3, 3, c, c), dev, s), _w(gen, (c,), dev, 0.1))
+    if name == "drt_block":
+        return (lambda: KERNELS.drt_block(x, par, *blk),
+                lambda: PLAIN.drt_block(x.float(), par.float(), *blk), (0.02, 0.002))
+    hd = (_w(gen, (3, 3, c, c), dev, s), _w(gen, (c,), dev, 0.1),
+          _w(gen, (3, 3, c, 3), dev, 2 * s), _w(gen, (3,), dev, 0.1))
+    return (lambda: KERNELS.head(x, *hd), lambda: PLAIN.head(x.float(), *hd), (0.02, 0.002))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", WIDTHS)
+@pytest.mark.parametrize("name", ["warp", "warp_block", "input_conv3", "input_conv4", "drt_block",
+                                  "head"])
+def test_model_kernels_at_width(cuda, name, c, dtype):
+    """Each model kernel at a width other than 64 against its plain version,
+    under the bounds of its 64-channel test; one launch each."""
+    kern, plain, bounds = _width_case(name, c, dtype, torch.Generator().manual_seed(30 + c), cuda)
+    reset_launches()
+    got = kern()
+    assert sum(LAUNCHES.values()) == 1
+    _check(got, plain(), dtype, *bounds)
+
+
+def test_model_kernels_refuse_a_width_they_cannot_take(cuda):
+    """A width that is not a multiple of 8, or whose block does not fit in
+    shared memory, raises before any launch."""
+    x = torch.zeros((1, 8, 8, 12), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        KERNELS.flow_warp(x, torch.zeros((1, 8, 8, 2), device=cuda))
+    x = torch.zeros((1, 8, 8, 256), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        KERNELS.head(x, torch.zeros((3, 3, 256, 256), device=cuda), torch.zeros(256, device=cuda),
+                     torch.zeros((3, 3, 256, 3), device=cuda), torch.zeros(3, device=cuda))
+
+
+@pytest.mark.parametrize("warp_impl", ["padgather", "block8"])
+@pytest.mark.parametrize("c", [8, 128])
+def test_model_kernel_path_at_width(cuda, c, warp_impl):
+    """PnPVCVE at mid_channels 8 and 128 (2 blocks, 2 experts), kernel path
+    against plain path within 3e-3; every step through the kernels."""
+    from pnp_vcve_torch.core.builder import build_generator
+
+    torch.manual_seed(c)
+    model = build_generator(dict(type="PnPVCVE", mid_channels=c, num_blocks=2, num_experts=2,
+                                 use_pallas_kernels=True, warp_impl=warp_impl), device=cuda)
+    rng = np.random.default_rng(c)
+    b, t, h, w = 1, 4, 40, 56
+    fb = rng.uniform(-20, 20, (b, t, h // 8, w // 8, 4)).astype(np.float32)
+    inputs = dict(
+        lrs=rng.random((b, t, h, w, 3), np.float32), qps=rng.random((b, t), np.float32),
+        slices=np.array([[73.0, 66.0, 80.0, 66.0]], np.float32),
+        mvs=np.repeat(np.repeat(fb, 8, axis=2), 8, axis=3),
+        base_qps=np.full((b, t), 35 / 255.0, np.float32),
+        par_map=((rng.random((b, t, h, w, 3)) > 0.5) / 255.0).astype(np.float32))
+    inputs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda) for k, v in inputs.items()}
+    with torch.inference_mode():
+        reset_launches()
+        got = model(**inputs)
+        counts = dict(LAUNCHES)
+        model.ops = PLAIN
+        want = model(**inputs)
+    k1 = "warp" if warp_impl == "padgather" else "warp_block"
+    assert counts == {"warp": 0, "warp_block": 0, **{k1: 2 * t}, "input_conv": 2 * t,
+                      "drt_block": 2 * 2 * t, "drt_block_select": 0, "head": t, "conv3x3": 0}
+    assert float((got - want).abs().max()) <= 3e-3
+
+
+# ---- K11-K13: the probes that move data ----------------------------------------------------------
+
+
+# (nb, w, c): ragged (24 channels, a width off the 128 tile); the probe's 720p
+GATHER_CASES = [(3, 200, 24), (90, 1280, 64)]
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_gather2_kernel(cuda, case):
+    """K11 bitwise to its plain version (the same fused multiply-adds), on
+    shifts inside the TPU's 35 and a few past both ends."""
+    from pnp_vcve_torch.kernels import probes
+
+    nb, w, c = case
+    gen = torch.Generator().manual_seed(40)
+    xp = _bf16(gen, (1, 8 * nb + 40, w + 64, c), cuda)
+    shidx = torch.randint(-2, 37, (nb, w), generator=gen, dtype=torch.int32).to(cuda)
+    dyidx = torch.randint(-2, 37, (nb, w), generator=gen, dtype=torch.int32).to(cuda)
+    wts = [torch.rand((nb, w), generator=gen).to(cuda) for _ in range(4)]
+    probes.reset_launches()
+    got = probes.gather2(xp, shidx, wts[0], wts[1], dyidx, wts[2], wts[3])
+    _probe_launches("gather2")
+    torch.cuda.synchronize()
+    want = probes.gather2_plain(xp, shidx, wts[0], wts[1], dyidx, wts[2], wts[3])
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+# (hp, wp, h, w, c): ragged; the probe's 720p
+BLOCK_WINDOW_CASES = [(50, 90, 24, 40, 16), (760, 1344, 720, 1280, 64)]
+
+
+@pytest.mark.parametrize("case", BLOCK_WINDOW_CASES)
+def test_block_windows_kernel(cuda, case):
+    """K12 bitwise to its plain version, block-major, some windows clamped."""
+    from pnp_vcve_torch.kernels import probes
+
+    hp, wp, h, w, c = case
+    gen = torch.Generator().manual_seed(41)
+    xp = _bf16(gen, (1, hp, wp, c), cuda)
+    n = (h // 8) * (w // 8)
+    sy = torch.randint(-4, hp - 5, (n,), generator=gen, dtype=torch.int32).to(cuda)
+    sx = torch.randint(-12, wp - 4, (n,), generator=gen, dtype=torch.int32).to(cuda)
+    probes.reset_launches()
+    got = probes.block_windows(xp, sy, sx, h, w)
+    _probe_launches("block_windows")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16),
+                       probes.block_windows_plain(xp, sy, sx, h, w).view(torch.int16))
+
+
+# (hp, wp, lanes): ragged (a last strip of 2 pixels, 24 lanes); the probe's PF array
+RING_CASES = [(40, 22, 24), (736, 656, 128)]
+
+
+@pytest.mark.parametrize("depth", [0, 3, 9])
+@pytest.mark.parametrize("write_out", [False, True])
+@pytest.mark.parametrize("split", [1, 2, 4])
+@pytest.mark.parametrize("case", RING_CASES)
+def test_ring_copy_kernel(cuda, case, split, write_out, depth):
+    """K13's ring: the identity, or the last chunk's first row, bitwise."""
+    from pnp_vcve_torch.kernels import probes
+
+    z = _bf16(torch.Generator().manual_seed(42), (1, *case), cuda)
+    probes.reset_launches()
+    got = probes.ring_copy(z, split, write_out, depth)
+    _probe_launches("ring_copy")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), probes.ring_copy_plain(z, write_out).view(torch.int16))
+
+
+@pytest.mark.parametrize("write_out", [False, True])
+@pytest.mark.parametrize("case", RING_CASES)
+def test_stream_copy_kernel(cuda, case, write_out):
+    """K13's streamed copy, bitwise."""
+    from pnp_vcve_torch.kernels import probes
+
+    z = _bf16(torch.Generator().manual_seed(43), (1, *case), cuda)
+    probes.reset_launches()
+    got = probes.stream_copy(z, write_out)
+    _probe_launches("stream_copy")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), probes.ring_copy_plain(z, write_out).view(torch.int16))

@@ -319,10 +319,13 @@ def test_handler_round_trip(tmp_path, tiny):
 
 
 def test_kernel_bounds_tool(capsys):
-    """tools/torch_kernel_bounds.py: a bound for each TPU kernel function
-    still to port, the B10 probes only (B8 and B9 are K3 and K5, whose bounds
-    chip_smoke.py computes); probe_floor moves its 720p bf16 band in and
-    out, bound by the bytes."""
+    """tools/torch_kernel_bounds.py: a bound for each B10 TPU probe (B8 and
+    B9 are K3 and K5, whose bounds chip_smoke.py computes), counted as the
+    Hopper kernel that ports it does the work: probe_floor moves its 720p
+    bf16 window in and out (K6); probe_select (K11) and probe_dma (K12) read
+    the distinct input pixels their seeded tables pick (847,728 and 841,168
+    of the padded input's 1,021,440: neighbouring taps and windows overlap);
+    each bound by the bytes."""
     rows = _tool("torch_kernel_bounds").main()
     assert json.loads(capsys.readouterr().out.splitlines()[-1])["bounds"] == rows
     assert {r["item"] for r in rows} == {"B10"}
@@ -331,7 +334,12 @@ def test_kernel_bounds_tool(capsys):
     assert not {"drt_block_packed", "conv3x3_pallas", "drt_block_pallas", "conv3x3_packed",
                 "conv3x3_packed_v2"} & set(by_fn)
     floor = by_fn["probe_floor"]
-    assert floor["bytes"] == (760 * 1344 * 64 + 720 * 1280 * 64) * 2
+    assert floor["bytes"] == (720 * 1280 * 64 + 720 * 1280 * 64) * 2
     assert floor["bound_by"] == "bytes"
     assert abs(floor["bound_ms"] - floor["bytes"] / 3.35e12 * 1e3) < 1e-9
+    assert by_fn["probe_select"]["bytes"] == ((847728 + 720 * 1280) * 64 * 2
+                                              + 6 * 90 * 1280 * 4)
+    assert by_fn["probe_dma"]["bytes"] == 841168 * 64 * 2 + 14400 * (64 * 64 * 2 + 2 * 4)
+    assert {by_fn[f]["bound_by"] for f in ("probe_select", "probe_dma")} == {"bytes"}
+    assert all(r["port"] for r in rows)  # every B10 probe has its Hopper kernel
     assert all(r["bound_ms"] == max(r["bytes_ms"], r["ops_ms"]) > 0 for r in rows)

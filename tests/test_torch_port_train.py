@@ -302,7 +302,7 @@ def test_train_cli_resume_equals_uninterrupted_run(fixture_root, tmp_path):
 def test_port_and_clis_import_no_jax(fixture_root, tmp_path):
     """One process imports every module of pnp_vcve_torch (serving and apis
     among them), runs both CLIs on the CPU, a batched dispatch, the serving
-    curve, the packager, the handler and the three probe tools (K6-K10's
+    curve, the packager, the handler and the five probe tools (K6-K13's
     plain versions at small shapes); neither jax nor any pnp_vcve_tpu module
     gets imported."""
     cfg = _write_cli_cfg(tmp_path, fixture_root)
@@ -318,6 +318,7 @@ for m in mods:
 import torch_test, torch_train, torch_serving_curve, torch_pnp2servable, torch_serving_handler
 import torch_kernel_bounds
 import torch_int8_probe, torch_warp_kernel_probe2, torch_warp_bisect
+import torch_warp_kernel_probe, torch_dma_probe
 from pnp_vcve_torch import apis, serving
 torch_train.main([{str(cfg)!r}, "--device", "cpu", "--work-dir", {str(tmp_path / 'w')!r},
                   "--total-iters", "1"])
@@ -345,6 +346,10 @@ probe_runs = [
     torch_warp_kernel_probe2.main(["--device", "cpu", "--hw", "16", "256", "--channels", "16",
                                    "--n", "1"]),
     torch_warp_bisect.main(["dma64", "nodma64", "fori64", "--device", "cpu", "--hw", "32", "256"]),
+    torch_warp_kernel_probe.main(["--device", "cpu", "--hw", "16", "256", "--channels", "8",
+                                  "--n", "1"]),
+    torch_dma_probe.main(["--device", "cpu", "--hw", "16", "16", "--split", "2", "--n", "1",
+                          "--chain", "2"]),
 ]
 assert all(r["out"] is not None for run in probe_runs for r in run.values())
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pnp_vcve_tpu")]
@@ -355,7 +360,9 @@ print("MODULES", len(mods), "BAD", bad)
     assert proc.returncode == 0, proc.stderr
     assert "iter 1/1 loss=" in proc.stdout and "dataset mean" in proc.stdout
     for line in ("[ok] quantize-in-kernel + int8 matmul", "[ok] int8 tap-conv",
-                 "[ok] matmul-select H + dense V", "[ok] fori+dot 64-lane"):
+                 "[ok] matmul-select H + dense V", "[ok] fori+dot 64-lane",
+                 "[ok] dense select (35H+35V)", "[ok] per-block window DMAs",
+                 "split=2 out=1 depth=3:"):
         assert line in proc.stdout
     assert "BAD []" in proc.stdout
     assert int(proc.stdout.split("MODULES ")[1].split()[0]) >= 30

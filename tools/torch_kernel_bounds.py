@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """The least time an NVIDIA H100 could take for the work of each B10 TPU probe
 of the JAX package (ROADMAP Queue B), worked out from each function's own
-shapes, with the Hopper kernel that ports it (K6-K10) or none yet. The model
-kernels' bounds (K1-K5) are computed by chip_smoke.py from the inputs of
-its run, and so are the probe kernels' (phase 12), through the work
+shapes, with the Hopper kernel that ports it (K6-K13). The model kernels'
+bounds (K1-K5) are computed by chip_smoke.py from the inputs of its run,
+and so are the probe kernels' (phases 12 and 13), through the work
 functions below.
 
 A bound is the larger of two times: the bytes the function must move (each
@@ -14,24 +14,35 @@ data sheet): 3.35 TB/s HBM3, 67 TFLOP/s float32 on the CUDA cores, 989
 TFLOP/s bf16 and 1,979 TOP/s int8 on the tensor cores, at the full 700 W
 power limit. Operations of different types add their times.
 
-The TPU probes are counted at the constants of their own files. For the
-ported ones the count is that of the Hopper kernel's function: a window copy
-reads only its window (the TPU's 48-row band for 8 output rows was its
-layout's); a selection matmul needs what its data needs, two taps a row of S
-and two terms a pixel of vm as build_s and the probe's vm have them (the
-dense products the TPU ran are given beside, as ``dense_ops``). The warp
-probes still to port count as the tensor-core products the TPU ran them as;
-elementwise selects and blends as float32 operations.
+The TPU probes are counted at the constants of their own files, as the
+Hopper kernel's function: a window copy reads only its window (the TPU's
+48-row band for 8 output rows was its layout's); a selection matmul needs
+what its data needs, two taps a row of S and two terms a pixel of vm as
+build_s and the probe's vm have them (the dense products the TPU ran are
+given beside, as ``dense_ops``); the two-pass select is a gather of two
+taps a pass (the TPU's 35 masked shifts had two non-zero terms); the
+select and the block windows read the distinct input pixels their seeded
+tables pick (the JAX file's draws; neighbouring taps and windows overlap,
+so this is less than the taps times their size); elementwise blends count
+as float32 operations.
 
     python tools/torch_kernel_bounds.py        # a markdown table, then one JSON line
 """
 
 import json
+import os
+import sys
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_warp_kernel_probe import X0, draw_inputs  # noqa: E402  (its seeded tables)
 
 HBM_BYTES_S, F32_FLOP_S, BF16_TC_FLOP_S, INT8_TC_OP_S = 3.35e12, 67e12, 989e12, 1979e12
 RATE = {"f32": F32_FLOP_S, "bf16": BF16_TC_FLOP_S, "int8": INT8_TC_OP_S}
 F32, BF16, INT8, I32 = 4, 2, 1, 4
 TILE, BAND_ROWS = 128, 8  # the selection matmul's tile width and band height
+SHIFTS, BAND = 35, 42     # the two-pass select: shifts a pass, band rows its V pass reaches
 
 
 def n(*shape):
@@ -63,6 +74,64 @@ def mmsel_work(nb, nt, kw, c, nrows, out_w, dv=0, s_bands=None, s_nnz=None, vm_n
     data = {"bf16": 2 * s_nnz * h_uses, "f32": 2 * vm_nnz * BAND_ROWS * c}
     return dict(bytes=src + s_size * BF16 + vm_size * F32 + nb * BAND_ROWS * out_w * c * BF16,
                 ops={k: v for k, v in data.items() if v}, dense_ops={k: v for k, v in dense.items() if v})
+
+
+def _distinct(hp, wp, taps):
+    """The distinct pixels of an (hp, wp) image that ``taps`` (pairs of
+    row and column index arrays) read."""
+    seen = np.zeros((hp, wp), bool)
+    for rows, cols in taps:
+        seen[rows, cols] = True
+    return int(seen.sum())
+
+
+def gather2_work(shidx, dyidx, hp, wp, c, x0):
+    """K11 on its tables ``shidx``, ``dyidx`` (nb, w): the distinct pixels
+    of the padded input ``(hp, wp, c)`` bf16 that its live taps read (the
+    taps of neighbouring columns and bands overlap), the ``(8 nb, w, c)``
+    output, the six ``(nb, w)`` tables; two fused multiply-adds an H value
+    (nine rows an output column) and two an output value. The taps are
+    probes.gather2_plain's: H row ``d + j`` (j = 0..8) of band ri is input
+    row ``8 ri + d + j``, read at columns ``x + k + x0`` and the next, each
+    where its weight is live (its shift inside the TPU kernel's 35)."""
+    k, d = np.asarray(shidx, np.int64), np.asarray(dyidx, np.int64)
+    nb, w = k.shape
+    ri, x = np.arange(nb)[:, None], np.arange(w)[None, :]
+    a_live = ((k >= 0) & (k < SHIFTS), (k >= -1) & (k < SHIFTS - 1))
+    b0, b1 = (d >= 0) & (d < SHIFTS), (d >= -1) & (d < SHIFTS - 1)
+    taps = []
+    for j in range(BAND_ROWS + 1):
+        row_live = ((b0 & (j < BAND_ROWS)) | (b1 & (j > 0))) & (d + j >= 0) & (d + j < BAND)
+        for t, live in enumerate(a_live):
+            m = row_live & live
+            taps.append(((BAND_ROWS * ri + d + j)[m], (x + k + x0 + t)[m]))
+    return dict(bytes=_distinct(hp, wp, taps) * c * BF16 + nb * BAND_ROWS * w * c * BF16
+                + 6 * nb * w * I32,
+                ops={"f32": 2 * 2 * (BAND_ROWS + 1 + BAND_ROWS) * nb * w * c})
+
+
+def block_windows_work(sy, sx, hp, wp, c):
+    """K12 on its tables ``sy``, ``sx`` (one an 8x8 block): the distinct
+    pixels of the padded input ``(hp, wp, c)`` bf16 that the blocks' two
+    windows cover (at probes.block_windows_plain's clamped origins; the
+    windows of different blocks overlap), the 8 x 8 out a block, the two
+    int32 tables; an add and a multiply a value."""
+    sy, sx = np.asarray(sy, np.int64), np.asarray(sx, np.int64)
+    i = np.arange(BAND_ROWS)
+    ya = np.clip(sy, 0, hp - BAND_ROWS - 1)[:, None, None] + i[None, :, None]
+    xa = np.clip(sx, 0, wp - BAND_ROWS)[:, None, None] + i[None, None, :]
+    xb = np.clip(sx + BAND_ROWS, 0, wp - BAND_ROWS)[:, None, None] + i[None, None, :]
+    taps = [np.broadcast_arrays(ya, xa), np.broadcast_arrays(ya + 1, xb)]
+    nblk = len(sy)
+    return dict(bytes=_distinct(hp, wp, taps) * c * BF16 + nblk * (64 * c * BF16 + 2 * I32),
+                ops={"f32": 2 * nblk * 64 * c})
+
+
+def chunk_copy_work(hp, wp, lanes, write_out):
+    """K13: the (hp, wp, lanes) bf16 array read once, and written once
+    (write_out) or only the last chunk's first row (8, lanes)."""
+    z = hp * wp * lanes * BF16
+    return dict(bytes=z + (z if write_out else BAND_ROWS * lanes * BF16), ops={})
 
 
 def matmul_work(m, k, n, kind, out_bytes=F32):
@@ -116,27 +185,26 @@ def probes():
                      mmsel_work(H // 8, 1, KW, lanes, 8, W, s_bands=1), "K7"))
     # tools/warp_kernel_probe.py:29-36 and warp_kernel_probe2.py:34-45: 720p, C 64,
     # B 8, WP 1344, BAND 48, HP 760, TILE 128, KW 184, NT 10, DV 40
-    H, W, C, B, WP, BAND, HP, NT, DV = 720, 1280, 64, 8, 1344, 48, 760, 10, 40
-    NBY, NBX = H // B, W // B
-    xp, out = n(HP, WP, C) * BF16, n(H, W, C) * BF16
+    H, W, C, B, WP, HP, NT, DV = 720, 1280, 64, 8, 1344, 760, 10, 40
+    NBY = H // B
     rows.append(("B10", "tools/warp_kernel_probe.py:68 probe_floor",
-                 dict(bytes=xp + out, ops={"f32": n(H, W, C)}), None))
-    rows.append(("B10", "tools/warp_kernel_probe.py:123 probe_select", dict(
-        bytes=2 * n(NBY, W) * I32 + 4 * n(NBY, W) * F32 + xp + out,
-        ops={"f32": NBY * 2 * 35 * (BAND + B) * W * C}), None))
-    rows.append(("B10", "tools/warp_kernel_probe.py:177 probe_dma", dict(
-        bytes=2 * n(NBY, NBX) * I32 + xp + out, ops={"f32": 2 * n(H, W, C)}), None))
+                 copy_work(1, H, H, W, C), "K6"))
+    # K11 and K12 read what their seeded tables pick (the JAX file's draws)
+    _, sy, sx, shidx, dyidx, *_ = draw_inputs(H, W, C, with_input=False)
+    rows.append(("B10", "tools/warp_kernel_probe.py:123 probe_select",
+                 gather2_work(shidx, dyidx, HP, WP, C, X0), "K11"))
+    rows.append(("B10", "tools/warp_kernel_probe.py:177 probe_dma",
+                 block_windows_work(sy, sx, HP, WP, C), "K12"))
     rows.append(("B10", "tools/warp_kernel_probe2.py:77 probe_floor128",
                  copy_work(1, H, H, W // 2, 2 * C), "K6"))
     rows.append(("B10", "tools/warp_kernel_probe2.py:125 probe_mmsel", mmsel_work(
         NBY, NT, KW, C, DV + B - 1, W, DV, s_nnz=2 * NBY * W, vm_nnz=2 * NBY * W), "K7"))
     # tools/dma_probe.py:12-17: H, W = 720, 1280; PF (HP, WP, 128) = (736, 656, 128) bf16
     HP, WP = 720 + 16, 1280 // 2 + 16
-    z = n(HP, WP, 128) * BF16
     for fn, line in (("run", 86), ("run_pipelined", 149)):
         for write_out in (False, True):
-            rows.append(("B10", f"tools/dma_probe.py:{line} {fn}(write_out={write_out})", dict(
-                bytes=z + (z if write_out else n(8, 128) * BF16), ops={}), None))
+            rows.append(("B10", f"tools/dma_probe.py:{line} {fn}(write_out={write_out})",
+                         chunk_copy_work(HP, WP, 128, write_out), "K13"))
     # tools/int8_probe.py:27-29: M, K, N = 4096, 128, 128; band (24, 656, 128); out 16 x 320
     M, K, N_, BH, BW, C2, ROWS, COLS = 4096, 128, 128, 24, 656, 128, 16, 320
     rows += [
