@@ -7,7 +7,11 @@ Phases (any failure raises and the script exits non-zero):
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the kernels from pnp_vcve_torch/kernels/csrc (nvcc, sm_90a)
-   and print the compiler's register / shared-memory / spill report;
+   and print the compiler's register / shared-memory / spill report, each
+   model kernel's shared memory by width (and type, for K2 and K3), the
+   one-launch widths of K3 and K4, and, where the toolkit has cuobjdump,
+   the count of tensor-core instructions (HMMA/HGMMA) in the tensor-core
+   K2/K3 kernels (none fails the run);
 3. each kernel against its plain PyTorch version at the main path's shapes
    (b=1, 720x1280, 64 channels), at b=4 on a smaller frame (256x448) and at
    ragged sizes (36x52; 40x56 for K1b, which needs multiples of 8), in
@@ -21,25 +25,35 @@ Phases (any failure raises and the script exits non-zero):
    conv) at 64 -> 64, at 720p also for b=2 with its own kernels per
    sample, and at the ragged size for c_in in {3, 8, 64} and c_out in
    {8, 64}; K1, K1b, K2, K3 and K4 also at the widths 8, 24 and 128 at
-   the ragged sizes in both types (weights scaled by 8 / sqrt(c)), and K2,
-   K3 and K4 at 720p at 128 channels, timed beside their bounds (K3s runs
-   at 64 only, the pf path's width); the wrappers' width limits
-   (``launch.MAX_WIDTH``) must be the widest blocks the sources' shared
-   memory formulas fit (phase 2). At 720p each is timed with CUDA events in turns (plain,
-   kernel, kernel, plain), beside one PyTorch call that computes the same
-   function where there is one (``F.grid_sample`` for the warps, one
-   ``F.conv2d`` over the concatenated parts for the input conv, one
+   the ragged sizes in both types (weights scaled by 8 / sqrt(c)), K3 at
+   216 and 392 and K4 at 192 (above their one-launch widths: two launches
+   through a scratch, K3 at 216 in bfloat16 one) at the ragged size in both
+   types and at 720p in float32 (K3 216, K4 192), and K2, K3 and K4 at
+   720p at 128 channels, timed beside their bounds (K3s runs at 64 only,
+   the pf path's width); the wrappers' width limits (``launch.MAX_WIDTH``,
+   ``launch.ONE_LAUNCH_WIDTH``) must be the widest blocks the sources'
+   shared memory formulas fit (phase 2). At 720p each is timed with CUDA
+   events in turns (plain, kernel, kernel, plain) in float32 and bfloat16,
+   beside one PyTorch call that computes the same function where there is
+   one (``F.grid_sample`` for the warps, one channels-last ``F.conv2d``
+   over the concatenated parts in the same type for the input conv, one
    ``F.conv2d`` with ``groups=b`` for K5), its yardsticks (K1b: K1 on the
-   same flow; K3s: K3 plus ``torch.where``) and the card's bound for the
-   work (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
-   whichever is larger);
+   same flow; K3s: K3 plus ``torch.where``) and the card's bounds for the
+   work: bytes over 3.35 TB/s, and operations over 67 TFLOP/s (float32
+   CUDA cores), three TF32 products each over 495 TFLOP/s (3xTF32, the
+   route of the float32 K2, K3 and K3s) and 989 TFLOP/s (bf16 tensor
+   cores); a kernel's bound is the larger of its bytes and the operations
+   of its route;
 4. the main path: ``tools/torch_test.py`` with the port's flagship serving
    config (``warp_impl='pf'``) and the parity fixture's weights on a
    REDS4-layout fixture of 4 clips x 8 frames at 720x1280 (PNG frames, MV
    sidecars, qp.json) that tools/data/make_protocol_fixture.py writes under
    build/chip_smoke/; the launch counts must be, per frame, 2 block warps
    (K1b), 2 input convs, 14 DRT blocks, 2 key-select blocks (K3s), 1 head
-   and no per-pixel warp (K1);
+   and no per-pixel warp (K1); then one 720p clip of 8 frames through the
+   serving generator in float32 and in bfloat16 under ``torch.profiler``:
+   frames/s, device busy time and idle share, and each kernel's share of
+   the device time;
 5. the serving model's kernel path against its plain path on one clip of
    8 frames at 256x448 with block-constant MVs up to +-24 px
    (max|diff| <= 3e-3, float32), and, on the same inputs, its output
@@ -127,8 +141,10 @@ before it and read just after; then each path's own: the serving path of
 phase 4, the batched path of phase 8, the handler of phase 10, training in
 phase 7, each block form's last 720p run in phase 11; the probe tools'
 runs of phases 12 and 13 for K6-K13), its error, its time beside the plain
-version's, the library call's, its yardsticks' and the bound (K1-K4: also
-the worst error at the other widths and K2-K4's 720p row at 128 channels;
+version's, the library call's, its yardsticks' and the bounds (K2, K3,
+K3s: also the bfloat16 row under ``bf16``; K1-K4: also the worst error at
+the other widths, K2-K4's 720p row at 128 channels, and K3's and K4's
+two-launch forms under ``two_launch``;
 K6-K13: the headline stage, every stage under ``forms``), and phase 5's
 errors at the other widths; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -169,23 +185,14 @@ CONV_RAGGED_CHANNELS = [(ci, co) for ci in (3, 8, 64) for co in (8, 64)]
 # K1-K4 at widths other than the flagship's 64: at the ragged sizes (one
 # narrow group, a group of 24, two full groups), and K2-K4 timed at 720p at 128
 WIDTHS, WIDE = (8, 24, 128), 128
+# K3 and K4 above their one-launch widths (launch.ONE_LAUNCH_WIDTH): at the
+# ragged size in both types (K3 at 216 is two launches in float32, one in
+# bfloat16; at 392 two in both) and timed at 720p in float32
+TWO_LAUNCH = {"drt_block": (216, 392), "head": (192,)}
 # phase 5: the flagship generator at other widths (random weights, seeded)
 MODEL_WIDTHS, MODEL_WIDTH_BLOCKS, MODEL_WIDTH_EXPERTS = (8, 128), 2, 2
 
 
-def flop_per_pixel(label, c=64):
-    """FLOP per output pixel at width c (2 per multiply-add), from the shapes."""
-    return {
-        "input_conv (backward, 3 parts)": 2 * 9 * (3 + 2 * c) * c,
-        "input_conv (forward, 4 parts)": 2 * 9 * (3 + 3 * c) * c,
-        "drt_block": 2 * (9 * c * c + 3 * c * c + 9 * c * c),
-        "drt_block_select": 2 * (9 * c * c + 3 * c * c + 9 * c * c),
-        "head": 2 * 9 * c * (c + 3),
-        "conv3x3": 2 * 9 * c * c,
-    }.get(label, 0)
-# the H100 SXM's published peaks (NVIDIA's data sheet): HBM3, float32 on
-# the CUDA cores, dense bf16 on the tensor cores
-HBM_BYTES_S, F32_FLOP_S, BF16_TC_FLOP_S = 3.35e12, 67e12, 989e12
 GRAD_TOL, LOSS_RTOL = 1e-3, 1e-5
 TRAIN_FRAMES, TRAIN_HW, TRAIN_ITERS = 20, (256, 256), 4
 
@@ -238,6 +245,9 @@ PROBE_INFO = {
     "stream_copy": ("pnp_vcve_torch/kernels/csrc/probe_ring.cu", "tools/dma_probe.py:173", []),
 }
 K5_GEOMETRY = (720, 1280, 64)  # K10 timed at K5's frame, 64 -> 64 (measurement only)
+# the tensor-core kernels (K2, K3, K3s) and the names of their device functions
+TC_KERNELS = ("input_conv", "drt_block", "drt_block_select")
+TC_SASS_NAMES = ("input_conv_tc", "drt_block_tc")
 
 
 def phase_device():
@@ -255,9 +265,42 @@ def phase_device():
     return torch.device("cuda", 0), smi
 
 
+def _smem(lib, name, c, dtype_code):
+    """A model kernel's (one-launch) block's dynamic shared memory at width c."""
+    from pnp_vcve_torch.kernels.build import SMEM_REPORT
+
+    fn = getattr(lib.lib, f"pnp_{name}_smem")
+    return fn(c, dtype_code) if SMEM_REPORT[name] else fn(c)
+
+
+def _tensor_core_sass(lib):
+    """{kernel: count of HMMA/HGMMA instructions} of the tensor-core K2/K3
+    kernels in the built library, from cuobjdump where the toolkit has it
+    (None where it does not)."""
+    from pnp_vcve_torch.kernels.build import nvcc_path
+
+    nvcc = nvcc_path()
+    tool = Path(nvcc).parent / "cuobjdump" if nvcc else None
+    if tool is None or not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib.path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            if not any(k in cur for k in TC_SASS_NAMES):
+                cur = None
+            else:
+                counts.setdefault(cur, 0)
+        elif cur and ("HMMA" in line or "HGMMA" in line):
+            counts[cur] += 1
+    return counts
+
+
 def phase_build():
     from pnp_vcve_torch.kernels.build import PROBE_SMEM_REPORT, SMEM_REPORT, library
-    from pnp_vcve_torch.kernels.launch import MAX_WIDTH, SMEM_MAX
+    from pnp_vcve_torch.kernels.launch import MAX_WIDTH, ONE_LAUNCH_WIDTH, SMEM_MAX
 
     t0 = time.perf_counter()
     lib = library()
@@ -266,18 +309,34 @@ def phase_build():
     for line in lib.log.splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling" in line) or "spill" in line:
             print("[build]", line.strip())
-    smem = {n: {c: getattr(lib.lib, f"pnp_{n}_smem")(c) for c in (64, *WIDTHS)}
-            for n in SMEM_REPORT}
+    smem = {n: {c: _smem(lib, n, c, 0) for c in (64, *WIDTHS)} for n in SMEM_REPORT}
+    for n in (n for n, typed in SMEM_REPORT.items() if typed):
+        smem[f"{n} bfloat16"] = {c: _smem(lib, n, c, 1) for c in (64, *WIDTHS)}
     smem.update({n: getattr(lib.lib, f"pnp_{n}_smem")() for n in PROBE_SMEM_REPORT})
-    print(f"[build] dynamic shared memory per block (bytes, model kernels by width): {smem}")
+    print(f"[build] dynamic shared memory per block (bytes, model kernels by width; float32 "
+          f"unless named): {smem}")
+    print(f"[build] one-launch widths (K3, K4; two launches above): "
+          f"{ {f'{n} {str(d)[6:]}': c for (n, d), c in ONE_LAUNCH_WIDTH.items()} }")
+    sass = _tensor_core_sass(lib)
+    if sass is None:
+        print("[build] cuobjdump not found: no HMMA/HGMMA count")
+    else:
+        for fn, count in sass.items():
+            print(f"[build] tensor-core instructions (HMMA/HGMMA) in {fn}: {count}")
+        if not sass or not all(sass.values()):
+            raise AssertionError(f"K2/K3 kernels without tensor-core instructions: {sass}")
+
     # the wrappers' width limits are the widest blocks the sources' formulas fit
-    def fits(n, c):
-        return getattr(lib.lib, f"pnp_{n}_smem")(c) <= SMEM_MAX
+    def fits(n, c, code=0):
+        return _smem(lib, n, c, code) <= SMEM_MAX
 
     off = [(n, top) for n, top in MAX_WIDTH.items()
            if n in SMEM_REPORT and top is not None and not (fits(n, top) and not fits(n, top + 8))]
+    off += [(n, d, top) for (n, d), top in ONE_LAUNCH_WIDTH.items()  # dtype code 1: bf16
+            if not (fits(n, top, d.itemsize == 2) and not fits(n, top + 8, d.itemsize == 2))]
     if off:
-        raise AssertionError(f"launch.MAX_WIDTH is not the widest block that fits: {off}")
+        raise AssertionError(f"launch.MAX_WIDTH / ONE_LAUNCH_WIDTH is not the widest block that "
+                             f"fits: {off}")
 
 
 def _timed(fn, reps):
@@ -387,8 +446,12 @@ def _cases(dev, dtype, b, h, w, gen, c=64):
         kernel = wt((3, 3, 3 + c * (n_parts - 1), c), 0.03 * sc)
         bias = wt((c,), 0.1)
         ks = part_kernels(kernel, [p.shape[-1] for p in parts], b, gate)
-        cat = torch.cat(parts, -1).permute(0, 3, 1, 2).contiguous()
-        w_oihw = kernel.permute(3, 2, 0, 1).contiguous().to(dtype)
+        # the yardstick: one cuDNN conv over the concatenated parts,
+        # channels-last (the port's layout), in the same type, TF32 off
+        cat = torch.cat(parts, -1).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        w_oihw = kernel.permute(3, 2, 0, 1).to(dtype).contiguous(
+            memory_format=torch.channels_last)
         cases.append(dict(
             label=f"input_conv ({tag}, {n_parts} parts)", name="input_conv",
             kern=lambda p=parts, k=ks, bb=bias: KERNELS.input_conv(p, k, bb),
@@ -489,37 +552,47 @@ def _cases(dev, dtype, b, h, w, gen, c=64):
 
 def _time_case(c, tag, b, h, w, width=64):
     """Time case c in turns (plain, kernel, kernel, plain), its library call
-    and yardsticks; print the line and return the row."""
+    and yardsticks; print the line with its bounds (float32 on the CUDA
+    cores, 3xTF32 and bf16 on the tensor cores, bytes) and return the row."""
+    import torch_kernel_bounds as kb  # tools/, on sys.path from phase_kernels
+
     p1, k1, k2, p2 = (_timed(f, c["reps"]) for f in (c["plain"], c["kern"], c["kern"], c["plain"]))
     lib = _timed(c["library"], c["reps"]) if c["library"] else None
     yard = {k: _timed(f, c["reps"]) for k, f in c["yardsticks"].items()}
-    flop = flop_per_pixel(c["label"], width) * b * h * w
-    t_bytes, t_ops = c["bytes"] / HBM_BYTES_S * 1e3, flop / F32_FLOP_S * 1e3
+    flop = kb.model_flop_per_pixel(c["label"], width) * b * h * w
+    bd = kb.conv_bounds(flop, c["bytes"])
+    t_bytes, t_ops, t_tf32x3, t_bf16 = bd["bytes_ms"], bd["f32_ms"], bd["tf32x3_ms"], bd["bf16_ms"]
     rate = f"{flop / (k1 + k2) * 2e-9:.1f} TFLOP/s, " if flop else ""
     yard_txt = "".join(f", {k[:-3]} {v:.3f} ms" for k, v in yard.items())
     print(f"[time] {tag}: kernel {k1:.3f} / {k2:.3f} ms, "
           f"plain {p1:.3f} / {p2:.3f} ms, library "
           f"{'none' if lib is None else f'{lib:.3f} ms'}{yard_txt}; {rate}"
-          f"{c['bytes'] / ((k1 + k2) / 2) * 1e-6:.0f} GB/s; bound "
-          f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, float32 ops "
-          f"{t_ops:.3f}, bf16 tensor-core ops {flop / BF16_TC_FLOP_S * 1e3:.3f})")
+          f"{c['bytes'] / ((k1 + k2) / 2) * 1e-6:.0f} GB/s; bounds: bytes {t_bytes:.3f} ms, "
+          f"float32 CUDA-core ops {t_ops:.3f}, 3xTF32 ops {t_tf32x3:.3f}, bf16 tensor-core ops "
+          f"{t_bf16:.3f}")
     return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib, t_bytes=t_bytes,
-                t_ops=t_ops, t_bf16=flop / BF16_TC_FLOP_S * 1e3, **yard)
+                t_ops=t_ops, t_tf32x3=t_tf32x3, t_bf16=t_bf16, **yard)
 
 
 def phase_kernels(dev):
     """Returns {kernel: row} in float32 at 720p: the worst error, the mean
     times of the kernel, its plain version, the library call and the
-    yardsticks, and the bounds. The input conv's row covers its two forms
-    (worst error, mean time and bound). K1-K4 also at WIDTHS at the ragged
-    sizes (the worst error there under ``width_max_abs_err``), and K2-K4
-    timed at 720p at width WIDE (under ``wide``)."""
+    yardsticks, and the bounds (``bound_ms`` by the route the kernel takes:
+    3xTF32 for the tensor-core K2, K3 and K3s, the CUDA cores for the
+    others); for K2, K3 and K3s the same in bfloat16 under ``bf16``. The
+    input conv's row covers its two forms (worst error, mean time and
+    bound). K1-K4 also at WIDTHS at the ragged sizes (the worst error there
+    under ``width_max_abs_err``), K3 and K4 at TWO_LAUNCH's widths (their
+    two-launch forms, under ``two_launch``: the worst error at the ragged
+    size in both types, the time at 720p in float32), and K2-K4 timed at
+    720p at width WIDE (under ``wide``)."""
     import torch
 
+    sys.path.insert(0, str(ROOT / "tools"))  # tools/torch_kernel_bounds.py: the bounds
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(SEED)
-    rows, wide, width_err = {}, {}, {}
+    rows, rows_bf16, wide, width_err, two = {}, {}, {}, {}, {}
     sizes = ((1, MAIN_HW, True), (BATCH_B, BATCH_HW, False), (1, RAGGED_HW, False),
              (1, BLOCK_RAGGED_HW, False))
     for dtype in (torch.float32, torch.bfloat16):
@@ -534,6 +607,8 @@ def phase_kernels(dev):
                 row = _time_case(c, tag, b, h, w)
                 if dtype == torch.float32:
                     rows.setdefault(c["name"], []).append(dict(err=err, **row))
+                elif c["name"] in TC_KERNELS:
+                    rows_bf16.setdefault(c["name"], []).append(dict(err=err, **row))
             torch.cuda.empty_cache()
         # the other widths: every case at the ragged sizes (K1b at its own)
         for width in WIDTHS:
@@ -547,8 +622,33 @@ def phase_kernels(dev):
                         print(f"[kernel] {tag}: {c['check']()}")
                     if dtype == torch.float32:
                         width_err[c["name"]] = max(width_err.get(c["name"], 0.0), err)
-    # K2-K4 at 720p at width WIDE, float32, timed beside their bounds
+        # K3 and K4 above their one-launch widths
+        for name, widths in TWO_LAUNCH.items():
+            for width in widths:
+                h, w = RAGGED_HW
+                for c in _cases(dev, dtype, 1, h, w, gen, width):
+                    if c["name"] != name:
+                        continue
+                    tag = (f"{c['label']} c={width} {str(dtype)[6:]} b=1 {h}x{w} "
+                           f"({_form(name, width, dtype)})")
+                    err = _compare(tag, c["kern"](), c["ref32"](), dtype, BF16_BOUNDS[name])
+                    t = two.setdefault(name, {"widths": list(widths)})
+                    key = f"max_abs_err_{str(dtype)[6:]}"
+                    t[key] = max(t.get(key, 0.0), err)
     h, w = MAIN_HW
+    # the two-launch forms at 720p, float32
+    for name, widths in TWO_LAUNCH.items():
+        for c in _cases(dev, torch.float32, 1, h, w, gen, widths[0]):
+            if c["name"] != name:
+                continue
+            tag = (f"{c['label']} c={widths[0]} float32 b=1 {h}x{w} "
+                   f"({_form(name, widths[0], torch.float32)})")
+            err = _compare(tag, c["kern"](), c["ref32"](), torch.float32, None)
+            row = _time_case(dict(c, reps=2), tag, 1, h, w, widths[0])
+            two[name]["720p"] = {"c": widths[0], "max_abs_err": err,
+                                 **_summary([dict(err=err, **row)], name)}
+        torch.cuda.empty_cache()
+    # K2-K4 at 720p at width WIDE, float32, timed beside their bounds
     for c in _cases(dev, torch.float32, 1, h, w, gen, WIDE):
         if c["name"] not in ("input_conv", "drt_block", "head"):
             continue
@@ -557,25 +657,43 @@ def phase_kernels(dev):
         wide.setdefault(c["name"], []).append(dict(err=err, **_time_case(c, tag, 1, h, w, WIDE)))
     torch.cuda.empty_cache()
 
-    def mean(rs, k):
-        return None if rs[0][k] is None else sum(r[k] for r in rs) / len(rs)
-
-    def summary(rs):
-        t_bytes, t_ops = mean(rs, "t_bytes"), mean(rs, "t_ops")
-        extra = {k: mean(rs, k) for k in rs[0] if k.endswith("_ms") and k != "library_ms"}
-        return dict(
-            max_abs_err=max(r["err"] for r in rs), ms=mean(rs, "ms"),
-            plain_ms=mean(rs, "plain_ms"), bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=mean(rs, "library_ms"), bound_bf16_tensor_ms=mean(rs, "t_bf16"),
-            **{k: v for k, v in extra.items() if k not in ("ms", "plain_ms")})
-
-    out = {name: summary(rs) for name, rs in rows.items()}
+    out = {name: _summary(rs, name) for name, rs in rows.items()}
+    for name, rs in rows_bf16.items():
+        out[name]["bf16"] = _summary(rs, name, bf16=True)
     for name, err in width_err.items():
         out[name]["width_max_abs_err"] = {"widths": list(WIDTHS), "max_abs_err": err}
+    for name, t in two.items():
+        out[name]["two_launch"] = t
     for name, rs in wide.items():
-        out[name]["wide"] = {"c": WIDE, **summary(rs)}
+        out[name]["wide"] = {"c": WIDE, **_summary(rs, name)}
     return out
+
+
+def _form(name, c, dtype):
+    from pnp_vcve_torch.kernels.launch import launch_form
+
+    n = launch_form(name, c, dtype)
+    return "one launch" if n == 1 else "two launches"
+
+
+def _summary(rs, name, bf16=False):
+    """Phase 3's rows of one kernel merged: the worst error, the mean times
+    and bounds; ``bound_ms`` over the operations of the route the kernel
+    takes (bf16 or 3xTF32 tensor cores for K2, K3, K3s; else float32 CUDA
+    cores) and its bytes."""
+    def mean(k):
+        return None if rs[0][k] is None else sum(r[k] for r in rs) / len(rs)
+
+    t_bytes = mean("t_bytes")
+    t_ops = mean("t_bf16" if bf16 else "t_tf32x3" if name in TC_KERNELS else "t_ops")
+    extra = {k: mean(k) for k in rs[0] if k.endswith("_ms") and k != "library_ms"}
+    return dict(
+        max_abs_err=max(r["err"] for r in rs), ms=mean("ms"), plain_ms=mean("plain_ms"),
+        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=mean("library_ms"), bound_f32_cuda_ms=mean("t_ops"),
+        bound_tf32x3_ms=mean("t_tf32x3"), bound_bf16_tensor_ms=mean("t_bf16"),
+        bound_bytes_ms=t_bytes,
+        **{k: v for k, v in extra.items() if k not in ("ms", "plain_ms")})
 
 
 def phase_main_path(dev):
@@ -654,7 +772,53 @@ def phase_main_path(dev):
           f"{', '.join(f'{v:.3f}' for v in fwd_s)} s); tools/torch_test.py incl. loading and "
           f"host metrics {wall:.3f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    _serving_profile(dev)
     return counts
+
+
+def _serving_profile(dev):
+    """Where the serving generator's device time goes: one 720p clip of
+    FRAMES frames (b=1, the serving config, the parity weights) in float32
+    and in bfloat16, once untimed, once timed (synchronised host clock) and
+    once under ``torch.profiler``: device busy time, idle share against the
+    timed clip, and the kernels' shares. Its launches are not the main
+    path's (those were read above)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    model, _ = _flagship_generator("HR_davis_LR_128x128_serving.py", dev)
+    h, w = MAIN_HW
+    inputs = _clip_inputs(np.random.default_rng(SEED), 1, FRAMES, h, w, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        model.feature_dtype = dtype
+        with torch.inference_mode():
+            model(**inputs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(**inputs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                model(**inputs)
+                torch.cuda.synchronize()
+        tag = f"[profile] serving {str(dtype)[6:]}, {FRAMES} frames {h}x{w}"
+        found = _device_time(prof)
+        if found is None:
+            print(f"{tag}: {FRAMES / wall:.3f} frames/s; profiler recorded no device events, "
+                  f"breakdown not measured")
+            continue
+        busy, by_name = found
+        total = sum(by_name.values())
+        share = {k: sum(v for n, v in by_name.items() if f"pnp::{k}" in n or f"pnp::tc::{k}" in n)
+                 for k in ("warp_block_kernel", "input_conv_tc", "drt_block_tc", "head")}
+        print(f"{tag}: {FRAMES / wall:.3f} frames/s, clip {wall:.4f} s; device busy {busy:.4f} s, "
+              f"idle share {max(0.0, 1 - busy / wall):.4f}; of device time "
+              + ", ".join(f"{k} {v / total:.4f}" for k, v in share.items())
+              + f", the rest {1 - sum(share.values()) / total:.4f}")
+        for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"[profile]   {v:.4f} s {v / total:.4f}  {name[:110]}")
+    model.feature_dtype = torch.float32
 
 
 def _clip_inputs(rng, b, t, h, w, dev, mv_reach=None, mv_block=8):
@@ -1322,7 +1486,7 @@ def _print_breakdown(prof, window_s, steady_s):
     """Device time of the profiled iteration by kernel: the device's busy
     time and idle share in the profiled window and against an unprofiled
     iteration, K1-K4's share of the device time, the top kernels."""
-    ours = ("warp_kernel", "input_conv_kernel", "drt_block_kernel", "head_kernel")
+    ours = ("warp_kernel", "input_conv_tc", "drt_block_tc", "head_kernel")
     found = _device_time(prof)
     if found is None:
         print("[train] profiler: no device events recorded; breakdown not measured")

@@ -41,10 +41,10 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "pnp_warp": [_I, _P, _P, _P] + [_I] * 4 + [_P],
     "pnp_input_conv": [_I] + [_P] * 10 + [_I] * 5 + [_P],
-    "pnp_drt_block": [_I] + [_P] * 8 + [_I] * 4 + [_P],
-    "pnp_drt_block_select": [_I] + [_P] * 11 + [_I] * 4 + [_P],
+    "pnp_drt_block": [_I] + [_P] * 10 + [_I] * 4 + [_P],
+    "pnp_drt_block_select": [_I] + [_P] * 12 + [_I] * 4 + [_P],
     "pnp_warp_block": [_I, _P, _P, _P] + [_I] * 4 + [_P],
-    "pnp_head": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    "pnp_head": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "pnp_conv3x3": [_I] + [_P] * 4 + [_I] * 5 + [_P],
     # the probe kernels (probes.py)
     "pnp_window_copy": [_P, _P] + [_I] * 9 + [_P],
@@ -59,9 +59,12 @@ SIGNATURES = {
     "pnp_stream_copy": [_P, _P] + [_I] * 4 + [_P],
     "pnp_ring_copy_smem": [_I] * 3,
 }
-# pnp_<name>_smem(c) return a block's dynamic shared memory in bytes at width
-# c (chip_smoke.py checks launch.MAX_WIDTH on it); pnp_<name>_smem() that of a probe
-SMEM_REPORT = ("warp_block", "input_conv", "drt_block", "head", "conv3x3")
+# pnp_<name>_smem(c) return a (one-launch) block's dynamic shared memory in
+# bytes at width c, those that depend on the feature type pnp_<name>_smem(c,
+# dtype) (chip_smoke.py checks launch.MAX_WIDTH and ONE_LAUNCH_WIDTH on
+# them): name -> whether it takes the dtype code; pnp_<name>_smem() that of a probe
+SMEM_REPORT = {"warp_block": False, "input_conv": True, "drt_block": True, "head": False,
+               "conv3x3": False}
 PROBE_SMEM_REPORT = ("mmsel", "tapconv")
 
 
@@ -158,11 +161,12 @@ def library() -> Library:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for names, argtypes in ((SMEM_REPORT, [_I]), (PROBE_SMEM_REPORT, [])):
-        for name in names:
-            fn = getattr(lib, f"pnp_{name}_smem")
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+    smem_args = {**{n: [_I] * (1 + typed) for n, typed in SMEM_REPORT.items()},
+                 **{n: [] for n in PROBE_SMEM_REPORT}}
+    for name, argtypes in smem_args.items():
+        fn = getattr(lib, f"pnp_{name}_smem")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.pnp_error_string.argtypes = [ctypes.c_int]
     lib.pnp_error_string.restype = ctypes.c_char_p
     return Library(lib=lib, path=so, log=log, build_seconds=seconds)

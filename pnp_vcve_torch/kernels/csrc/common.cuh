@@ -1,10 +1,11 @@
 // Shared pieces of the port's Hopper kernels: feature-type conversion, 8-wide
-// channel loads and stores, and the direct 3x3 convolution over a tile staged
-// in shared memory that the input conv, the DRT block, the head and K5 use.
+// channel loads and stores, and the CUDA-core direct 3x3 convolution over a
+// tile staged in shared memory that the head (K4) and K5 use (the input conv
+// and the DRT block run on the tensor cores: tc_conv.cuh).
 //
 // Features are NHWC with c channels, c a multiple of 8 (the flagship's 64),
-// stored as float or __nv_bfloat16. Weights are always float32 and every sum
-// is taken in float32.
+// stored as float or __nv_bfloat16. The CUDA-core convolution's weights are
+// float32 and every sum is taken in float32.
 //
 // Conv thread layout: a block of NT = 256 threads computes a tile of pixels
 // by one group of C = 64 output channels. Thread t owns output channels

@@ -19,12 +19,15 @@ They replace, in ``pnp_vcve_tpu/kernels/drt_stack.py``:
 
 The TPU kernels' pixel-pair packed layout and band DMAs are not carried
 over: the kernels take the NHWC tensors as they are, for any h and w and any
-width c that is a multiple of 8 (the flagship's 64 on a path of its own; K3
-up to 208 and K4 up to 184 channels, the h region they keep in shared
-memory), in float32 or bfloat16 with float32 sums. Each is bound by
-CUDA-core float32 FMAs; the source notes in ``csrc/`` say how each tiles its
-work. :func:`input_conv_args`, :func:`drt_block_args` and :func:`head_args`
-hold the checks a launch makes of the shapes and the width, and the weight
+width c that is a multiple of 8, in float32 or bfloat16 with float32 sums.
+K2 and K3 run on the tensor cores (``csrc/tc_conv.cuh``): bfloat16 features
+with bfloat16 weights, float32 features in 3xTF32 (:func:`tf32_split`). K3
+and K4 keep their hidden map on the chip up to ``launch.ONE_LAUNCH_WIDTH``
+and run as two launches through a scratch tensor above it
+(:func:`.launch.launch_form`). K4 runs on CUDA-core float32 FMAs. The
+source notes in ``csrc/`` say how each tiles its work.
+:func:`input_conv_args`, :func:`drt_block_args` and :func:`head_args` hold
+the checks a launch makes of the shapes and the width, and the weight
 repacking; they run on any device.
 
 Each wrapper has a plain PyTorch version beside it (``*_plain``), the XLA
@@ -39,7 +42,8 @@ On CUDA tensors each launch runs inside a ``torch.autograd.Function``
 JAX-layout arguments and takes its gradients from the plain version
 (``launch.plain_grads``), as the JAX package's trainable stacks do (:803,
 :891, :1253). The wrappers' weight
-repacking (the gain folded into W2, the reshapes) runs inside the forward,
+repacking (the taps transposed, rounded to bfloat16 or split for 3xTF32)
+runs inside the forward,
 out of autograd's sight; the gradients reach the repacked weights' sources
 (the premix, the conv weights) through the JAX-layout arguments.
 """
@@ -57,9 +61,11 @@ from pnp_vcve_torch.ops.dynamic_conv import (
     dynamic_conv2d,
     per_sample_conv,
 )
-from .launch import check_cuda_args, check_width, launch, on_cpu, plain_grads
+from .launch import check_cuda_args, check_width, launch, launch_form, on_cpu, plain_grads
 
 __all__ = [
+    "tf32_split",
+    "tc_weights",
     "premix_block_params",
     "part_kernels",
     "input_conv",
@@ -119,6 +125,40 @@ def part_kernels(kernel, part_channels: Sequence[int], b: int, gate=None):
     return [k.contiguous() for k in ks]
 
 
+# ---- the tensor-core kernels' weights (K2, K3) -------------------------------
+
+_TF32_HEAD = -8192  # 0xffffe000 as int32: sign, exponent and 10 mantissa bits
+_TF32_HALF = 0x1000  # half of a TF32 ulp in float32 bits
+
+
+def tf32_split(w):
+    """float32 ``w`` -> ``(hi, lo)`` for 3xTF32: ``hi`` is ``w`` with its low
+    13 mantissa bits cleared (a TF32 value), ``lo`` the rest ``w - hi``
+    rounded to TF32 (nearest, ties away from zero: ``cvt.rna.tf32.f32``,
+    which the kernels apply to their A operand). ``hi + lo`` is ``w`` to
+    ~2^-22 relative, and ``a_hi b_hi + a_hi b_lo + a_lo b_hi`` a float32
+    product to ~2^-21."""
+    w = w.float().contiguous()
+    hi = (w.view(torch.int32) & _TF32_HEAD).view(torch.float32)
+    rest = (w - hi).view(torch.int32)
+    lo = ((rest + _TF32_HALF) & _TF32_HEAD).view(torch.float32)
+    return hi, lo
+
+
+def tc_weights(taps, dtype):
+    """A tensor-core kernel's weight operand from ``taps (..., c_in, c_out)``:
+    each tap transposed to ``(c_out, c_in)`` (the mma's "col" B operand) and
+    stacked as ``(NW, ..., c_out, c_in)``: for bfloat16 features NW = 1, the
+    weights rounded to bfloat16 (as the plain version rounds them); for
+    float32 NW = 2, :func:`tf32_split`'s head and tail."""
+    t = taps.float().transpose(-1, -2)
+    if dtype == torch.bfloat16:
+        return t.to(torch.bfloat16).unsqueeze(0).contiguous()
+    if dtype != torch.float32:
+        raise TypeError(f"tensor-core weights for {dtype}: float32 or bfloat16 only")
+    return torch.stack(tf32_split(t))
+
+
 # ---- K2: input conv ---------------------------------------------------------
 
 
@@ -133,7 +173,10 @@ def input_conv_plain(parts, kernels, bias):
 
 def input_conv_args(parts, kernels, bias):
     """K2's shape and width checks and its weights as the kernel takes them:
-    ``(per-part kernels (b, 9, c_p, c), bias (c,) float32, c)``."""
+    ``(per-part kernels, bias (c,) float32, c)``, each part's
+    :func:`tc_weights` ``(NW, b, 9, c, c_p)`` in the features' type, the lr
+    part zero-padded to one mma k-step of input channels (16 bfloat16, 8
+    float32)."""
     lr, wide = parts[0], list(parts[1:])
     b, h, w, clr = lr.shape
     if clr != 3 or not 1 <= len(wide) <= 3 or len(kernels) != len(parts):
@@ -148,7 +191,9 @@ def input_conv_args(parts, kernels, bias):
         raise ValueError(f"input_conv: kernels must be (b,3,3,c_p,{c})")
     if bias.shape != (c,):
         raise ValueError(f"input_conv: bias {tuple(bias.shape)} != ({c},)")
-    return ks, bias.float().contiguous(), c
+    kstep = 16 if lr.dtype == torch.bfloat16 else 8
+    ks[0] = F.pad(ks[0].float(), (0, 0, 0, kstep - 3))
+    return [tc_weights(k, lr.dtype) for k in ks], bias.float().contiguous(), c
 
 
 def _input_conv_launch(parts, kernels, bias):
@@ -212,8 +257,11 @@ def drt_block_plain(x, par, w2, b2, g, pk, w1, b1):
 
 
 def drt_block_args(x, par, w2, b2, g, pk, w1, b1, name="drt_block"):
-    """Check K3's arguments and repack its weights: the gain folded into W2
-    and b2, the taps flattened."""
+    """Check K3's arguments and repack its weights as the kernel takes them:
+    ``(w2 (NW, b, 9, c, c), b2 (b, c), g (b, c), pk (NW, 3, c, c), w1 (NW, 9,
+    c, c), b1 (c,))``, the conv and partition taps as :func:`tc_weights` in
+    x's type, the biases and the gain float32 (the gain applies after the
+    conv, in the kernel's float32 epilogue, as the JAX kernel applies it)."""
     b, h, w, c = x.shape
     if par.shape != (b, h, w, 3):
         raise ValueError(f"{name}: need x (b,h,w,c), par (b,h,w,3); got "
@@ -222,20 +270,19 @@ def drt_block_args(x, par, w2, b2, g, pk, w1, b1, name="drt_block"):
     if (w2.shape != (b, 3, 3, c, c) or b2.shape != (b, c) or g.shape != (b, c)
             or pk.shape != (c, 3, c) or w1.shape != (3, 3, c, c) or b1.shape != (c,)):
         raise ValueError(f"{name}: weight shapes do not match {c} channels")
-    gf = g.float()
-    w2g = (w2.float() * gf[:, None, None, None, :]).reshape(b, 9, c, c).contiguous()
-    b2g = (b2.float() * gf).contiguous()
-    pkr = pk.float().permute(1, 0, 2).contiguous()
-    w1r = w1.float().reshape(9, c, c).contiguous()
-    b1f = b1.float().contiguous()
-    return w2g, b2g, pkr, w1r, b1f
+    dtype = x.dtype
+    return (tc_weights(w2.reshape(b, 9, c, c), dtype), b2.float().contiguous(),
+            g.float().contiguous(), tc_weights(pk.permute(1, 0, 2), dtype),
+            tc_weights(w1.reshape(9, c, c), dtype), b1.float().contiguous())
 
 
 def _drt_block_launch(x, par, w2, b2, g, pk, w1, b1):
     weights = drt_block_args(x, par, w2, b2, g, pk, w1, b1)
     check_cuda_args("drt_block", (x, par), weights)
     out = torch.empty_like(x)
-    return launch("drt_block", "pnp_drt_block", out, x, par, *weights, out, *x.shape)
+    # above the one-launch width h goes through a scratch of x's type
+    hbuf = torch.empty_like(x) if launch_form("drt_block", x.shape[-1], x.dtype) == 2 else None
+    return launch("drt_block", "pnp_drt_block", out, x, par, *weights, hbuf, out, *x.shape)
 
 
 class DRTBlockFunction(torch.autograd.Function):
@@ -349,7 +396,10 @@ def _head_launch(x, hr_k, hr_b, last_k, last_b):
     check_cuda_args("head", (x,), weights)
     b, h, w, c = x.shape
     out = torch.empty((b, h, w, 3), dtype=x.dtype, device=x.device)
-    return launch("head", "pnp_head", out, x, *weights, out, b, h, w, c)
+    # above the one-launch width the hidden map goes through a float32 scratch
+    hbuf = (torch.empty((b, h, w, c), dtype=torch.float32, device=x.device)
+            if launch_form("head", c, x.dtype) == 2 else None)
+    return launch("head", "pnp_head", out, x, *weights, hbuf, out, b, h, w, c)
 
 
 class HeadFunction(torch.autograd.Function):

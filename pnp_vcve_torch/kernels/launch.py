@@ -24,26 +24,32 @@ from .build import library
 
 __all__ = [
     "LAUNCHES", "reset_launches", "on_cpu", "check_cuda_args", "launch", "call", "plain_grads",
-    "SMEM_MAX", "MAX_WIDTH", "check_width",
+    "SMEM_MAX", "MAX_WIDTH", "ONE_LAUNCH_WIDTH", "check_width", "launch_form",
 ]
 
 LAUNCHES = {"warp": 0, "warp_block": 0, "input_conv": 0, "drt_block": 0,
             "drt_block_select": 0, "head": 0, "conv3x3": 0}
 
 SMEM_MAX = 227 * 1024  # dynamic shared memory a block may use on an H100
-# The widest c each model kernel takes (None: any multiple of 8). K1b, K3
-# and K4 stop at the widest block that fits in SMEM_MAX: each source
-# static_asserts the same number against its own shared-memory formula
-# (WB_, DB_, HD_MAX_WIDTH) and refuses a wider launch, and chip_smoke.py's
-# build phase reads that formula at the limit. K3s runs at 64 only, the pf
-# path's width.
-MAX_WIDTH = {"warp": None, "warp_block": 712, "input_conv": None, "drt_block": 208,
-             "drt_block_select": 64, "head": 184, "conv3x3": None}
+# The widest c each model kernel takes (None: any multiple of 8). K1b stops
+# at the widest block that fits in SMEM_MAX (its source static_asserts the
+# same number, WB_MAX_WIDTH, against its shared-memory formula and refuses
+# a wider launch); K3s runs at 64 only, the pf path's width.
+MAX_WIDTH = {"warp": None, "warp_block": 712, "input_conv": None, "drt_block": None,
+             "drt_block_select": 64, "head": None, "conv3x3": None}
+# K3 and K4 keep their hidden map on the chip (one launch) up to the widest
+# block whose h region fits in SMEM_MAX, per feature type (K3 holds h in the
+# feature type, K4 in float32); above it each runs as two launches through
+# a scratch tensor the wrapper allocates. Each source static_asserts the
+# same numbers (DB_ONE_LAUNCH_F32 / _BF16, HD_ONE_LAUNCH) against its
+# formula, and chip_smoke.py's build phase reads the formula at the limit.
+ONE_LAUNCH_WIDTH = {("drt_block", torch.float32): 168, ("drt_block", torch.bfloat16): 384,
+                    ("head", torch.float32): 184, ("head", torch.bfloat16): 184}
 
 
 def check_width(name: str, c: int):
     """Raise ``ValueError`` unless kernel ``name`` takes ``c`` channels: a
-    multiple of 8 up to ``MAX_WIDTH[name]`` (K3s: 64 only)."""
+    multiple of 8 (K1b up to ``MAX_WIDTH``, K3s 64 only)."""
     if c < 8 or c % 8:
         raise ValueError(f"{name}: width {c} is not a multiple of 8; the kernels take "
                          f"widths 8, 16, 24, ... (8-channel vectors)")
@@ -53,6 +59,15 @@ def check_width(name: str, c: int):
     if top is not None and c > top:
         raise ValueError(f"{name}: width {c} is above {top}, the widest block that fits in "
                          f"an H100 block's {SMEM_MAX} bytes of shared memory")
+
+
+def launch_form(name: str, c: int, dtype: torch.dtype) -> int:
+    """How many launches kernel ``name`` takes at width ``c`` in ``dtype``:
+    1, or 2 for K3 and K4 above ``ONE_LAUNCH_WIDTH`` (h through a scratch
+    tensor). K3s is K3's one-launch form."""
+    check_width(name, c)
+    top = ONE_LAUNCH_WIDTH.get(("drt_block" if name == "drt_block_select" else name, dtype))
+    return 2 if top is not None and c > top else 1
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -76,8 +91,9 @@ def on_cpu(x: torch.Tensor) -> bool:
 def check_cuda_args(name: str, features, weights=()):
     """Device, dtype, contiguity and alignment checks for a launch. Feature
     tensors share one device and one dtype (float32 or bfloat16); weight
-    tensors are float32. All are contiguous and 16-byte aligned (the kernels
-    read 16-byte vectors)."""
+    tensors are float32 or of the features' type (the tensor-core kernels'
+    operands). All are contiguous and 16-byte aligned (the kernels read
+    16-byte vectors)."""
     dev = features[0].device
     dtype = features[0].dtype
     if dtype not in _DTYPE_CODE:
@@ -88,8 +104,8 @@ def check_cuda_args(name: str, features, weights=()):
                 f"{name}: features on {t.device}/{t.dtype}, expected {dev}/{dtype}"
             )
     for t in weights:
-        if t.device != dev or t.dtype != torch.float32:
-            raise TypeError(f"{name}: weights must be float32 on {dev}")
+        if t.device != dev or t.dtype not in (torch.float32, dtype):
+            raise TypeError(f"{name}: weights must be float32 or {dtype} on {dev}")
     for t in (*features, *weights):
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")

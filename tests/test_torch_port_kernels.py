@@ -622,15 +622,26 @@ def test_model_kernels_at_width(cuda, name, c, dtype):
 
 
 def test_model_kernels_refuse_a_width_they_cannot_take(cuda):
-    """A width that is not a multiple of 8, or whose block does not fit in
-    shared memory, raises before any launch."""
-    x = torch.zeros((1, 8, 8, 12), device=cuda)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        KERNELS.flow_warp(x, torch.zeros((1, 8, 8, 2), device=cuda))
-    x = torch.zeros((1, 8, 8, 256), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        KERNELS.head(x, torch.zeros((3, 3, 256, 256), device=cuda), torch.zeros(256, device=cuda),
-                     torch.zeros((3, 3, 256, 3), device=cuda), torch.zeros(3, device=cuda))
+    """A width that is not a multiple of 8 raises before any launch; a wide
+    one does not (K4 at 256 runs its two-launch form)."""
+    z = lambda *s: torch.zeros(s, device=cuda)  # noqa: E731
+    x = z(1, 8, 8, 12)
+    calls = {
+        "warp": lambda: KERNELS.flow_warp(x, z(1, 8, 8, 2)),
+        "input_conv": lambda: KERNELS.input_conv(
+            [z(1, 8, 8, 3), x], [z(1, 3, 3, 3, 12), z(1, 3, 3, 12, 12)], z(12)),
+        "drt_block": lambda: KERNELS.drt_block(x, z(1, 8, 8, 3), z(1, 3, 3, 12, 12), z(1, 12),
+                                               z(1, 12), z(12, 3, 12), z(3, 3, 12, 12), z(12)),
+        "head": lambda: KERNELS.head(x, z(3, 3, 12, 12), z(12), z(3, 3, 12, 3), z(3)),
+    }
+    reset_launches()
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match=f"{name}: width 12 is not a multiple of 8"):
+            call()
+    assert sum(LAUNCHES.values()) == 0
+    out = KERNELS.head(z(1, 8, 8, 256), z(3, 3, 256, 256), z(256), z(3, 3, 256, 3), z(3))
+    torch.cuda.synchronize()
+    assert out.shape == (1, 8, 8, 3) and LAUNCHES["head"] == 1
 
 
 @pytest.mark.parametrize("warp_impl", ["padgather", "block8"])

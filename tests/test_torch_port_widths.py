@@ -1,7 +1,8 @@
-"""The model kernels' width rule (K1, K1b, K2-K4 take any width that is a
-multiple of 8 and whose block fits in shared memory; K3s 64 only), on the CPU: the
-argument checks each launch makes run here without a launch, on the shapes
-the kernels and the model give them.
+"""The model kernels' width rule (K1, K2-K4 take any width that is a
+multiple of 8, K1b up to the widest block that fits in shared memory, K3s 64
+only; K3 and K4 run as two launches above their one-launch width), on the
+CPU: the argument checks each launch makes run here without a launch, on the
+shapes the kernels and the model give them.
 """
 
 import re
@@ -50,11 +51,12 @@ def test_argument_checks_take_every_width(c):
     checked = {name: fn(*a) for name, (fn, a) in args.items()}
     assert checked["warp"] == checked["warp_block"] == c
     ks, bias, width = checked["input_conv"]
-    assert width == c and [k.shape for k in ks] == [(2, 9, 3, c), (2, 9, c, c), (2, 9, c, c)]
+    assert width == c
+    assert [k.shape for k in ks] == [(2, 2, 9, c, 8), (2, 2, 9, c, c), (2, 2, 9, c, c)]
     for name in ("drt_block", "drt_block_select")[:1 + (c == 64)]:
-        w2g, b2g, pkr, w1r, b1f = checked[name]
-        assert (w2g.shape, b2g.shape, pkr.shape, w1r.shape, b1f.shape) == (
-            (2, 9, c, c), (2, c), (3, c, c), (9, c, c), (c,))
+        w2, b2, g, pk, w1, b1 = checked[name]
+        assert (w2.shape, b2.shape, g.shape, pk.shape, w1.shape, b1.shape) == (
+            (2, 2, 9, c, c), (2, c), (2, c), (2, 3, c, c), (2, 9, c, c), (c,))
     assert [t.shape for t in checked["head"]] == [(9, c, c), (c,), (9, c, 3), (3,)]
 
 
@@ -67,25 +69,55 @@ def test_argument_checks_refuse_width_12(name):
 
 
 def test_width_limits_follow_shared_memory():
-    """The widest block each kernel fits in an H100's 227 KB of shared
-    memory: K3 keeps all c channels of h, K4 also W_last, K1b a 9 x 9
-    window; K1, K2 and K5 have no limit, K3s runs at 64 only. Each limit is
-    the one its source static_asserts against its shared-memory formula and
-    enforces at launch."""
+    """Each source's limit is the widest block its shared-memory formula
+    fits in an H100's 227 KB: K1b's 9 x 9 window caps its width (712); K3
+    keeps all c channels of h in the feature type (one launch up to 168
+    float32 channels, 384 bfloat16) and K4 its hidden map in float32 with
+    W_last (184), each running as two launches through a scratch above it;
+    K1, K2 and K5 have no limit, K3s runs at 64 only. The numbers are those
+    the sources static_assert against their formulas, and the formulas,
+    transcribed here, fit at each limit and not 8 channels above it."""
     assert kl.MAX_WIDTH == {
-        "warp": None, "warp_block": 712, "input_conv": None, "drt_block": 208,
-        "drt_block_select": 64, "head": 184, "conv3x3": None}
+        "warp": None, "warp_block": 712, "input_conv": None, "drt_block": None,
+        "drt_block_select": 64, "head": None, "conv3x3": None}
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert kl.ONE_LAUNCH_WIDTH == {("drt_block", f32): 168, ("drt_block", bf16): 384,
+                                   ("head", f32): 184, ("head", bf16): 184}
     csrc = Path(kl.__file__).parent / "csrc"
-    for name, src, const in (("warp_block", "warp_block.cu", "WB_MAX_WIDTH"),
-                             ("drt_block", "drt_block.cu", "DB_MAX_WIDTH"),
-                             ("head", "head.cu", "HD_MAX_WIDTH")):
-        text = (csrc / src).read_text()
-        assert int(re.search(rf"constexpr int {const} = (\d+);", text)[1]) == kl.MAX_WIDTH[name]
-        assert f"static_assert({name}_smem({const})" in text
-    kl.check_width("head", 184)
-    with pytest.raises(ValueError, match="head: width 192 is above 184, the widest block that "
-                                         "fits in an H100 block's 232448 bytes of shared memory"):
-        kl.check_width("head", 192)
+    consts = {}
+    for src in ("warp_block.cu", "drt_block.cu", "head.cu"):
+        consts.update({k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);",
+                                                          (csrc / src).read_text())})
+    assert consts["WB_MAX_WIDTH"] == kl.MAX_WIDTH["warp_block"]
+    assert consts["DB_ONE_LAUNCH_F32"] == kl.ONE_LAUNCH_WIDTH[("drt_block", f32)]
+    assert consts["DB_ONE_LAUNCH_BF16"] == kl.ONE_LAUNCH_WIDTH[("drt_block", bf16)]
+    assert consts["HD_ONE_LAUNCH"] == kl.ONE_LAUNCH_WIDTH[("head", f32)]
+    text = (csrc / "drt_block.cu").read_text()
+    for const, elt in (("DB_ONE_LAUNCH_F32", 4), ("DB_ONE_LAUNCH_BF16", 2)):
+        assert f"static_assert(db_smem<FUSED>({const}, {elt}) <= SMEM_MAX" in text
+    assert "static_assert(head_smem(HD_ONE_LAUNCH) <= SMEM_MAX" in (csrc / "head.cu").read_text()
+    assert "static_assert(warp_block_smem(WB_MAX_WIDTH)" in (csrc / "warp_block.cu").read_text()
+
+    def k3_smem(c, elt):  # drt_block.cu: db_smem<FUSED>, tc_conv.cuh's constants
+        pitch, wtile = 144, 64 * 144
+        kc, nw = (64, 1) if elt == 2 else (32, 2)
+        nxb = 2 if -(-c // kc) > 1 else 1
+        h_pitch = -(-c * elt // 32) * 32 + 16  # at c <= 64 h reuses the chunk buffers
+        return (nxb * 12 * 20 * pitch + 2 * nw * wtile + (180 * h_pitch if c > 64 else 0)
+                + 4 * 3 * 180)
+
+    def k4_smem(c):  # head.cu: head_smem
+        return 4 * (64 * 12 * 20 + 64 * 64 + 9 * c * 3 + (0 if c == 64 else c * 180))
+
+    for (name, dtype), top in kl.ONE_LAUNCH_WIDTH.items():
+        smem = (lambda c: k3_smem(c, dtype.itemsize)) if name == "drt_block" else k4_smem
+        assert smem(top) <= kl.SMEM_MAX < smem(top + 8), (name, dtype)
+        assert kl.launch_form(name, top, dtype) == 1 and kl.launch_form(name, top + 8, dtype) == 2
+    kl.check_width("head", 192)
+    kl.check_width("drt_block", 1024)
+    with pytest.raises(ValueError, match="warp_block: width 720 is above 712, the widest block "
+                                         "that fits in an H100 block's 232448 bytes of shared"):
+        kl.check_width("warp_block", 720)
 
 
 @pytest.mark.parametrize("warp_impl", ["padgather", "block8"])

@@ -1,18 +1,22 @@
 #!/usr/bin/env python
 """The least time an NVIDIA H100 could take for the work of each B10 TPU probe
 of the JAX package (ROADMAP Queue B), worked out from each function's own
-shapes, with the Hopper kernel that ports it (K6-K13). The model kernels'
-bounds (K1-K5) are computed by chip_smoke.py from the inputs of its run,
-and so are the probe kernels' (phases 12 and 13), through the work
-functions below.
+shapes, with the Hopper kernel that ports it (K6-K13), and of the model
+kernels that run on the tensor cores (K2, K3) at the flagship's 720p
+frame. The model kernels' bounds (K1-K5) are computed by chip_smoke.py from
+the inputs of its run, and so are the probe kernels' (phases 12 and 13),
+through the work functions below (``conv_bounds`` for K2-K5).
 
 A bound is the larger of two times: the bytes the function must move (each
 input byte it reads once, each output written once) over the card's memory
 rate, and the operations it does on those inputs over the card's peak rate
 for their type. Rates are the H100 SXM's published dense peaks (NVIDIA's
 data sheet): 3.35 TB/s HBM3, 67 TFLOP/s float32 on the CUDA cores, 989
-TFLOP/s bf16 and 1,979 TOP/s int8 on the tensor cores, at the full 700 W
-power limit. Operations of different types add their times.
+TFLOP/s bf16, 495 TFLOP/s TF32 and 1,979 TOP/s int8 on the tensor cores,
+at the full 700 W power limit. Operations of different types add their
+times. A float32 convolution on the tensor cores runs as 3xTF32 (three TF32
+products a multiply-add, to keep float32's accuracy), so its operations
+bound is 3 x its FLOP over the TF32 rate.
 
 The TPU probes are counted at the constants of their own files, as the
 Hopper kernel's function: a window copy reads only its window (the TPU's
@@ -39,7 +43,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_warp_kernel_probe import X0, draw_inputs  # noqa: E402  (its seeded tables)
 
 HBM_BYTES_S, F32_FLOP_S, BF16_TC_FLOP_S, INT8_TC_OP_S = 3.35e12, 67e12, 989e12, 1979e12
-RATE = {"f32": F32_FLOP_S, "bf16": BF16_TC_FLOP_S, "int8": INT8_TC_OP_S}
+TF32_TC_FLOP_S = 495e12
+# "tf32x3": float32 FLOP done as 3xTF32 on the tensor cores
+RATE = {"f32": F32_FLOP_S, "bf16": BF16_TC_FLOP_S, "int8": INT8_TC_OP_S,
+        "tf32x3": TF32_TC_FLOP_S / 3}
 F32, BF16, INT8, I32 = 4, 2, 1, 4
 TILE, BAND_ROWS = 128, 8  # the selection matmul's tile width and band height
 SHIFTS, BAND = 35, 42     # the two-pass select: shifts a pass, band rows its V pass reaches
@@ -170,6 +177,44 @@ def tapconv_work(rows, cols, cin, cout, kind):
                 + rows * cols * cout * F32, ops={kind: 2 * 9 * rows * cols * cin * cout})
 
 
+def conv_bounds(flop, nbytes):
+    """A convolution's bounds in ms: its ``flop`` on the float32 CUDA cores,
+    in 3xTF32 and on the bf16 tensor cores, and its ``nbytes`` over the
+    memory rate."""
+    return dict(f32_ms=flop / RATE["f32"] * 1e3, tf32x3_ms=flop / RATE["tf32x3"] * 1e3,
+                bf16_ms=flop / RATE["bf16"] * 1e3, bytes_ms=nbytes / HBM_BYTES_S * 1e3)
+
+
+def model_flop_per_pixel(label, c=64):
+    """FLOP an output pixel of a model kernel at width c (2 a multiply-add),
+    from the shapes: K2's parts (the 3-channel lr frame and 2 or 3 features),
+    K3's two 3x3 convs and three 1x1 partition convs, K4's two convs."""
+    return {
+        "input_conv (backward, 3 parts)": 2 * 9 * (3 + 2 * c) * c,
+        "input_conv (forward, 4 parts)": 2 * 9 * (3 + 3 * c) * c,
+        "drt_block": 2 * (9 * c * c + 3 * c * c + 9 * c * c),
+        "drt_block_select": 2 * (9 * c * c + 3 * c * c + 9 * c * c),
+        "head": 2 * 9 * c * (c + 3),
+        "conv3x3": 2 * 9 * c * c,
+    }.get(label, 0)
+
+
+def model_kernels(h=720, w=1280, c=64):
+    """K2 and K3 at a frame of h x w, width c, b = 1: (label, Hopper kernel,
+    FLOP, bytes by feature type). Bytes: K2 reads its parts and writes its
+    output; K3 reads x and par and writes out; the weights are counted once."""
+    px = h * w
+    rows = []
+    for n, tag in ((3, "backward"), (4, "forward")):
+        label = f"input_conv ({tag}, {n} parts)"
+        rows.append((label, "K2", model_flop_per_pixel(label, c) * px,
+                     {e: px * (3 + (n - 1) * c + c) * e + 9 * (3 + (n - 1) * c) * c * e
+                      for e in (F32, BF16)}))
+    rows.append(("drt_block", "K3", model_flop_per_pixel("drt_block", c) * px,
+                 {e: px * (2 * c + 3) * e + 21 * c * c * e for e in (F32, BF16)}))
+    return rows
+
+
 def probes():
     """B10 at the constants of each probe file: (item, function, work,
     Hopper kernel or None)."""
@@ -240,7 +285,20 @@ def main():
         rows.append(dict(item=item, function=fn, port=port, bytes=work["bytes"], ops=work["ops"],
                          dense_ops=work.get("dense_ops"), bound_ms=ms, bound_by=by,
                          bytes_ms=t_bytes, ops_ms=t_ops))
-    print(json.dumps({"bounds": rows}))
+    print()
+    print("| kernel (720p, c = 64) | port | GFLOP | float32 CUDA cores ms | 3xTF32 ms | "
+          "bf16 tensor cores ms | bytes ms f32 / bf16 |")
+    print("|---|---|---|---|---|---|---|")
+    model = []
+    for label, port, flop, nbytes in model_kernels():
+        b32, b16 = conv_bounds(flop, nbytes[F32]), conv_bounds(flop, nbytes[BF16])
+        print(f"| {label} | {port} | {flop * 1e-9:.4g} | {b32['f32_ms']:.4g} | "
+              f"{b32['tf32x3_ms']:.4g} | {b32['bf16_ms']:.4g} | {b32['bytes_ms']:.4g} / "
+              f"{b16['bytes_ms']:.4g} |")
+        model.append(dict(kernel=label, port=port, flop=flop, f32_ms=b32["f32_ms"],
+                          tf32x3_ms=b32["tf32x3_ms"], bf16_ms=b32["bf16_ms"],
+                          bytes_ms_f32=b32["bytes_ms"], bytes_ms_bf16=b16["bytes_ms"]))
+    print(json.dumps({"bounds": rows, "model_kernels": model}))
     return rows
 
 
