@@ -8,10 +8,11 @@ Phases (any failure raises and the script exits non-zero):
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the kernels from pnp_vcve_torch/kernels/csrc (nvcc, sm_90a)
    and print the compiler's register / shared-memory / spill report, each
-   model kernel's shared memory by width (and type, for K2 and K3), the
+   model kernel's shared memory by width (and type, for K2-K5), the
    one-launch widths of K3 and K4, and, where the toolkit has cuobjdump,
-   the count of tensor-core instructions (HMMA/HGMMA) in the tensor-core
-   K2/K3 kernels (none fails the run);
+   the count of tensor-core instructions (HMMA/HGMMA) in each device
+   function of the tensor-core kernels K2-K5 (a function with none, or a
+   name found nowhere, fails the run);
 3. each kernel against its plain PyTorch version at the main path's shapes
    (b=1, 720x1280, 64 channels), at b=4 on a smaller frame (256x448) and at
    ragged sizes (36x52; 40x56 for K1b, which needs multiples of 8), in
@@ -23,8 +24,8 @@ Phases (any failure raises and the script exits non-zero):
    called with the argument order of the TPU's per-block DRT kernels
    (``drt_block_pallas``, ``drt_block_packed``); K5 (the per-sample 3x3
    conv) at 64 -> 64, at 720p also for b=2 with its own kernels per
-   sample, and at the ragged size for c_in in {3, 8, 64} and c_out in
-   {8, 64}; K1, K1b, K2, K3 and K4 also at the widths 8, 24 and 128 at
+   sample, and at the ragged size for c_in in {3, 8, 64, 131} and c_out in
+   {8, 64, 128}; K1, K1b, K2, K3 and K4 also at the widths 8, 24 and 128 at
    the ragged sizes in both types (weights scaled by 8 / sqrt(c)), K3 at
    216 and 392 and K4 at 192 (above their one-launch widths: two launches
    through a scratch, K3 at 216 in bfloat16 one) at the ragged size in both
@@ -41,7 +42,7 @@ Phases (any failure raises and the script exits non-zero):
    same flow; K3s: K3 plus ``torch.where``) and the card's bounds for the
    work: bytes over 3.35 TB/s, and operations over 67 TFLOP/s (float32
    CUDA cores), three TF32 products each over 495 TFLOP/s (3xTF32, the
-   route of the float32 K2, K3 and K3s) and 989 TFLOP/s (bf16 tensor
+   route of the float32 K2-K5) and 989 TFLOP/s (bf16 tensor
    cores); a kernel's bound is the larger of its bytes and the operations
    of its route;
 4. the main path: ``tools/torch_test.py`` with the port's flagship serving
@@ -53,7 +54,9 @@ Phases (any failure raises and the script exits non-zero):
    and no per-pixel warp (K1); then one 720p clip of 8 frames through the
    serving generator in float32 and in bfloat16 under ``torch.profiler``:
    frames/s, device busy time and idle share, and each kernel's share of
-   the device time;
+   the device time (a kernel the profiled run launched whose device
+   functions the profile does not name fails the run, here and in the
+   profiles of phases 7 and 11);
 5. the serving model's kernel path against its plain path on one clip of
    8 frames at 256x448 with block-constant MVs up to +-24 px
    (max|diff| <= 3e-3, float32), and, on the same inputs, its output
@@ -141,8 +144,8 @@ before it and read just after; then each path's own: the serving path of
 phase 4, the batched path of phase 8, the handler of phase 10, training in
 phase 7, each block form's last 720p run in phase 11; the probe tools'
 runs of phases 12 and 13 for K6-K13), its error, its time beside the plain
-version's, the library call's, its yardsticks' and the bounds (K2, K3,
-K3s: also the bfloat16 row under ``bf16``; K1-K4: also the worst error at
+version's, the library call's, its yardsticks' and the bounds (K2-K5:
+also the bfloat16 row under ``bf16``; K1-K4: also the worst error at
 the other widths, K2-K4's 720p row at 128 channels, and K3's and K4's
 two-launch forms under ``two_launch``;
 K6-K13: the headline stage, every stage under ``forms``), and phase 5's
@@ -175,13 +178,15 @@ HANDLER_FRAMES = 3
 # :43-51, the warp's :71 and the input conv's max from :137 -- its leaky-ReLU
 # output reaches ~9.6 std, where bfloat16's own half-ulp rounding of the
 # output is already 0.019-0.038 std. K5's max takes the same 0.04: its output
-# (no residual, the gain folded in) reaches 5.5 std, and an output in [2, 4)
-# at std 0.378 rounds by up to 2^-7 = 0.0207 std (measured 0.00777)
+# (no residual) reaches 5.5 std, and an output in [2, 4) at std 0.378 rounds
+# by up to 2^-7 = 0.0207 std (measured 0.00777)
 BF16_BOUNDS = {"warp": (0.08, 0.01), "warp_block": (0.08, 0.01), "input_conv": (0.04, 0.002),
                "drt_block": (0.02, 0.002), "drt_block_select": (0.02, 0.002),
                "head": (0.02, 0.002), "conv3x3": (0.04, 0.002)}
-# K5 at the ragged size: the 3-channel frame, 8 channels and the model's 64
-CONV_RAGGED_CHANNELS = [(ci, co) for ci in (3, 8, 64) for co in (8, 64)]
+# K5 at the ragged size: the 3-channel frame, 8 channels, the model's 64 and
+# 131 (an input conv's 3 + 2 x 64, not a multiple of 8), into one narrow
+# group, one group and two
+CONV_RAGGED_CHANNELS = [(ci, co) for ci in (3, 8, 64, 131) for co in (8, 64, 128)]
 # K1-K4 at widths other than the flagship's 64: at the ragged sizes (one
 # narrow group, a group of 24, two full groups), and K2-K4 timed at 720p at 128
 WIDTHS, WIDE = (8, 24, 128), 128
@@ -245,9 +250,19 @@ PROBE_INFO = {
     "stream_copy": ("pnp_vcve_torch/kernels/csrc/probe_ring.cu", "tools/dma_probe.py:173", []),
 }
 K5_GEOMETRY = (720, 1280, 64)  # K10 timed at K5's frame, 64 -> 64 (measurement only)
-# the tensor-core kernels (K2, K3, K3s) and the names of their device functions
-TC_KERNELS = ("input_conv", "drt_block", "drt_block_select")
-TC_SASS_NAMES = ("input_conv_tc", "drt_block_tc")
+# the tensor-core kernels (K2-K5) and the names of their device functions
+# (K4's two-launch form: head_hidden_tc, then head_last_kernel on the CUDA
+# cores)
+TC_KERNELS = ("input_conv", "drt_block", "drt_block_select", "head", "conv3x3")
+TC_SASS_NAMES = ("input_conv_tc", "drt_block_tc", "head_tc", "head_hidden_tc", "conv3x3_tc")
+# each model kernel's device functions as the profiler names them (K3 and
+# K3s are one function, drt_block_tc, with other template arguments)
+DEVICE_FUNCS = {
+    "warp": ("pnp::warp_kernel",), "warp_block": ("pnp::warp_block_kernel",),
+    "input_conv": ("pnp::tc::input_conv_tc",), "drt_block": ("pnp::tc::drt_block_tc",),
+    "head": ("pnp::tc::head_tc", "pnp::tc::head_hidden_tc", "pnp::tc::head_last_kernel"),
+    "conv3x3": ("pnp::tc::conv3x3_tc",),
+}
 
 
 def phase_device():
@@ -274,7 +289,7 @@ def _smem(lib, name, c, dtype_code):
 
 
 def _tensor_core_sass(lib):
-    """{kernel: count of HMMA/HGMMA instructions} of the tensor-core K2/K3
+    """{kernel: count of HMMA/HGMMA instructions} of the tensor-core K2-K5
     kernels in the built library, from cuobjdump where the toolkit has it
     (None where it does not)."""
     from pnp_vcve_torch.kernels.build import nvcc_path
@@ -323,8 +338,10 @@ def phase_build():
     else:
         for fn, count in sass.items():
             print(f"[build] tensor-core instructions (HMMA/HGMMA) in {fn}: {count}")
-        if not sass or not all(sass.values()):
-            raise AssertionError(f"K2/K3 kernels without tensor-core instructions: {sass}")
+        missing = [n for n in TC_SASS_NAMES if not any(n in fn for fn in sass)]
+        if missing or not all(sass.values()):
+            raise AssertionError(f"K2-K5 kernels without tensor-core instructions: {sass}; "
+                                 f"no device function named {missing}")
 
     # the wrappers' width limits are the widest blocks the sources' formulas fit
     def fits(n, c, code=0):
@@ -369,7 +386,8 @@ def _compare(name, got, ref, dtype, bounds):
     else:
         max_rel, mean_rel = bounds
         ok = mx < max_rel * sd and mean < mean_rel * sd
-        bound = f"< {max_rel} std = {max_rel * sd:.3g}, mean < {mean_rel * sd:.3g}"
+        bound = (f"< {max_rel} std = {max_rel * sd:.3g}, mean < {mean_rel * sd:.3g}; "
+                 f"{mx / (max_rel * sd):.3f} and {mean / (mean_rel * sd):.3f} of the bounds")
     print(f"[kernel] {name}: max|diff| {mx:.3g} mean {mean:.3g} ({bound})")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
@@ -578,8 +596,8 @@ def phase_kernels(dev):
     """Returns {kernel: row} in float32 at 720p: the worst error, the mean
     times of the kernel, its plain version, the library call and the
     yardsticks, and the bounds (``bound_ms`` by the route the kernel takes:
-    3xTF32 for the tensor-core K2, K3 and K3s, the CUDA cores for the
-    others); for K2, K3 and K3s the same in bfloat16 under ``bf16``. The
+    3xTF32 for the tensor-core K2-K5, the CUDA cores for K1 and K1b); for
+    K2-K5 the same in bfloat16 under ``bf16``. The
     input conv's row covers its two forms (worst error, mean time and
     bound). K1-K4 also at WIDTHS at the ragged sizes (the worst error there
     under ``width_max_abs_err``), K3 and K4 at TWO_LAUNCH's widths (their
@@ -679,7 +697,7 @@ def _form(name, c, dtype):
 def _summary(rs, name, bf16=False):
     """Phase 3's rows of one kernel merged: the worst error, the mean times
     and bounds; ``bound_ms`` over the operations of the route the kernel
-    takes (bf16 or 3xTF32 tensor cores for K2, K3, K3s; else float32 CUDA
+    takes (bf16 or 3xTF32 tensor cores for K2-K5; else float32 CUDA
     cores) and its bytes."""
     def mean(k):
         return None if rs[0][k] is None else sum(r[k] for r in rs) / len(rs)
@@ -787,6 +805,8 @@ def _serving_profile(dev):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from pnp_vcve_torch.kernels import LAUNCHES, reset_launches
+
     model, _ = _flagship_generator("HR_davis_LR_128x128_serving.py", dev)
     h, w = MAIN_HW
     inputs = _clip_inputs(np.random.default_rng(SEED), 1, FRAMES, h, w, dev)
@@ -799,9 +819,11 @@ def _serving_profile(dev):
             model(**inputs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            reset_launches()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 model(**inputs)
                 torch.cuda.synchronize()
+            counts = dict(LAUNCHES)
         tag = f"[profile] serving {str(dtype)[6:]}, {FRAMES} frames {h}x{w}"
         found = _device_time(prof)
         if found is None:
@@ -810,15 +832,30 @@ def _serving_profile(dev):
             continue
         busy, by_name = found
         total = sum(by_name.values())
-        share = {k: sum(v for n, v in by_name.items() if f"pnp::{k}" in n or f"pnp::tc::{k}" in n)
-                 for k in ("warp_block_kernel", "input_conv_tc", "drt_block_tc", "head")}
+        share = _kernel_times(by_name, counts, ("warp_block", "input_conv", "drt_block", "head"))
         print(f"{tag}: {FRAMES / wall:.3f} frames/s, clip {wall:.4f} s; device busy {busy:.4f} s, "
               f"idle share {max(0.0, 1 - busy / wall):.4f}; of device time "
               + ", ".join(f"{k} {v / total:.4f}" for k, v in share.items())
-              + f", the rest {1 - sum(share.values()) / total:.4f}")
+              + f", the rest {1 - sum(share.values()) / total:.4f} (drt_block: K3 and K3s)")
         for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             print(f"[profile]   {v:.4f} s {v / total:.4f}  {name[:110]}")
     model.feature_dtype = torch.float32
+
+
+def _kernel_times(by_name, counts, names):
+    """{kernel: device seconds} of each model kernel in ``names`` in a
+    profile's kernel times by name (DEVICE_FUNCS; "drt_block" is K3 and
+    K3s). A kernel that the profiled run launched (``counts``) and whose
+    device functions the profile does not name fails the run: a renamed
+    function would otherwise drop out of the breakdown unseen."""
+    out = {}
+    for k in names:
+        out[k] = sum(v for n, v in by_name.items() if any(f in n for f in DEVICE_FUNCS[k]))
+        launched = counts[k] + (counts["drt_block_select"] if k == "drt_block" else 0)
+        if launched and not out[k]:
+            raise AssertionError(f"the profile names no device function of {k} "
+                                 f"({DEVICE_FUNCS[k]}), launched {launched} times")
+    return out
 
 
 def _clip_inputs(rng, b, t, h, w, dev, mv_reach=None, mv_block=8):
@@ -1111,7 +1148,7 @@ def phase_train(dev, smi):
         hook.remove()
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
-    _print_breakdown(prof, step_end[-1] - step_end[-2], steady)
+    _print_breakdown(prof, step_end[-1] - step_end[-2], steady, resumed_counts)
 
     gen_cfg = cfg.model["generator"]
     t = cfg.data["train"][0]["dataset"]["num_input_frames"]
@@ -1406,9 +1443,11 @@ def phase_block_forms(dev, smi):
                 walls.append(time.perf_counter() - t0)
                 counts = dict(LAUNCHES)
             if not want["drt_block"]:
+                reset_launches()
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     model(**big)
                     torch.cuda.synchronize()
+                prof_counts = dict(LAUNCHES)
         ok = bool(torch.isfinite(out).all()) and out.shape == (1, t, *MAIN_HW, 3)
         del out
         print(f"[forms] {form}: {n_fit} of {n_all} tensors from the parity fixture; kernel path "
@@ -1423,7 +1462,7 @@ def phase_block_forms(dev, smi):
         if counts != want or counts_small != want or (want["conv3x3"] and not counts["conv3x3"]):
             raise AssertionError(f"{form}: the forward did not run through the kernels")
         if not want["drt_block"]:
-            _print_form_profile(form, prof, walls[-1])
+            _print_form_profile(form, prof, walls[-1], prof_counts)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         if form == "one_layer_false":
@@ -1462,18 +1501,19 @@ def _device_time(prof):
     return busy * 1e-6, by_name
 
 
-def _print_form_profile(form, prof, wall_s):
-    """Device time of one profiled 720p clip of an unfused block form: busy
-    time and idle share against the unprofiled clip, K5's share and the
-    port's kernels' share of the device time, the top kernels."""
+def _print_form_profile(form, prof, wall_s, counts):
+    """Device time of one profiled 720p clip of an unfused block form
+    (``counts``: its launches): busy time and idle share against the
+    unprofiled clip, K5's share and the port's kernels' share of the device
+    time, the top kernels."""
     found = _device_time(prof)
     if found is None:
         print(f"[forms] {form}: profiler recorded no device events; breakdown not measured")
         return
     busy, by_name = found
     total = sum(by_name.values())
-    k5 = sum(v for n, v in by_name.items() if "pnp::conv3x3_kernel" in n)
-    ours = sum(v for n, v in by_name.items() if "pnp::" in n)
+    times = _kernel_times(by_name, counts, DEVICE_FUNCS)
+    k5, ours = times["conv3x3"], sum(times.values())
     print(f"[forms] {form}, one profiled 720p clip: device busy {busy:.4f} s, idle share "
           f"{max(0.0, 1 - busy / wall_s):.4f} of the unprofiled {wall_s:.4f} s clip; K5 "
           f"{k5:.4f} s = {k5 / total:.4f} of device time, K1-K5 {ours / total:.4f}, the rest "
@@ -1482,24 +1522,27 @@ def _print_form_profile(form, prof, wall_s):
         print(f"[forms]   {v:.4f} s {v / total:.4f}  {name[:110]}")
 
 
-def _print_breakdown(prof, window_s, steady_s):
+def _print_breakdown(prof, window_s, steady_s, counts):
     """Device time of the profiled iteration by kernel: the device's busy
     time and idle share in the profiled window and against an unprofiled
-    iteration, K1-K4's share of the device time, the top kernels."""
-    ours = ("warp_kernel", "input_conv_tc", "drt_block_tc", "head_kernel")
+    iteration, each of K1-K5's and their share of the device time (``counts``:
+    the profiled run's launches), the top kernels."""
     found = _device_time(prof)
     if found is None:
         print("[train] profiler: no device events recorded; breakdown not measured")
         return
     busy, by_name = found
     total = sum(by_name.values())
-    k = sum(v for n, v in by_name.items() if any(o in n for o in ours))
+    times = _kernel_times(by_name, counts, DEVICE_FUNCS)
+    k = sum(times.values())
     print(f"[train] profiled iteration (resumed run, iteration {TRAIN_ITERS}): device busy "
           f"{busy:.4f} s; idle share {max(0.0, 1 - busy / window_s):.4f} of the profiled "
           f"{window_s:.4f} s, {max(0.0, 1 - busy / steady_s):.4f} of an unprofiled "
-          f"{steady_s:.4f} s iteration; K1-K4 {k:.4f} s = {k / total:.4f} of device time "
-          f"(forward and remat recompute); the rest {total - k:.4f} s (the Functions' plain "
-          f"replay and its backward, the loss, Adam)")
+          f"{steady_s:.4f} s iteration; K1-K5 {k:.4f} s = {k / total:.4f} of device time "
+          f"(forward and remat recompute: "
+          + ", ".join(f"{n} {v / total:.4f}" for n, v in times.items())
+          + f"); the rest {total - k:.4f} s (the Functions' plain replay and its backward, the "
+          f"loss, Adam)")
     for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[train]   {v:.4f} s {v / total:.4f}  {name[:110]}")
 

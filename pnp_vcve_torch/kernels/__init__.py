@@ -15,12 +15,14 @@ input_conv         K2    ``csrc/input_conv.cu``
 drt_block          K3    ``csrc/drt_block.cu``
 drt_block_select   K3s   ``csrc/drt_block.cu``, K3 + keyframe-carry select
 head               K4    ``csrc/head.cu``
-conv3x3            K5    ``csrc/conv3x3.cu``, per-sample 3x3 conv + bias
+conv3x3            K5    ``csrc/conv3x3.cu``, per-sample 3x3 conv, bias, gain
 =================  ====  ==================================================
 
-K1-K4 take any width that is a multiple of 8 (:func:`.launch.check_width`
-says which they refuse). The probe kernels K6-K13 (the TPU micro-benchmarks
-of ``tools/``), which no model runs, live in :mod:`.probes`.
+K2-K5 run on the tensor cores (``csrc/tc_conv.cuh``), K1 and K1b on the
+CUDA cores. K1-K4 take any width that is a multiple of 8
+(:func:`.launch.check_width` says which they refuse), K5 any c_in. The
+probe kernels K6-K13 (the TPU micro-benchmarks of ``tools/``), which no
+model runs, live in :mod:`.probes`.
 """
 
 from types import SimpleNamespace

@@ -45,7 +45,7 @@ SIGNATURES = {
     "pnp_drt_block_select": [_I] + [_P] * 12 + [_I] * 4 + [_P],
     "pnp_warp_block": [_I, _P, _P, _P] + [_I] * 4 + [_P],
     "pnp_head": [_I] + [_P] * 7 + [_I] * 4 + [_P],
-    "pnp_conv3x3": [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    "pnp_conv3x3": [_I] + [_P] * 5 + [_I] * 5 + [_P],
     # the probe kernels (probes.py)
     "pnp_window_copy": [_P, _P] + [_I] * 9 + [_P],
     "pnp_mmsel": [_P] * 4 + [_I] * 6 + [_L, _L] + [_I] * 3 + [_P],
@@ -63,8 +63,8 @@ SIGNATURES = {
 # bytes at width c, those that depend on the feature type pnp_<name>_smem(c,
 # dtype) (chip_smoke.py checks launch.MAX_WIDTH and ONE_LAUNCH_WIDTH on
 # them): name -> whether it takes the dtype code; pnp_<name>_smem() that of a probe
-SMEM_REPORT = {"warp_block": False, "input_conv": True, "drt_block": True, "head": False,
-               "conv3x3": False}
+SMEM_REPORT = {"warp_block": False, "input_conv": True, "drt_block": True, "head": True,
+               "conv3x3": True}
 PROBE_SMEM_REPORT = ("mmsel", "tapconv")
 
 

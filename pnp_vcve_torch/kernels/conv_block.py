@@ -1,4 +1,4 @@
-"""K5: a 'same' 3x3 convolution with per-sample kernels and biases
+"""K5: a 'same' 3x3 convolution with per-sample kernels, biases and gains
 (csrc/conv3x3.cu), named after the JAX module whose first function it ports.
 
 One port function serves three TPU functions that compute the same math in
@@ -16,22 +16,29 @@ is K3's function: :func:`pnp_vcve_torch.kernels.drt_stack.drt_block` takes
 its arguments reordered, ``(x, par, dyn_kernels, dyn_biases, gamma,
 par_kernel, conv1_kernel, conv1_bias)``.
 
-The wrapper folds an optional per-sample gain into the kernel and the bias
-(``gamma * (conv + b) == conv(.; W * gamma) + b * gamma``), so it also
-serves ``dynamic_conv2d(..., gamma=)`` (pnp_vcve_tpu/ops/dynamic_conv.py:57-119:
-the gain after the bias): the DRT blocks' expert-mixed convs with the SE
-gain. On CUDA tensors each launch runs inside :class:`Conv3x3Function`,
-whose gradients are the plain version's (``launch.plain_grads``).
+K5 runs on the tensor cores (``csrc/tc_conv.cuh``, K2's GEMM loop):
+bfloat16 features with the per-sample kernels rounded to bfloat16, as the
+plain version rounds them, float32 features in 3xTF32
+(:func:`.drt_stack.tf32_split`). The gain applies after the bias, in the
+kernel's float32 epilogue (``gamma * (conv + b)``, as
+``dynamic_conv2d(..., gamma=)``, pnp_vcve_tpu/ops/dynamic_conv.py:57-119),
+not folded into the weights; so K5 also serves the DRT blocks'
+expert-mixed convs with the SE gain. :func:`conv3x3_args` holds the checks
+a launch makes and the weight repacking; it runs on any device. On CUDA
+tensors each launch runs inside :class:`Conv3x3Function`, whose gradients
+are the plain version's (``launch.plain_grads``).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from pnp_vcve_torch.ops.dynamic_conv import dynamic_conv2d
+from .drt_stack import tc_weights
 from .launch import check_cuda_args, launch, on_cpu, plain_grads
 
-__all__ = ["conv3x3", "conv3x3_plain", "Conv3x3Function"]
+__all__ = ["conv3x3", "conv3x3_plain", "conv3x3_args", "Conv3x3Function"]
 
 
 def conv3x3_plain(x, kernels, biases=None, gamma=None):
@@ -41,7 +48,12 @@ def conv3x3_plain(x, kernels, biases=None, gamma=None):
     return dynamic_conv2d(x, kernels, biases, gamma=gamma)
 
 
-def _conv3x3_launch(x, kernels, biases, gamma):
+def conv3x3_args(x, kernels, biases, gamma):
+    """K5's shape checks and its operands as the kernel takes them:
+    ``(wk (NW, b, 9, c_out, wc), biases (b, c_out), gamma (b, c_out))``,
+    the taps as :func:`.drt_stack.tc_weights` in x's type with each row
+    zero-padded from c_in to ``wc``, c_in rounded up to a multiple of 8 (whole
+    16-byte vectors), the bias and the gain float32, unscaled."""
     b, h, w, c_in = x.shape
     c_out = kernels.shape[-1]
     if kernels.shape != (b, 3, 3, c_in, c_out) or c_out % 8:
@@ -50,12 +62,17 @@ def _conv3x3_launch(x, kernels, biases, gamma):
     if biases.shape != (b, c_out) or gamma.shape != (b, c_out):
         raise ValueError(f"conv3x3: need biases and gamma ({b}, {c_out}); got "
                          f"{tuple(biases.shape)}, {tuple(gamma.shape)}")
-    gf = gamma.float()
-    wk = (kernels.float() * gf[:, None, None, None, :]).reshape(b, 9, c_in, c_out).contiguous()
-    bk = (biases.float() * gf).contiguous()
-    check_cuda_args("conv3x3", (x,), (wk, bk))
-    out = torch.empty((b, h, w, c_out), dtype=x.dtype, device=x.device)
-    return launch("conv3x3", "pnp_conv3x3", out, x, wk, bk, out, b, h, w, c_in, c_out)
+    taps = F.pad(kernels.float().reshape(b, 9, c_in, c_out), (0, 0, 0, -c_in % 8))
+    return tc_weights(taps, x.dtype), biases.float().contiguous(), gamma.float().contiguous()
+
+
+def _conv3x3_launch(x, kernels, biases, gamma):
+    operands = conv3x3_args(x, kernels, biases, gamma)
+    check_cuda_args("conv3x3", (x,), operands)
+    b, h, w, c_in = x.shape
+    out = torch.empty((b, h, w, kernels.shape[-1]), dtype=x.dtype, device=x.device)
+    return launch("conv3x3", "pnp_conv3x3", out, x, *operands, out, b, h, w, c_in,
+                  out.shape[-1])
 
 
 class Conv3x3Function(torch.autograd.Function):

@@ -1,112 +1,103 @@
-// K5: a 'same' 3x3 convolution with per-sample kernels and biases,
-//   out[b] = conv3x3(x[b]; W[b]) + bias[b]
-// x (b, h, w, c_in) NHWC in float or __nv_bfloat16; W (b, 9, c_in, c_out) and
-// bias (b, c_out) float32; out (b, h, w, c_out) in x's type. Sums in float32,
-// one rounding to x's type, no activation.
+// K5: a 'same' 3x3 convolution with per-sample kernels, biases and gains,
+//   out[b] = g[b] * (conv3x3(x[b]; W[b]) + bias[b])
+// x (b, h, w, c_in) NHWC in float or __nv_bfloat16, out (b, h, w, c_out) in
+// x's type; sums in float32, the bias and the gain applied to them in
+// float32, one rounding to x's type, no activation.
 //
 // Replaces three TPU kernels that compute this one function in three
 // layouts: pnp_vcve_tpu/kernels/conv_block.py: conv3x3_pallas (:86), and
 // conv_packed.py: conv3x3_packed (:48) and conv3x3_packed_v2 (:118), the
 // last two on the pixel-pair layout. As there, the input is read from device
 // memory once per output tile and the per-sample kernel stays on the chip.
-// The callers fold a per-sample gain into W and b (kernels/conv_block.py).
+// The gain is that of ops/dynamic_conv.py: dynamic_conv2d(..., gamma=), after
+// the bias, as JAX applies it; it is not folded into the weights, which are
+// rounded as the plain version rounds them (bfloat16 weights for bfloat16
+// features).
 //
-// Layout: a block computes an 8 x 16 pixel tile by one group of up to 64
-// output channels with common.cuh's thread layout (4 pixels x 8 channels per
-// thread); grid z runs over samples x output groups. The last group may be
-// narrower (c_out % 64, a multiple of 8): its weights are staged zero-padded
-// to 64 columns and the threads past its width store nothing, so the thread
-// layout, and the 4 pixels each thread owns, stay those of K2-K4 at every
-// width. The input channels run in chunks of up to 64: a chunk's 10 x 18
-// tile is staged in shared memory (16-byte loads where c_in % 8 == 0, one
-// value at a time otherwise, as for the 3-channel frame), then its nine taps'
-// weights stream through 16 KB one tap at a time.
+// Design (tc_conv.cuh): K2's GEMM loop (conv_tc) with one input and an
+// epilogue of bias and gain: an implicit GEMM on the tensor cores (mma.sync;
+// bf16, or 3xTF32 for float32 features, each step summed apart: the sums
+// reach 9 x 195 terms at the model's widest input conv) over an 8 x 16
+// output tile by a group of 64 output channels; grid z runs over samples x
+// groups. Any c_in: an input whose pixels are not 16-byte aligned (c_in % 8
+// != 0) is staged with scalar loads, its weight rows zero-padded to whole
+// 16-byte vectors; a last group narrower than 64 (c_out % 64) stages its
+// weights zero-padded and stores nothing past its width.
 //
-// Bound: CUDA-core float32 FMAs. At the model's 64 -> 64 a 720p frame needs
-// 67.9 GFLOP (1.014 ms at 67 TFLOP/s) against 0.47 GB of features (0.14 ms
-// at 3.35 TB/s). 61 KB of shared memory per block: two blocks fit on an SM.
-#include "common.cuh"
+// Bound (64 -> 64, 720p): 67.9 GFLOP a frame, 0.069 ms on the bf16 tensor
+// cores at 989 TFLOP/s, 0.412 ms in 3xTF32 (three TF32 products at 495
+// TFLOP/s); the features' bytes 0.14 ms (float32) / 0.07 ms (bf16).
+#include "tc_conv.cuh"
 
 namespace pnp {
+namespace tc {
 
-constexpr int CV_IR = TH + 2, CV_IC = TW + 2, CV_NI = CV_IR * CV_IC;  // input tile 10 x 18
-constexpr int CV_PM = TH * TW / PG;                                   // 4 pixels per thread
-constexpr size_t CV_SMEM = sizeof(float) * (C * CV_NI + C * C);
+// a weight row's length: c_in padded to whole 16-byte vectors (8 channels)
+__host__ __device__ constexpr int cv_wc(int cin) { return cdiv(cin, 8) * 8; }
 
+// wk (NW, b, 9, cout, cv_wc(cin)) per-sample taps transposed (out, in),
+// NW = 2 for float32 (TF32 head, tail); bias and gain (b, cout) float32.
 template <typename T>
-__global__ void __launch_bounds__(NT, 2)
-    conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ wk,
-                   const float* __restrict__ bias, T* __restrict__ out, int h, int w, int cin,
-                   int cout, int ngroups) {
-  extern __shared__ float smem[];
-  float* xs = smem;            // C x CV_NI staged input chunk
-  float* ws = xs + C * CV_NI;  // one tap of one chunk's weights, 64 columns
-
-  const int b = blockIdx.z / ngroups, co0 = (blockIdx.z % ngroups) * C;
-  const int cw = min(C, cout - co0);
-  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  const int tn = threadIdx.x % CG, pg = threadIdx.x / CG;
+__global__ void __launch_bounds__(NTHR, 2)
+    conv3x3_tc(const T* __restrict__ x, const T* __restrict__ wk, const float* __restrict__ bias,
+               const float* __restrict__ gain, T* __restrict__ out, int bsz, int h, int w,
+               int cin, int cout) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int ngr = cdiv(cout, NB), b = blockIdx.z / ngr, g = blockIdx.z % ngr;
   const size_t img = (size_t)b * h * w;
-  const float* wb = wk + (size_t)b * 9 * cin * cout;
-
-  int base[CV_PM];
-  tile_bases<CV_PM>(base, TH * TW, TW, CV_IC);
-  float acc[CV_PM][PN];
-  zero(acc);
-  for (int c0 = 0; c0 < cin; c0 += C) {
-    const int kc = min(C, cin - c0);
-    __syncthreads();  // every thread is done with the previous chunk
-    load_tile<T>(xs, CV_NI, x + img * cin, cin, c0, kc, h, w, y0 - 1, x0 - 1, CV_IR, CV_IC);
-    conv3x3<CV_PM>(acc, xs, CV_NI, CV_IC, base, wb, ws, cin, cout, c0, kc, co0, cw, tn);
-  }
-
-  if (tn * PN >= cw) return;  // past the last group's width
-  float bv[PN];
-#pragma unroll
-  for (int n = 0; n < PN; ++n) bv[n] = bias[(size_t)b * cout + co0 + tn * PN + n];
-#pragma unroll
-  for (int j = 0; j < CV_PM; ++j) {
-    const int p = pg + PG * j;
-    const int y = y0 + p / TW, xx = x0 + p % TW;
-    if (y >= h || xx >= w) continue;
-    float o[PN];
-#pragma unroll
-    for (int n = 0; n < PN; ++n) o[n] = acc[j][n] + bv[n];
-    store8(out + (img + (size_t)y * w + xx) * cout + co0 + tn * PN, o);
-  }
+  const float* bb = bias + (size_t)b * cout;
+  const float* gb = gain + (size_t)b * cout;
+  const ConvIn<T> in[1] = {{x, wk, cin, cv_wc(cin)}};
+  conv_tc<T, 0, Operand<T>::NW, true>(
+      in, 1, true, bsz, b, h, w, cout, g, g + 1, smem, smem + 2 * Region<0>::NA * PITCH,
+      [&](int co0, auto& acc) {
+        for_each_out_pair(acc, co0, cout, h, w, [&](size_t px, int n, float v0, float v1) {
+          store2(out + (img + px) * cout + n, gb[n] * (v0 + bb[n]),
+                 gb[n + 1] * (v1 + bb[n + 1]));
+        });
+      });
 }
 
 template <typename T>
-cudaError_t launch_conv3x3(const void* x, const void* wk, const void* bias, void* out, int b,
-                           int h, int w, int cin, int cout, cudaStream_t stream) {
+cudaError_t launch_conv3x3(const void* x, const void* wk, const void* bias, const void* gain,
+                           void* out, int b, int h, int w, int cin, int cout,
+                           cudaStream_t stream) {
   if (cin < 1 || cout < PN || cout % PN) return cudaErrorInvalidValue;
   if ((size_t)b * h * w == 0) return cudaSuccess;
-  const int ngroups = (cout + C - 1) / C;
-  auto k = conv3x3_kernel<T>;
-  cudaError_t e = allow_smem(k, CV_SMEM);
+  auto k = conv3x3_tc<T>;
+  const size_t smem = conv_tc_smem(Operand<T>::NW);
+  cudaError_t e = allow_smem(k, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, b * ngroups);
-  k<<<grid, NT, CV_SMEM, stream>>>(static_cast<const T*>(x), static_cast<const float*>(wk),
-                                   static_cast<const float*>(bias), static_cast<T*>(out), h, w,
-                                   cin, cout, ngroups);
+  const dim3 grid((w + TILE_W - 1) / TILE_W, (h + TILE_H - 1) / TILE_H, b * cdiv(cout, NB));
+  k<<<grid, NTHR, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(wk),
+                                  static_cast<const float*>(bias), static_cast<const float*>(gain),
+                                  static_cast<T*>(out), b, h, w, cin, cout);
   return cudaGetLastError();
 }
 
+}  // namespace tc
 }  // namespace pnp
 
-// dtype: 0 float32, 1 bfloat16. x: (b, h, w, cin); wk: (b, 9, cin, cout) and
-// bias: (b, cout) float32, any gain folded in; out: (b, h, w, cout);
-// cout a multiple of 8.
-extern "C" int pnp_conv3x3(int dtype, const void* x, const void* wk, const void* bias, void* out,
-                           int b, int h, int w, int cin, int cout, void* stream) {
+// dtype: 0 float32, 1 bfloat16. x: (b, h, w, cin), any cin >= 1; wk: (NW,
+// b, 9, cout, wc) per-sample taps in x's type, each transposed (out, in),
+// wc = cin rounded up to a multiple of 8 (zeros past cin), NW = 2 for
+// float32 (tf32_split's head and tail), 1 for bfloat16; bias, gain: (b,
+// cout) float32; out: (b, h, w, cout) = gain * (conv + bias); cout a
+// multiple of 8.
+extern "C" int pnp_conv3x3(int dtype, const void* x, const void* wk, const void* bias,
+                           const void* gain, void* out, int b, int h, int w, int cin, int cout,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)pnp::launch_conv3x3<float>(x, wk, bias, out, b, h, w, cin, cout, s);
+    return (int)pnp::tc::launch_conv3x3<float>(x, wk, bias, gain, out, b, h, w, cin, cout, s);
   if (dtype == 1)
-    return (int)pnp::launch_conv3x3<__nv_bfloat16>(x, wk, bias, out, b, h, w, cin, cout, s);
+    return (int)pnp::tc::launch_conv3x3<__nv_bfloat16>(x, wk, bias, gain, out, b, h, w, cin,
+                                                       cout, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// dynamic shared memory of one block (the same at every width), for the
-// build report and the wrappers' width check
-extern "C" int pnp_conv3x3_smem(int) { return (int)pnp::CV_SMEM; }
+// dynamic shared memory of one block (the same at every width; dtype 0
+// float32, 1 bfloat16), for the build report
+extern "C" int pnp_conv3x3_smem(int, int dtype) {
+  return (int)pnp::tc::conv_tc_smem(dtype == 1 ? 1 : 2);
+}

@@ -10,17 +10,17 @@
 // the wrapper (K_kw + g K_nb and (1 - g) K_nb), so no select runs here.
 //
 // Design (tc_conv.cuh): one implicit GEMM on the tensor cores (mma.sync;
-// bf16, or 3xTF32 for float32 features) whose rows are the 128 pixels of an
-// 8 x 16 output tile and whose columns are a group of 64 output channels
-// (grid z: samples x groups). Its depth is every part's nine taps over the
-// part's input chunks, in order: the lr frame first, staged zero-padded to
-// one mma k-step (16 bf16 or 8 float channels; its weights arrive padded
-// the same way), then each wide part's chunks. Chunks flow through two
-// buffers and the weight taps through a two-stage ring, each loaded with
-// cp.async while the previous step computes. The epilogue adds the bias and
-// applies the leaky ReLU in float32. In 3xTF32 each step sums apart before
-// it joins the running sum (conv_step's SPLIT): K2's sums are long and its
-// output large.
+// bf16, or 3xTF32 for float32 features), conv_tc's loop, whose rows are the
+// 128 pixels of an 8 x 16 output tile and whose columns are a group of 64
+// output channels (grid z: samples x groups). Its depth is every part's
+// nine taps over the part's input chunks, in order: the lr frame first,
+// staged with scalar loads zero-padded to one mma k-step (16 bf16 or 8
+// float channels; its weights arrive padded the same way), then each wide
+// part's chunks. Chunks flow through two buffers and the weight taps
+// through a two-stage ring, each loaded with cp.async while the previous
+// step computes. The epilogue adds the bias and applies the leaky ReLU in
+// float32. In 3xTF32 each step sums apart before it joins the running sum
+// (conv_step's SPLIT): K2's sums are long and its output large.
 //
 // Bound (c = 64, 720p): 139 (backward, 3 parts) / 207 (forward, 4 parts)
 // GFLOP a frame: 0.14 / 0.21 ms on bf16 tensor cores at 989 TFLOP/s, 0.84 /
@@ -31,13 +31,7 @@
 namespace pnp {
 namespace tc {
 
-constexpr int IC_RH = TILE_H + 2, IC_RW = TILE_W + 2, IC_NA = IC_RH * IC_RW;  // input tile 10 x 18
-constexpr int IC_NLR = 3;                                                      // lr channels
-
-// dynamic shared memory of one block: two chunk buffers and the weight ring
-__host__ __device__ constexpr size_t ic_smem(int elt) {
-  return (size_t)2 * IC_NA * PITCH + (size_t)2 * (elt == 2 ? 1 : 2) * WTILE;
-}
+constexpr int IC_NLR = 3;  // lr channels
 
 // Weights (the wrapper's layout): wlr (NW, b, 9, c, KP) with KP = one
 // k-step of channels (16 bf16, 8 float), the lr part's taps transposed and
@@ -51,83 +45,18 @@ __global__ void __launch_bounds__(NTHR, 2)
                   const float* __restrict__ bias, T* __restrict__ out, int bsz, int h, int w,
                   int nwide, int c) {
   using Op = Operand<T>;
-  constexpr int KP = Op::KSTEP_CH;
   extern __shared__ __align__(16) uint8_t smem[];
-  const int nch = cdiv(c, Op::KC), ngr = cdiv(c, NB);
-  const int b = blockIdx.z / ngr, co0 = (blockIdx.z % ngr) * NB, cw = imin(NB, c - co0);
-  const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
+  const int ngr = cdiv(c, NB), b = blockIdx.z / ngr, g = blockIdx.z % ngr;
   const size_t img = (size_t)b * h * w;
-  uint8_t* xb = smem;                      // two chunk buffers
-  uint8_t* wb = xb + 2 * IC_NA * PITCH;    // weight ring: 2 slots of NW tiles
-
-  const T* parts[3] = {p0, p1, p2};
-  const T* wts[3] = {w0, w1, w2};
-  const size_t lr_lo = (size_t)bsz * 9 * c * KP, wide_lo = (size_t)bsz * 9 * c * c;
-  const int S = 9 + nwide * nch * 9;  // the lr part's taps, then each wide chunk's
-
-  // the lr frame, zero-padded to KP channels, into buffer 0: plain stores
-  // (3 channels a pixel are not 16-byte vectors); published by the first
-  // step's __syncthreads
-  for (int i = threadIdx.x; i < IC_NA * NVEC; i += NTHR) {
-    const int p = i / NVEC, v = i % NVEC;
-    const int y = y0 - 1 + p / IC_RW, x = x0 - 1 + p % IC_RW;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (v == 0 && y >= 0 && y < h && x >= 0 && x < w) {
-      T* vals = reinterpret_cast<T*>(&u);
-#pragma unroll
-      for (int k = 0; k < IC_NLR; ++k) vals[k] = lr[(img + (size_t)y * w + x) * IC_NLR + k];
-    }
-    *reinterpret_cast<uint4*>(xb + p * PITCH + v * 16) = u;
-  }
-
-  ChunkRing ring;
-  ring.cur = 1;
-  ring.tag[0] = 0;  // chunk id 0, the lr frame, sits in buffer 0
-  int xnext = 0;
-  // step s >= 9: wide part k, chunk ch (chunk id 1 + k * nch + ch), tap
-  auto issue = [&](int s) {
-    uint8_t* wd = wb + (s & 1) * Op::NW * WTILE;
-    if (s < 9) {
-      stage_w_step<T>(wd, wlr + ((size_t)b * 9 + s) * c * KP, lr_lo, KP, 0, KP, co0, cw);
-      xnext = 0;
-    } else {
-      const int k = (s - 9) / (9 * nch), ch = (s - 9) / 9 % nch, tap = (s - 9) % 9;
-      const int c0 = ch * Op::KC, kc = imin(Op::KC, c - c0);
-      stage_w_step<T>(wd, wts[k] + ((size_t)b * 9 + tap) * c * c, wide_lo, c, c0, kc, co0, cw);
-      xnext = ring.next(1 + k * nch + ch, [&](int o) {
-        stage_chunk<T>(xb + o * IC_NA * PITCH, parts[k] + img * c, c, c0, kc, h, w, y0 - 1,
-                       x0 - 1, IC_RH, IC_RW);
+  const ConvIn<T> in[4] = {
+      {lr, wlr, IC_NLR, Op::KSTEP_CH}, {p0, w0, c, c}, {p1, w1, c, c}, {p2, w2, c, c}};
+  conv_tc<T, 0, Op::NW, true>(
+      in, 1 + nwide, true, bsz, b, h, w, c, g, g + 1, smem, smem + 2 * Region<0>::NA * PITCH,
+      [&](int co0, auto& acc) {
+        for_each_out_pair(acc, co0, c, h, w, [&](size_t px, int n, float v0, float v1) {
+          store2(out + (img + px) * c + n, lrelu(v0 + bias[n]), lrelu(v1 + bias[n + 1]));
+        });
       });
-    }
-    cp_async_commit();
-  };
-
-  float acc[MT_OUT][4][4];
-  int arow[MT_OUT];
-  const float nogate[MT_OUT][2] = {};
-  row_offsets<MT_OUT>(arow, TILE_H * TILE_W, TILE_W, IC_RW, PITCH);
-  zero_acc(acc);
-  issue(0);
-  for (int s = 0; s < S; ++s) {
-    cp_async_wait_all();
-    __syncthreads();  // step s's data is in; every warp is done with step s - 1
-    ring.cur = xnext;
-    if (s + 1 < S) issue(s + 1);
-    const int tap = s < 9 ? s : (s - 9) % 9;
-    const int nks = s < 9 ? 1 : cdiv(imin(Op::KC, c - ((s - 9) / 9 % nch) * Op::KC), Op::KSTEP_CH);
-    conv_step<T, MT_OUT, false, true>(acc, xb + ring.cur * IC_NA * PITCH, arow,
-                                ((tap / 3) * IC_RW + tap % 3) * PITCH,
-                                wb + (s & 1) * Op::NW * WTILE, nks, nogate);
-  }
-
-  for_each_pair<MT_OUT>(acc, [&](int p, int col, float& v0, float& v1) {
-    const int n = co0 + col;
-    const int y = y0 + p / TILE_W, x = x0 + p % TILE_W;
-    if (n >= c || y >= h || x >= w) return;
-    const float a = v0 + bias[n], d = v1 + bias[n + 1];
-    store2(out + (img + (size_t)y * w + x) * c + n, a >= 0.f ? a : 0.1f * a,
-           d >= 0.f ? d : 0.1f * d);
-  });
 }
 
 template <typename T>
@@ -138,7 +67,7 @@ cudaError_t launch_input_conv(const void* lr, const void* p0, const void* p1, co
   if (c < PN || c % PN) return cudaErrorInvalidValue;
   if ((size_t)b * h * w == 0) return cudaSuccess;
   auto k = input_conv_tc<T>;
-  const size_t smem = ic_smem(sizeof(T));
+  const size_t smem = conv_tc_smem(Operand<T>::NW);
   cudaError_t e = allow_smem(k, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((w + TILE_W - 1) / TILE_W, (h + TILE_H - 1) / TILE_H, b * cdiv(c, NB));
@@ -177,5 +106,5 @@ extern "C" int pnp_input_conv(int dtype, const void* lr, const void* p0, const v
 // dynamic shared memory of one block (the same at every width; dtype 0
 // float32, 1 bfloat16), for the build report
 extern "C" int pnp_input_conv_smem(int, int dtype) {
-  return (int)pnp::tc::ic_smem(dtype == 1 ? 2 : 4);
+  return (int)pnp::tc::conv_tc_smem(dtype == 1 ? 1 : 2);
 }

@@ -1,5 +1,8 @@
-// The tensor-core core of K2 (input_conv.cu) and K3 (drt_block.cu): a 3x3
-// convolution over a pixel tile as an implicit GEMM on mma.sync.
+// The tensor-core core of the model's convolutions: K2 (input_conv.cu), K3
+// (drt_block.cu), K4 (head.cu) and K5 (conv3x3.cu), each a 3x3 convolution
+// over a pixel tile as an implicit GEMM on mma.sync. K2, K4 and K5 share one
+// GEMM loop, conv_tc below, with an epilogue of their own; K3 keeps its own
+// loop for its partition taps and its second stage.
 //
 // GEMM view. Rows are the pixels of a region of the image (flattened, padded
 // to the 16-row mma tile), columns a group of NB = 64 output channels, depth
@@ -21,6 +24,9 @@
 //
 // Operand types (template parameter T):
 // - bf16: m16n8k16 with float32 sums, one product per k-step of 16 channels;
+//   with NW = 2 weight tiles a step (K4's W_hr) the weights arrive as two
+//   bf16 terms, hi + lo, and each k-step takes both products, so the
+//   weights keep ~16 bits of their float32 value;
 // - float32: 3xTF32. Each operand is split into a TF32 head (the float's
 //   low 13 mantissa bits zeroed) and a TF32 tail (the rest, rounded to
 //   TF32), and the sum takes hi*hi + hi*lo + lo*hi on m16n8k8 (k-steps of 8
@@ -36,7 +42,11 @@
 // cp.async while the previous step computes, and one __syncthreads a step
 // both publishes the data and frees the slot the next request overwrites.
 // cp.async's zero fill (source size 0) gives the convolution's zero padding
-// past the image edge and the zero channels past the width.
+// past the image edge and the zero channels past the width. An input whose
+// pixels are not 16-byte aligned (c % 8 != 0: K2's 3-channel frame, any
+// c_in of K5) is staged with scalar loads and plain stores instead, zeros
+// filled the same way; its weight rows arrive zero-padded to whole 16-byte
+// vectors.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -111,6 +121,31 @@ __device__ __forceinline__ void stage_chunk(uint8_t* dst, const T* src, int cs, 
   }
 }
 
+// stage_chunk for a src whose pixels are not 16-byte aligned (cs % 8 != 0):
+// each 16-byte vector is built from scalar loads (zeros outside the image
+// and past kc) and written with a plain store, which the step's
+// __syncthreads publishes as it does the cp.async data.
+template <typename T>
+__device__ __forceinline__ void stage_chunk_ragged(uint8_t* dst, const T* src, int cs, int c0,
+                                                   int kc, int h, int w, int y0, int x0, int rows,
+                                                   int cols) {
+  constexpr int VEC = 16 / sizeof(T);
+  for (int i = threadIdx.x; i < rows * cols * NVEC; i += NTHR) {
+    const int p = i / NVEC, v = i % NVEC;
+    const int y = y0 + p / cols, x = x0 + p % cols;
+    uint4 u = make_uint4(0, 0, 0, 0);
+    if (v * VEC < kc && y >= 0 && y < h && x >= 0 && x < w) {
+      T* vals = reinterpret_cast<T*>(&u);
+      const T* s = src + ((size_t)y * w + x) * cs + c0 + v * VEC;
+      const int n = kc - v * VEC;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k)
+        if (k < n) vals[k] = s[k];
+    }
+    *reinterpret_cast<uint4*>(dst + p * PITCH + v * 16) = u;
+  }
+}
+
 // Stage rows [co0, co0 + cw) and columns [c0, c0 + kc) of a row-major
 // (cout, cin) matrix wt (one tap, transposed weights: wt[n][k]) into dst,
 // one output channel a PITCH row; zeros past cw and kc.
@@ -126,13 +161,14 @@ __device__ __forceinline__ void stage_w(uint8_t* dst, const T* wt, int cin, int 
   }
 }
 
-// One weight step: the head tile and, for float32, the tail tile, which
-// lies lo_stride elements past the head in the wrapper's (2, ...) stack.
-template <typename T>
+// One weight step: the head tile and, with NW = 2 (float32, or K4's bf16
+// hi + lo), the tail tile, which lies lo_stride elements past the head in
+// the wrapper's (2, ...) stack.
+template <typename T, int NW = Operand<T>::NW>
 __device__ __forceinline__ void stage_w_step(uint8_t* dst, const T* wt, size_t lo_stride, int cin,
                                              int c0, int kc, int co0, int cw) {
   stage_w<T>(dst, wt, cin, c0, kc, co0, cw);
-  if constexpr (Operand<T>::NW == 2) stage_w<T>(dst + WTILE, wt + lo_stride, cin, c0, kc, co0, cw);
+  if constexpr (NW == 2) stage_w<T>(dst + WTILE, wt + lo_stride, cin, c0, kc, co0, cw);
 }
 
 // d += a (16 x 8) * b (8 x 8) in TF32 with float32 sums.
@@ -174,24 +210,29 @@ __device__ __forceinline__ void gate_frag(uint32_t (&a)[4], const float (&gate)[
 // One k-step (32 bytes of depth) of a warp's MT x 4 mma tiles. a[m] is this
 // lane's ldmatrix address of row tile m at the k-step, b that of the warp's
 // first pair of 8-column tiles in the staged weight tile (the second pair
-// 16 rows further; for float32 the tail tile WTILE further).
-template <typename T, int MT, bool GATED>
+// 16 rows further; the tail tile, NW = 2, WTILE further).
+template <typename T, int MT, bool GATED, int NW = Operand<T>::NW>
 __device__ __forceinline__ void kstep(float (&acc)[MT][4][4], const uint8_t* const (&a)[MT],
                                       const uint8_t* b, const float (&gate)[MT][2]) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    uint32_t bf[2][4];
-    ldmatrix_x4(bf[0], b);
-    ldmatrix_x4(bf[1], b + 16 * PITCH);
+    uint32_t bf[NW][2][4];  // bf16: the weights, or their hi and lo terms
+#pragma unroll
+    for (int t = 0; t < NW; ++t) {
+      ldmatrix_x4(bf[t][0], b + t * WTILE);
+      ldmatrix_x4(bf[t][1], b + t * WTILE + 16 * PITCH);
+    }
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       uint32_t af[4];
       ldmatrix_x4(af, a[m]);
       if constexpr (GATED) gate_frag(af, gate[m], T());
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        mma_step(acc[m][2 * p], af, bf[p][0], bf[p][1]);
-        mma_step(acc[m][2 * p + 1], af, bf[p][2], bf[p][3]);
-      }
+      for (int t = 0; t < NW; ++t)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          mma_step(acc[m][2 * p], af, bf[t][p][0], bf[t][p][1]);
+          mma_step(acc[m][2 * p + 1], af, bf[t][p][2], bf[t][p][3]);
+        }
     }
   } else {
     uint32_t bh[2][4], bl[2][4];
@@ -235,7 +276,7 @@ __device__ __forceinline__ void zero_acc(float (&acc)[MT][4][4]) {
 // a long sum (K2's 1755 terms a pixel, its output up to ~10 std) the bias
 // grew to 1.1-1.5e-4 of the output std on an H100 (700 W); the step's own sum
 // bounds it by its 12 mma. It costs MT x 16 registers.
-template <typename T, int MT, bool GATED, bool SPLIT = false>
+template <typename T, int MT, bool GATED, bool SPLIT = false, int NW = Operand<T>::NW>
 __device__ __forceinline__ void conv_step(float (&acc)[MT][4][4], const uint8_t* abuf,
                                           const int (&arow)[MT], int aoff, const uint8_t* w,
                                           int nks, const float (&gate)[MT][2]) {
@@ -248,7 +289,7 @@ __device__ __forceinline__ void conv_step(float (&acc)[MT][4][4], const uint8_t*
       const uint8_t* a[MT];
 #pragma unroll
       for (int m = 0; m < MT; ++m) a[m] = abuf + arow[m] + aoff + ks * KSTEP_BYTES;
-      kstep<T, MT, GATED>(sum, a, b + ks * KSTEP_BYTES, gate);
+      kstep<T, MT, GATED, NW>(sum, a, b + ks * KSTEP_BYTES, gate);
     }
   };
   if constexpr (SPLIT && Operand<T>::NW == 2) {
@@ -334,6 +375,135 @@ struct ChunkRing {
     return o;
   }
 };
+
+// The rows of a convolution's GEMM: the 8 x 16 output tile (HALO = 0) or
+// the tile and a 1-pixel halo (HALO = 1: K4's hidden map, which conv_last
+// reads around each output pixel), read from a staged input tile one pixel
+// wider on each side.
+template <int HALO>
+struct Region {
+  static constexpr int RH = TILE_H + 2 * HALO, RW = TILE_W + 2 * HALO, NR = RH * RW;
+  static constexpr int XH = RH + 2, XW = RW + 2, NA = XH * XW;  // the staged input tile
+  static constexpr int MT = cdiv(NR, 16 * WM);                  // a warp's row tiles: 2 or 3
+};
+
+// dynamic shared memory of conv_tc over the output tile (Region<0>): two
+// chunk buffers and the weight ring of nw tiles a slot
+__host__ __device__ constexpr size_t conv_tc_smem(int nw) {
+  return (size_t)2 * Region<0>::NA * PITCH + (size_t)2 * nw * WTILE;
+}
+
+__device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : 0.1f * v; }
+
+// Visit this lane's sums over the output tile (Region<0>) of the block:
+// f(px, n, v0, v1) for the channel pair (n, n + 1) of output group co0 at
+// pixel px = y * w + x of the image, skipping what lies past cout or the
+// image.
+template <typename F>
+__device__ __forceinline__ void for_each_out_pair(float (&acc)[Region<0>::MT][4][4], int co0,
+                                                  int cout, int h, int w, F&& f) {
+  const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
+  for_each_pair<Region<0>::MT>(acc, [&](int p, int col, float& v0, float& v1) {
+    const int n = co0 + col, y = y0 + p / TILE_W, x = x0 + p % TILE_W;
+    if (n < cout && y < h && x < w) f((size_t)y * w + x, n, v0, v1);
+  });
+}
+
+// One input of a convolution: x (b, h, w, c) NHWC and its taps w (NW, [b,]
+// 9, cout, wc), each transposed (out, in), per sample or shared by the
+// batch; wc >= c is a weight row's length (c padded to whole 16-byte
+// vectors where c % 8 != 0).
+template <typename T>
+struct ConvIn {
+  const T* x;
+  const T* w;
+  int c, wc;
+};
+
+// The GEMM loop of K2, K4 and K5: sum_k conv3x3(in[k].x[b]; in[k].w) over
+// the region (Region<HALO>) of the block at (blockIdx.y, blockIdx.x), for
+// output groups [g_lo, g_hi) of NB channels of cout. Its steps run group by
+// group, input by input, chunk by chunk, tap by tap, through the chunk ring
+// (xb: two buffers of NA rows) and the weight ring (wb: two slots of NW
+// tiles). After a group's last step epi(co0, acc) takes its sums
+// (for_each_pair); then they are zeroed. SPLIT: conv_step's, for long
+// float32 sums. Every thread calls it with the same arguments.
+template <typename T, int HALO, int NW, bool SPLIT, typename Epi>
+__device__ __forceinline__ void conv_tc(const ConvIn<T>* in, int nin, bool per_sample, int bsz,
+                                        int b, int h, int w, int cout, int g_lo, int g_hi,
+                                        uint8_t* xb, uint8_t* wb, Epi&& epi) {
+  using Op = Operand<T>;
+  using R = Region<HALO>;
+  struct Step {
+    int tap, nks, co0, buf;
+    bool last;  // the group's last step
+  };
+  const int y0 = blockIdx.y * TILE_H - HALO - 1, x0 = blockIdx.x * TILE_W - HALO - 1;
+  const size_t img = (size_t)b * h * w;
+  int S = 0;
+  for (int k = 0; k < nin; ++k) S += 9 * cdiv(in[k].c, Op::KC);
+  S *= g_hi - g_lo;
+
+  ChunkRing ring;
+  // the step to issue next: group g, input k, chunk ch, tap; id0 the
+  // ring id of input k's first chunk
+  int k = 0, ch = 0, tap = 0, g = g_lo, id0 = 0;
+  auto issue = [&](int s) {
+    const ConvIn<T>& p = in[k];
+    const int nch = cdiv(p.c, Op::KC), c0 = ch * Op::KC, kc = imin(Op::KC, p.c - c0);
+    const int co0 = g * NB, cw = imin(NB, cout - co0);
+    const size_t taps = (size_t)9 * cout * p.wc;  // one sample's weights
+    stage_w_step<T, NW>(wb + (s & 1) * NW * WTILE,
+                        p.w + (per_sample ? b * taps : 0) + (size_t)tap * cout * p.wc,
+                        (per_sample ? bsz : 1) * taps, p.wc, c0, kc, co0, cw);
+    Step st;
+    st.buf = ring.next(id0 + ch, [&](int o) {
+      uint8_t* dst = xb + o * R::NA * PITCH;
+      if (p.c % 8)
+        stage_chunk_ragged<T>(dst, p.x + img * p.c, p.c, c0, kc, h, w, y0, x0, R::XH, R::XW);
+      else
+        stage_chunk<T>(dst, p.x + img * p.c, p.c, c0, kc, h, w, y0, x0, R::XH, R::XW);
+    });
+    cp_async_commit();
+    st.tap = tap;
+    st.nks = cdiv(kc, Op::KSTEP_CH);
+    st.co0 = co0;
+    st.last = tap == 8 && ch == nch - 1 && k == nin - 1;
+    if (++tap == 9) {
+      tap = 0;
+      if (++ch == nch) {
+        ch = 0;
+        id0 += nch;
+        if (++k == nin) {
+          k = id0 = 0;
+          ++g;
+        }
+      }
+    }
+    return st;
+  };
+
+  float acc[R::MT][4][4];
+  int arow[R::MT];
+  const float nogate[R::MT][2] = {};
+  row_offsets<R::MT>(arow, R::NR, R::RW, R::XW, PITCH);
+  zero_acc(acc);
+  Step nxt = issue(0);
+  for (int s = 0; s < S; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // step s's data is in; every warp is done with step s - 1
+    const Step cur = nxt;
+    ring.cur = cur.buf;
+    if (s + 1 < S) nxt = issue(s + 1);
+    conv_step<T, R::MT, false, SPLIT, NW>(acc, xb + cur.buf * R::NA * PITCH, arow,
+                                          ((cur.tap / 3) * R::XW + cur.tap % 3) * PITCH,
+                                          wb + (s & 1) * NW * WTILE, cur.nks, nogate);
+    if (cur.last) {
+      epi(cur.co0, acc);
+      zero_acc(acc);
+    }
+  }
+}
 
 }  // namespace tc
 }  // namespace pnp

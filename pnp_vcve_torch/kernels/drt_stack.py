@@ -20,12 +20,14 @@ They replace, in ``pnp_vcve_tpu/kernels/drt_stack.py``:
 The TPU kernels' pixel-pair packed layout and band DMAs are not carried
 over: the kernels take the NHWC tensors as they are, for any h and w and any
 width c that is a multiple of 8, in float32 or bfloat16 with float32 sums.
-K2 and K3 run on the tensor cores (``csrc/tc_conv.cuh``): bfloat16 features
-with bfloat16 weights, float32 features in 3xTF32 (:func:`tf32_split`). K3
-and K4 keep their hidden map on the chip up to ``launch.ONE_LAUNCH_WIDTH``
-and run as two launches through a scratch tensor above it
-(:func:`.launch.launch_form`). K4 runs on CUDA-core float32 FMAs. The
-source notes in ``csrc/`` say how each tiles its work.
+K2, K3 and K4 run on the tensor cores (``csrc/tc_conv.cuh``): bfloat16
+features with bfloat16 weights, float32 features in 3xTF32
+(:func:`tf32_split`). K4's W_hr goes to the kernel as two terms in both
+types (:func:`bf16_split` in bfloat16), its hidden map stays float32, and
+its c -> 3 stage runs on the CUDA cores. K3 and K4 keep their hidden map on
+the chip up to ``launch.ONE_LAUNCH_WIDTH`` and run as two launches through
+a scratch tensor above it (:func:`.launch.launch_form`). The source notes
+in ``csrc/`` say how each tiles its work.
 :func:`input_conv_args`, :func:`drt_block_args` and :func:`head_args` hold
 the checks a launch makes of the shapes and the width, and the weight
 repacking; they run on any device.
@@ -65,6 +67,7 @@ from .launch import check_cuda_args, check_width, launch, launch_form, on_cpu, p
 
 __all__ = [
     "tf32_split",
+    "bf16_split",
     "tc_weights",
     "premix_block_params",
     "part_kernels",
@@ -125,7 +128,7 @@ def part_kernels(kernel, part_channels: Sequence[int], b: int, gate=None):
     return [k.contiguous() for k in ks]
 
 
-# ---- the tensor-core kernels' weights (K2, K3) -------------------------------
+# ---- the tensor-core kernels' weights (K2-K5) --------------------------------
 
 _TF32_HEAD = -8192  # 0xffffe000 as int32: sign, exponent and 10 mantissa bits
 _TF32_HALF = 0x1000  # half of a TF32 ulp in float32 bits
@@ -145,14 +148,27 @@ def tf32_split(w):
     return hi, lo
 
 
-def tc_weights(taps, dtype):
+def bf16_split(w):
+    """float32 ``w`` -> ``(hi, lo)`` bfloat16: ``hi`` is ``w`` rounded to
+    bfloat16, ``lo`` the rest ``w - hi`` rounded to bfloat16. ``hi + lo``
+    is ``w`` to ~2^-17 relative, so two bf16 products of a bfloat16 input
+    give its float32 product to about that."""
+    w = w.float()
+    hi = w.to(torch.bfloat16)
+    return hi, (w - hi.float()).to(torch.bfloat16)
+
+
+def tc_weights(taps, dtype, two_terms=False):
     """A tensor-core kernel's weight operand from ``taps (..., c_in, c_out)``:
     each tap transposed to ``(c_out, c_in)`` (the mma's "col" B operand) and
     stacked as ``(NW, ..., c_out, c_in)``: for bfloat16 features NW = 1, the
-    weights rounded to bfloat16 (as the plain version rounds them); for
-    float32 NW = 2, :func:`tf32_split`'s head and tail."""
+    weights rounded to bfloat16 (as the plain version rounds them), or with
+    ``two_terms`` NW = 2, :func:`bf16_split`'s hi and lo; for float32 NW = 2,
+    :func:`tf32_split`'s head and tail."""
     t = taps.float().transpose(-1, -2)
     if dtype == torch.bfloat16:
+        if two_terms:
+            return torch.stack(bf16_split(t)).contiguous()
         return t.to(torch.bfloat16).unsqueeze(0).contiguous()
     if dtype != torch.float32:
         raise TypeError(f"tensor-core weights for {dtype}: float32 or bfloat16 only")
@@ -379,14 +395,17 @@ def head_plain(x, hr_k, hr_b, last_k, last_b):
 
 def head_args(x, hr_k, hr_b, last_k, last_b):
     """K4's shape and width checks and its weights as the kernel takes them:
-    ``(whr (9, c, c), bhr (c,), wl (9, c, 3), bl (3,))`` float32."""
+    ``(whr (2, 9, c, c), bhr (c,), wl (9, c, 3), bl (3,))``: W_hr as
+    :func:`tc_weights` in x's type with two terms (the 3xTF32 split, or
+    bfloat16's hi + lo, which keeps the head within its parity bound), the
+    rest float32."""
     b, h, w, c = x.shape
     check_width("head", c)
     if (hr_k.shape != (3, 3, c, c) or hr_b.shape != (c,) or last_k.shape != (3, 3, c, 3)
             or last_b.shape != (3,)):
         raise ValueError(f"head: need x (b,h,w,c) and c->c->3 weights; got x {tuple(x.shape)}, "
                          f"{tuple(hr_k.shape)}, {tuple(last_k.shape)}")
-    whr = hr_k.float().reshape(9, c, c).contiguous()
+    whr = tc_weights(hr_k.reshape(9, c, c), x.dtype, two_terms=True)
     wl = last_k.float().reshape(9, c, 3).contiguous()
     return whr, hr_b.float().contiguous(), wl, last_b.float().contiguous()
 

@@ -170,13 +170,13 @@ def test_bf16_operands_round_as_the_plain_version():
 
 def test_launch_form_per_kernel_width_and_type():
     """One launch up to ONE_LAUNCH_WIDTH, two above (K3: 168 float32 /
-    384 bfloat16; K4: 184); K2 and K3s always one; only widths that are not
-    multiples of 8 are refused (and K3s at anything but 64)."""
+    384 bfloat16; K4: 144 in both); K2 and K3s always one; only widths that
+    are not multiples of 8 are refused (and K3s at anything but 64)."""
     form = kl.launch_form
     for c, f32, bf16 in ((8, 1, 1), (64, 1, 1), (168, 1, 1), (176, 2, 1), (216, 2, 1),
                          (384, 2, 1), (392, 2, 2), (1024, 2, 2)):
         assert (form("drt_block", c, F32), form("drt_block", c, BF16)) == (f32, bf16), c
-    for c, n in ((64, 1), (184, 1), (192, 2), (512, 2)):
+    for c, n in ((64, 1), (144, 1), (152, 2), (184, 2), (192, 2), (512, 2)):
         assert form("head", c, F32) == form("head", c, BF16) == n
     assert form("input_conv", 1024, F32) == form("drt_block_select", 64, BF16) == 1
     with pytest.raises(ValueError, match="not a multiple of 8"):

@@ -57,7 +57,7 @@ def test_argument_checks_take_every_width(c):
         w2, b2, g, pk, w1, b1 = checked[name]
         assert (w2.shape, b2.shape, g.shape, pk.shape, w1.shape, b1.shape) == (
             (2, 2, 9, c, c), (2, c), (2, c), (2, 3, c, c), (2, 9, c, c), (c,))
-    assert [t.shape for t in checked["head"]] == [(9, c, c), (c,), (9, c, 3), (3,)]
+    assert [t.shape for t in checked["head"]] == [(2, 9, c, c), (c,), (9, c, 3), (3,)]
 
 
 @pytest.mark.parametrize("name", ["warp", "warp_block", "input_conv", "drt_block",
@@ -73,7 +73,8 @@ def test_width_limits_follow_shared_memory():
     fits in an H100's 227 KB: K1b's 9 x 9 window caps its width (712); K3
     keeps all c channels of h in the feature type (one launch up to 168
     float32 channels, 384 bfloat16) and K4 its hidden map in float32 with
-    W_last (184), each running as two launches through a scratch above it;
+    W_last beside two W_hr terms in both types (144), each running as two
+    launches through a scratch above it;
     K1, K2 and K5 have no limit, K3s runs at 64 only. The numbers are those
     the sources static_assert against their formulas, and the formulas,
     transcribed here, fit at each limit and not 8 channels above it."""
@@ -82,7 +83,7 @@ def test_width_limits_follow_shared_memory():
         "drt_block_select": 64, "head": None, "conv3x3": None}
     f32, bf16 = torch.float32, torch.bfloat16
     assert kl.ONE_LAUNCH_WIDTH == {("drt_block", f32): 168, ("drt_block", bf16): 384,
-                                   ("head", f32): 184, ("head", bf16): 184}
+                                   ("head", f32): 144, ("head", bf16): 144}
     csrc = Path(kl.__file__).parent / "csrc"
     consts = {}
     for src in ("warp_block.cu", "drt_block.cu", "head.cu"):
@@ -91,11 +92,14 @@ def test_width_limits_follow_shared_memory():
     assert consts["WB_MAX_WIDTH"] == kl.MAX_WIDTH["warp_block"]
     assert consts["DB_ONE_LAUNCH_F32"] == kl.ONE_LAUNCH_WIDTH[("drt_block", f32)]
     assert consts["DB_ONE_LAUNCH_BF16"] == kl.ONE_LAUNCH_WIDTH[("drt_block", bf16)]
-    assert consts["HD_ONE_LAUNCH"] == kl.ONE_LAUNCH_WIDTH[("head", f32)]
+    assert consts["HD_ONE_LAUNCH_F32"] == kl.ONE_LAUNCH_WIDTH[("head", f32)]
+    assert consts["HD_ONE_LAUNCH_BF16"] == kl.ONE_LAUNCH_WIDTH[("head", bf16)]
     text = (csrc / "drt_block.cu").read_text()
     for const, elt in (("DB_ONE_LAUNCH_F32", 4), ("DB_ONE_LAUNCH_BF16", 2)):
         assert f"static_assert(db_smem<FUSED>({const}, {elt}) <= SMEM_MAX" in text
-    assert "static_assert(head_smem(HD_ONE_LAUNCH) <= SMEM_MAX" in (csrc / "head.cu").read_text()
+    text = (csrc / "head.cu").read_text()
+    for const, elt in (("HD_ONE_LAUNCH_F32", 4), ("HD_ONE_LAUNCH_BF16", 2)):
+        assert f"static_assert(head_smem({const}, {elt}) <= SMEM_MAX" in text
     assert "static_assert(warp_block_smem(WB_MAX_WIDTH)" in (csrc / "warp_block.cu").read_text()
 
     def k3_smem(c, elt):  # drt_block.cu: db_smem<FUSED>, tc_conv.cuh's constants
@@ -106,11 +110,15 @@ def test_width_limits_follow_shared_memory():
         return (nxb * 12 * 20 * pitch + 2 * nw * wtile + (180 * h_pitch if c > 64 else 0)
                 + 4 * 3 * 180)
 
-    def k4_smem(c):  # head.cu: head_smem
-        return 4 * (64 * 12 * 20 + 64 * 64 + 9 * c * 3 + (0 if c == 64 else c * 180))
+    def k4_smem(c, elt):  # head.cu: head_smem; two weight tiles a step in both types
+        kc = 64 if elt == 2 else 32
+        x_bytes = (2 if -(-c // kc) > 1 else 1) * 12 * 20 * 144
+        h_bytes = 4 * c * 180  # at c <= 64 one of the two over the other
+        front = max(x_bytes, h_bytes) if c <= 64 else x_bytes + h_bytes
+        return front + 2 * 2 * 64 * 144 + 16 * 9 * c  # W_last as float4
 
     for (name, dtype), top in kl.ONE_LAUNCH_WIDTH.items():
-        smem = (lambda c: k3_smem(c, dtype.itemsize)) if name == "drt_block" else k4_smem
+        smem = (lambda c: (k3_smem if name == "drt_block" else k4_smem)(c, dtype.itemsize))
         assert smem(top) <= kl.SMEM_MAX < smem(top + 8), (name, dtype)
         assert kl.launch_form(name, top, dtype) == 1 and kl.launch_form(name, top + 8, dtype) == 2
     kl.check_width("head", 192)

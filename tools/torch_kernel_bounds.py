@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """The least time an NVIDIA H100 could take for the work of each B10 TPU probe
 of the JAX package (ROADMAP Queue B), worked out from each function's own
-shapes, with the Hopper kernel that ports it (K6-K13), and of the model
-kernels that run on the tensor cores (K2, K3) at the flagship's 720p
+shapes, with the Hopper kernel that ports it (K6-K13), and of two of the
+model kernels on the tensor cores (K2, K3) at the flagship's 720p
 frame. The model kernels' bounds (K1-K5) are computed by chip_smoke.py from
 the inputs of its run, and so are the probe kernels' (phases 12 and 13),
 through the work functions below (``conv_bounds`` for K2-K5).
