@@ -135,21 +135,41 @@ Phases (any failure raises and the script exits non-zero):
    on the same inputs, timed in turns beside it, beside ``torch.mul`` on
    the strided window (probe_floor) or ``z.clone()`` (the copies that
    write the array out), and beside its bound (K11's and K12's input bytes
-   the distinct pixels this run's tables pick).
+   the distinct pixels this run's tables pick);
+14. the generator's other forms, built through ``build_generator`` from the
+   training config at full width (64 channels, 8 blocks, 6 experts,
+   deform_groups 16) with seeded weights, each DCN aligner's offset head
+   given seeded weights in its zero-initialised last conv: vsr=True through
+   ``tools/torch_test.py`` (``--cfg-options model.generator.vsr=True``) on
+   one clip of 8 frames at 180x320 (REDS-LR) with GT at 720x1280 written
+   under build/chip_smoke/vsr, then on one such clip kernel path against
+   plain path (max|diff| <= 3e-3, K4 at 720x1280 every frame), timed and
+   profiled; deform='basic' and 'fvc' kernel path against plain path on
+   phase 5's 256x448 clip (<= 3e-3), then one timed and one profiled 720p
+   clip each, and the plain DCN and the aligner timed alone at 720p (CUDA
+   events); flow_inter='nearest' kernel path against plain path on phase
+   5's clip; the chunk API: one 8-frame 720p clip as 3 + 5 frames (the
+   boundary on a B frame), the backward sweep right to left and the
+   forward sweep left to right with carries and the clip's keyframe mask,
+   under the serving config (parity weights) and the training config
+   ('padgather'), chunked against full (max|diff| <= 1e-5, bitwise
+   equality printed). Every run's launch counts must be its form's (per
+   frame 2 K1, 2 K2, 16 K3, 1 K4; fvc and nearest no K1; 'pf' as phase 4).
 
 Each phase prints its wall time.
 The line before the last is a JSON object with each kernel's launches
 (``launches``: all the driven paths together, each path's counts zeroed just
 before it and read just after; then each path's own: the serving path of
 phase 4, the batched path of phase 8, the handler of phase 10, training in
-phase 7, each block form's last 720p run in phase 11; the probe tools'
-runs of phases 12 and 13 for K6-K13), its error, its time beside the plain
+phase 7, each block form's last 720p run in phase 11, phase 14's driven
+runs (the vsr CLI drive, basic's and fvc's timed 720p clips, the chunked
+clips); the probe tools' runs of phases 12 and 13 for K6-K13), its error, its time beside the plain
 version's, the library call's, its yardsticks' and the bounds (K2-K5:
 also the bfloat16 row under ``bf16``; K1-K4: also the worst error at
 the other widths, K2-K4's 720p row at 128 channels, and K3's and K4's
 two-launch forms under ``two_launch``;
-K6-K13: the headline stage, every stage under ``forms``), and phase 5's
-errors at the other widths; the last line is
+K6-K13: the headline stage, every stage under ``forms``), phase 5's
+errors at the other widths and phase 14's per form; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -250,6 +270,13 @@ PROBE_INFO = {
     "stream_copy": ("pnp_vcve_torch/kernels/csrc/probe_ring.cu", "tools/dma_probe.py:173", []),
 }
 K5_GEOMETRY = (720, 1280, 64)  # K10 timed at K5's frame, 64 -> 64 (measurement only)
+# phase 14: the generator's other forms on the training config at full width
+# (64 channels, 8 blocks, 6 experts; deform_groups 16), seeded weights
+MODEL_FORMS = {"vsr": dict(vsr=True), "basic": dict(deform="basic"),
+               "fvc": dict(deform="fvc"), "nearest": dict(flow_inter="nearest")}
+VSR_LR_HW = (180, 320)  # REDS-LR: 720x1280 out
+OFFSET_SCALE = 0.1  # conv_offset's last conv (zero at init): offsets of ~1 px
+CHUNK_SPLIT, TOL_CHUNK = 3, 1e-5  # an 8-frame clip as 3 + 5 frames (frame 3 a B frame)
 # the tensor-core kernels (K2-K5) and the names of their device functions
 # (K4's two-launch form: head_hidden_tc, then head_last_kernel on the CUDA
 # cores)
@@ -1877,6 +1904,308 @@ def phase_probes_b10b(dev, smi):
                           "phase13_launches")
 
 
+def _form_generator(form, dev):
+    """The training config's generator in a phase-14 form through
+    ``build_generator`` (seeded weights), each sweep's offset head given
+    seeded weights in its zero-initialised last conv; and its config."""
+    import torch
+
+    from pnp_vcve_torch.core.builder import build_generator
+    from pnp_vcve_torch.core.config import Config
+
+    gen_cfg = {**Config.fromfile(CONFIGS / "HR_davis_LR_128x128.py").model["generator"],
+               "deform_groups": 16, **MODEL_FORMS[form]}
+    model = build_generator(gen_cfg, device=dev, seed=SEED + 14)
+    gen = torch.Generator().manual_seed(SEED + 14)
+    for m in (model.backward_deform_align, model.forward_deform_align):
+        if m is not None:
+            w = m.conv_offset[2].weight
+            with torch.no_grad():
+                w.copy_(torch.randn(w.shape, generator=gen) * OFFSET_SCALE)
+    return model, gen_cfg
+
+
+def _forms_inputs(rng, t, h, w, dev):
+    """One clip of t frames at h x w (any h, w): phase 5's priors drawn at
+    the next multiple of 8 and cropped."""
+    hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
+    inp = _clip_inputs(rng, 1, t, hp, wp, dev)
+    return {k: (v[:, :, :h, :w].contiguous() if v.dim() == 5 else v) for k, v in inp.items()}
+
+
+def _kernel_vs_plain(model, inputs, ops=None):
+    """The model's output through the kernels (``ops``, default KERNELS) and
+    through the plain path, and the launch counts of the kernel run."""
+    from pnp_vcve_torch.kernels import KERNELS, LAUNCHES, PLAIN, reset_launches
+
+    reset_launches()
+    model.ops = ops or KERNELS
+    got = model(**inputs)
+    counts = dict(LAUNCHES)
+    model.ops = PLAIN
+    want = model(**inputs)
+    model.ops = KERNELS
+    return got, want, counts
+
+
+def _profiled(model, inputs):
+    """One clip under ``torch.profiler``: ``(profile, launch counts)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pnp_vcve_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model(**inputs)
+        torch.cuda.synchronize()
+    return prof, dict(LAUNCHES)
+
+
+def _timed_clip(model, inputs):
+    """Seconds of one clip (host clock, synchronised), after one untimed
+    clip, and the timed clip's launch counts."""
+    import torch
+
+    from pnp_vcve_torch.kernels import LAUNCHES, reset_launches
+
+    model(**inputs)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = model(**inputs)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, dict(LAUNCHES), out
+
+
+def _print_forms_profile(tag, prof, wall_s, counts):
+    """Busy time, idle share against the unprofiled clip, each model
+    kernel's share of the device time (a launched kernel the profile does
+    not name fails), the rest, the top device functions."""
+    found = _device_time(prof)
+    if found is None:
+        print(f"[forms14] {tag}: profiler recorded no device events; breakdown not measured")
+        return None
+    busy, by_name = found
+    total = sum(by_name.values())
+    times = _kernel_times(by_name, counts, ("warp", "input_conv", "drt_block", "head"))
+    print(f"[forms14] {tag}, profiled: launches {counts}; device busy {busy:.4f} s, idle share "
+          f"{max(0.0, 1 - busy / wall_s):.4f} of the unprofiled {wall_s:.4f} s clip; of device "
+          f"time " + ", ".join(f"{k} {v / total:.4f}" for k, v in times.items())
+          + f", the rest (torch ops) {1 - sum(times.values()) / total:.4f}")
+    for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[forms14]   {v:.4f} s {v / total:.4f}  {name[:110]}")
+    return busy
+
+
+def _vsr_through_cli(dev, smi):
+    """vsr=True through tools/torch_test.py (``--cfg-options
+    model.generator.vsr=True``) on one REDS-LR-geometry clip written at run
+    time: LR VSR_LR_HW, GT 4x (the fixture's sharp frames resized). Returns
+    the launch counts of the run."""
+    import numpy as np
+    from PIL import Image
+
+    from pnp_vcve_torch.kernels import LAUNCHES, reset_launches
+
+    sys.path[:0] = [str(ROOT / "tools"), str(ROOT / "tools" / "data")]
+    import torch_test
+    from make_protocol_fixture import REDS4_CLIPS, write_fixture
+
+    work = ROOT / "build" / "chip_smoke" / "vsr"
+    h, w = VSR_LR_HW
+    write_fixture(work / "data", clips=REDS4_CLIPS[:1], frames=FRAMES, height=h, width=w,
+                  crf=15, seed=SEED + 14, quiet=True)
+    for f in sorted((work / "data" / "sharp" / "png").glob("*/*.png")):
+        out = work / "data" / "x4" / "png" / f.parent.name / f.name
+        out.parent.mkdir(parents=True, exist_ok=True)
+        Image.open(f).resize((4 * w, 4 * h), Image.BICUBIC).save(out)
+    cfg = work / "vsr.py"
+    # the training config (vsr is refused under 'pf'), every clip folder of
+    # the fixture, its qp.json
+    cfg.write_text(
+        f"_base_ = [{str(CONFIGS / 'HR_davis_LR_128x128.py')!r}]\n"
+        "from pnp_vcve_torch.core.presets import flagship_data\n"
+        f"data = flagship_data(test_lq={str(work / 'data/crf15/png')!r}, "
+        f"test_gt={str(work / 'data/x4/png')!r}, "
+        f"test_qp_json={str(work / 'data/qp.json')!r})\n"
+        "data['test']['type'] = 'SRFolderMultipleGTDataset'\n"
+        f"data['test']['num_input_frames'] = {FRAMES}\n"
+    )
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = torch_test.main([str(cfg), "-", "--device", dev.type, "--cfg-options",
+                               "model.generator.vsr=True", "--save-path", str(work / "out"),
+                               "--save-image"])
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    want = _launches_per_pass(FRAMES, 8)
+    pngs = sorted((work / "out").glob("*/*.png"))
+    shape = np.asarray(Image.open(pngs[0])).shape if pngs else None
+    print(f"[forms14] vsr through tools/torch_test.py: {FRAMES} frames {h}x{w} -> "
+          f"{4 * h}x{4 * w}, {metrics}, {wall:.3f} s with loading, host metrics and PNGs; "
+          f"launches {counts} (expected {want}); {len(pngs)} PNGs of {shape}")
+    if counts != want:
+        raise AssertionError("the vsr run through tools/torch_test.py did not run every step "
+                             "through the kernels")
+    if (set(metrics) != {"PSNR", "SSIM"} or not all(np.isfinite(v) for v in metrics.values())
+            or len(pngs) != FRAMES or shape != (4 * h, 4 * w, 3)):
+        raise AssertionError(f"vsr metrics or output frames wrong: {metrics}, {len(pngs)}, {shape}")
+    return counts
+
+
+def phase_model_forms(dev, smi):
+    """The generator's forms beyond the flagship's (phase 14): vsr=True on
+    the REDS-LR geometry (through tools/torch_test.py, then kernel path vs
+    plain path, f/s and a profile with K4 at 720x1280), deform='basic' and
+    'fvc' (kernel vs plain path at 256x448, a timed and a profiled 720p
+    clip, the plain DCN's time), flow_inter='nearest' (kernel vs plain
+    path), and the chunk API (an 8-frame 720p clip as 3 + 5 frames under
+    'pf' and 'padgather', chunked vs full). Returns the launches of the
+    driven runs (the CLI drive, the timed 720p clips, the chunked clips),
+    summed."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from pnp_vcve_torch.kernels import KERNELS, LAUNCHES, reset_launches
+    from pnp_vcve_torch.models.pnp_vcve import keyframe_indices
+    from pnp_vcve_torch.ops.deform_conv import modulated_deform_conv2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t = FRAMES
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def check(tag, got, want, counts, expected, shape):
+        err = float((got - want).abs().max())
+        ok = bool(torch.isfinite(got).all()) and tuple(got.shape) == shape
+        print(f"[forms14] {tag}: kernel path vs plain path, float32: max|diff| {err:.3g} "
+              f"(<= {TOL_MODEL}); launches {counts} (expected {expected})")
+        if not ok or err > TOL_MODEL or counts != expected:
+            raise AssertionError(f"{tag}: kernel path disagrees with its plain path, output "
+                                 f"{tuple(got.shape)} not finite/of shape {shape}, or launches")
+        return err
+
+    errs = {}
+    # vsr: the CLI drive, then the model on one clip at the REDS-LR size
+    add(_vsr_through_cli(dev, smi))
+    model, gen_cfg = _form_generator("vsr", dev)
+    n = gen_cfg["num_blocks"]
+    h, w = VSR_LR_HW
+    inputs = _forms_inputs(np.random.default_rng(SEED + 14), t, h, w, dev)
+    head_shapes = []
+    ops = types.SimpleNamespace(**vars(KERNELS))
+    ops.head = lambda x, *a: head_shapes.append(tuple(x.shape)) or KERNELS.head(x, *a)
+    with torch.inference_mode():
+        got, want, counts = _kernel_vs_plain(model, inputs, ops)
+        errs["vsr"] = check(f"vsr, {t} frames {h}x{w} -> {4 * h}x{4 * w}", got, want, counts,
+                            _launches_per_pass(t, n), (1, t, 4 * h, 4 * w, 3))
+        if head_shapes != [(1, 4 * h, 4 * w, 64)] * t:
+            raise AssertionError(f"K4 ran at {head_shapes}, not at 4h x 4w")
+        del got, want
+        wall, counts, _ = _timed_clip(model, inputs)
+        prof, prof_counts = _profiled(model, inputs)
+    print(f"[forms14] vsr {smi}: {t} frames {h}x{w} -> {4 * h}x{4 * w} float32 in {wall:.4f} s "
+          f"= {t / wall:.3f} frames/s (generator, synchronised); K4 at {head_shapes[0][1:3]}")
+    _print_forms_profile("vsr", prof, wall, prof_counts)
+    del model
+    torch.cuda.empty_cache()
+
+    # deform basic and fvc; nearest
+    rng = np.random.default_rng(SEED + 15)
+    small = _clip_inputs(rng, 1, t, *FORMS_HW, dev)
+    big = _clip_inputs(rng, 1, t, *MAIN_HW, dev)
+    for form in ("basic", "fvc", "nearest"):
+        model, gen_cfg = _form_generator(form, dev)
+        expected = _launches_per_pass(t, n)
+        if form != "basic":  # fvc warps nothing; nearest runs the plain warp
+            expected["warp"] = 0
+        with torch.inference_mode():
+            got, want, counts = _kernel_vs_plain(model, small)
+            errs[form] = check(f"{form}, {t} frames {FORMS_HW[0]}x{FORMS_HW[1]}", got, want,
+                               counts, expected, (1, t, *FORMS_HW, 3))
+            del got, want
+            if form == "nearest":
+                break
+            wall, counts, out = _timed_clip(model, big)
+            if counts != expected or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{form} 720p: launches {counts} or output not finite")
+            del out
+            add(counts)
+            prof, prof_counts = _profiled(model, big)
+            # the plain DCN alone on a step's inputs: the aligner's offsets
+            # and mask from a feature map of the carry's size and the flow
+            al = model.forward_deform_align
+            feat = torch.randn((1, *MAIN_HW, 64), device=dev, generator=torch.Generator(
+                device=dev).manual_seed(SEED))
+            flow = big["mvs"][:, 0, ..., 0:2].contiguous()
+            head_in = (torch.cat([KERNELS.flow_warp(feat, flow), flow], -1) if form == "basic"
+                       else torch.cat([feat, flow], -1))
+            o1, o2, mask = al._offset_head(head_in).chunk(3, dim=-1)
+            offs = torch.cat([o1, o2], -1).reshape(1, *MAIN_HW, 16, 9, 2)
+            mask = torch.sigmoid(mask).reshape(1, *MAIN_HW, 16, 9)
+            kern = al.weight.permute(2, 3, 1, 0)
+            dcn_ms = _timed(lambda: modulated_deform_conv2d(feat, offs, mask, kern, al.bias), 3)
+            align_ms = _timed(lambda: al(feat, flow, KERNELS), 3)
+        print(f"[forms14] {form} {smi}: {t} frames {MAIN_HW[0]}x{MAIN_HW[1]} float32 in "
+              f"{wall:.4f} s = {t / wall:.3f} frames/s (generator, synchronised)")
+        busy = _print_forms_profile(form, prof, wall, prof_counts)
+        dcn_s = 2 * t * dcn_ms * 1e-3
+        print(f"[forms14] {form}: the plain DCN {dcn_ms:.3f} ms a call, the aligner (head and "
+              f"DCN{' and K1' if form == 'basic' else ''}) {align_ms:.3f} ms (CUDA events); "
+              f"{2 * t} calls a clip = {dcn_s:.4f} s"
+              + (f" = {dcn_s / busy:.4f} of the profiled clip's device busy time"
+                 if busy else ""))
+        del model, prof, feat, offs, mask, head_in
+        torch.cuda.empty_cache()
+
+    # the chunk API: 8 frames of 720p as 3 + 5, backward right to left, then
+    # forward left to right, each chunk from the carry before it
+    inputs = _clip_inputs(np.random.default_rng(SEED + 16), 1, t, *MAIN_HW, dev)
+    km = keyframe_indices(inputs["slices"])[0]
+    if bool(km[0, CHUNK_SPLIT]):
+        raise AssertionError("the chunk boundary fell on a keyframe")
+    for config in ("HR_davis_LR_128x128_serving.py", "HR_davis_LR_128x128.py"):
+        model, cfg = _flagship_generator(config, dev)
+        gen_cfg = cfg.model["generator"]
+        impl = gen_cfg.get("warp_impl", "padgather")
+        with torch.inference_mode():
+            full = model(**inputs)
+            torch.cuda.synchronize()
+            reset_launches()
+            part = lambda s, e: {k: v[:, s:e] for k, v in inputs.items()}  # noqa: E731
+            left, right = part(0, CHUNK_SPLIT), part(CHUNK_SPLIT, t)
+            feats_r, carry = model(**right, sweep="backward", keyframe_mask=km[:, CHUNK_SPLIT:])
+            feats_l, _ = model(**left, sweep="backward", carry=carry,
+                               keyframe_mask=km[:, :CHUNK_SPLIT])
+            ys_l, carry = model(**left, sweep="forward", bwd_feats=feats_l,
+                                keyframe_mask=km[:, :CHUNK_SPLIT])
+            ys_r, _ = model(**right, sweep="forward", carry=carry, bwd_feats=feats_r,
+                            keyframe_mask=km[:, CHUNK_SPLIT:])
+            torch.cuda.synchronize()
+            counts = dict(LAUNCHES)
+            got = torch.cat([ys_l, ys_r], dim=1)
+        add(counts)
+        err = float((got - full).abs().max())
+        expected = _launches_per_pass(t, gen_cfg["num_blocks"], impl)
+        print(f"[forms14] chunk API, {impl}: {t} frames {MAIN_HW[0]}x{MAIN_HW[1]} as "
+              f"{CHUNK_SPLIT} + {t - CHUNK_SPLIT}, chunked vs full max|diff| {err:.3g} "
+              f"(<= {TOL_CHUNK}), bitwise equal {bool(torch.equal(got, full))}; bwd_feats "
+              f"{feats_l.dtype}; launches {counts} (expected {expected})")
+        if err > TOL_CHUNK or counts != expected or feats_l.dtype != model.feature_dtype:
+            raise AssertionError(f"chunked {impl} clip disagrees with the full clip or launches")
+        errs[f"chunk_{impl}"] = err
+        del model, full, got, feats_l, feats_r, carry
+        torch.cuda.empty_cache()
+    return total, errs
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     # deterministic cuBLAS for the resume check of phase 7; read when cuBLAS
@@ -1905,6 +2234,7 @@ def main():
     forms_counts = phase("11 block forms", phase_block_forms, dev, smi)
     probe_rows = phase("12 probes", phase_probes, dev, smi)
     b10b_rows = phase("13 probes that move data", phase_probes_b10b, dev, smi)
+    forms14_counts, forms14_errs = phase("14 model forms", phase_model_forms, dev, smi)
     # K6 runs in both probe phases: one row, the forms and counts of both
     k6 = b10b_rows.pop("window_copy")
     probe_rows["window_copy"]["forms"] += k6["forms"]
@@ -1916,7 +2246,7 @@ def main():
 
     paths = {"serving_launches": counts, "batched_launches": batched_counts,
              "handler_launches": handler_counts, "train_launches": train_counts,
-             "block_forms_launches": forms_counts}
+             "block_forms_launches": forms_counts, "model_forms_launches": forms14_counts}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
@@ -1927,7 +2257,7 @@ def main():
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "also_replaces": also,
          **probe_rows[name]}
         for name, (src, rep, also) in PROBE_INFO.items()
-    ], "model_widths_max_abs_err": model_widths}))
+    ], "model_widths_max_abs_err": model_widths, "model_forms_max_abs_err": forms14_errs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

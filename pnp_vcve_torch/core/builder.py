@@ -78,6 +78,7 @@ def _build_pnp_vcve(
     flow_inter="bilinear",
     blocktype="drt",
     deform="vos",
+    deform_groups=16,
     remat=True,
     warp_impl="padgather",
     # the JAX serving flag: warp_impl='pf' refuses to run without it (as in
@@ -86,17 +87,9 @@ def _build_pnp_vcve(
     # reference knobs with no effect on the flagship path (as in the JAX builder)
     **_ignored,
 ):
-    unported = {
-        "vsr=True": vsr,
-        f"deform={deform!r}": deform != "vos",
-        f"flow_inter={flow_inter!r}": flow_inter != "bilinear",
-    }
-    for what, hit in unported.items():
-        if hit:
-            raise NotImplementedError(
-                f"PnPVCVE {what} is not ported to pnp_vcve_torch yet "
-                "(ROADMAP Queue A item 2b)"
-            )
+    if deform not in ("vos", "basic", "fvc"):
+        # 'stdf' raises in the reference too (iconvsr_ipb.py:26-28)
+        raise NotImplementedError(f"No such DCN type: {deform!r}")
     # build without drawing from the global RNG, then init from a seeded
     # generator on the CPU
     with torch.device("meta"):
@@ -113,6 +106,10 @@ def _build_pnp_vcve(
             channel_first=channel_first,
             blocktype=blocktype,
             align_key=align_key,
+            vsr=vsr,
+            flow_interpolation=flow_inter,
+            deform=deform,
+            deform_groups=deform_groups,
             remat=remat,
             warp_impl=warp_impl,
             use_pallas_kernels=use_pallas_kernels,

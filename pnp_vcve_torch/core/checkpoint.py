@@ -23,6 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .convert import shared_aligner_to_sweeps
+
 __all__ = [
     "read_state_dict", "load_generator_weights", "CheckpointManager", "restore_train_state",
 ]
@@ -31,9 +33,10 @@ _IGNORED = ("spynet.", "edvr.", "step_counter")
 
 
 def read_state_dict(path: str | Path) -> Dict[str, torch.Tensor]:
-    """Float32 CPU tensors under the reference names (``generator.`` prefix
-    stripped; the other entries of a full restorer checkpoint, such as a
-    discriminator's, dropped)."""
+    """Float32 CPU tensors under the port's names: the reference's
+    (``generator.`` prefix stripped; the other entries of a full restorer
+    checkpoint, such as a discriminator's, dropped), with the reference's
+    one ``deform_align.*`` written into each sweep's aligner."""
     path = Path(path)
     if path.suffix == ".npz":
         with np.load(path) as z:
@@ -45,7 +48,7 @@ def read_state_dict(path: str | Path) -> Dict[str, torch.Tensor]:
         raw = {k: v for k, v in raw.items() if k.startswith("generator.")}
     sd = {re.sub(r"^generator\.", "", k): v.float() for k, v in raw.items()}
     # submodules of other reference generators, ignored as the JAX converter does
-    return {k: v for k, v in sd.items() if not k.startswith(_IGNORED)}
+    return shared_aligner_to_sweeps({k: v for k, v in sd.items() if not k.startswith(_IGNORED)})
 
 
 def load_generator_weights(model: nn.Module, checkpoint: str, seed: int = 0):

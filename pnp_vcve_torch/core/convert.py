@@ -1,8 +1,15 @@
-"""JAX param tree -> state dict under the original reference's names: the
-inverse of ``pnp_vcve_tpu/core/convert.py: convert_generator_state_dict``
-(:59-173), for the generator with deform='vos' and vsr=False in every block
-form: conv2 an expert bank or (blocktype 'drt_woqp') a plain conv, conv1 a
-plain conv or (one_layer=False) an expert bank (the layouts of :106-120).
+"""JAX param tree -> state dict of the port's generator: the inverse of
+``pnp_vcve_tpu/core/convert.py: convert_generator_state_dict`` (:59-173),
+for the generator in every form the JAX builder accepts: conv2 an expert
+bank or (blocktype 'drt_woqp') a plain conv, conv1 a plain conv or
+(one_layer=False) an expert bank (the layouts of :106-120), each sweep's
+deformable aligner (deform 'basic'/'fvc') and the vsr upsampling convs.
+
+The names are the original reference's, except that each sweep owns its
+aligner (``{backward,forward}_deform_align.*``), as in JAX, where the
+reference shares one (``deform_align.*``); :func:`shared_aligner_to_sweeps`
+writes a reference state dict's one aligner into both, as JAX's converter
+does (:133-155).
 
 Layouts: flax Dense ``(in, out)`` -> Linear ``(out, in)``; HWIO -> OIHW;
 expert bank ``(K, kh, kw, in, out)`` -> ``(K, out, in, kh, kw)``; the stacked
@@ -16,7 +23,9 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params", "block_state_dict"]
+__all__ = [
+    "from_jax_params", "block_state_dict", "aligner_state_dict", "shared_aligner_to_sweeps",
+]
 
 
 def _t(a) -> torch.Tensor:
@@ -56,6 +65,16 @@ def block_state_dict(blk: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def aligner_state_dict(da: Mapping) -> Dict[str, torch.Tensor]:
+    """One JAX deformable aligner's params -> the port aligner's state dict
+    (``weight``, ``bias``, ``conv_offset.{0,2}.*``)."""
+    sd = {"weight": _oihw(da["weight"]), "bias": _t(da["bias"])}
+    for i, name in ((0, "conv0"), (2, "conv1")):
+        sd[f"conv_offset.{i}.weight"] = _oihw(da["conv_offset"][name]["kernel"])
+        sd[f"conv_offset.{i}.bias"] = _t(da["conv_offset"][name]["bias"])
+    return sd
+
+
 def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax param tree (numpy or JAX arrays) of ``pnp_vcve_tpu.models.PnPVCVE``
     -> float32 state dict loadable with ``load_state_dict(strict=True)`` by
@@ -76,11 +95,9 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
 
     for side in ("backward", "forward"):
         tree = params[side]
-        if "deform_align" in tree or any(k.startswith("upsample") for k in tree):
-            raise NotImplementedError(
-                "deform basic/fvc and vsr=True weights are not ported "
-                "(ROADMAP Queue A item 2b)"
-            )
+        if "deform_align" in tree:
+            sd.update({f"{side}_deform_align.{k}": v
+                       for k, v in aligner_state_dict(tree["deform_align"]).items()})
         rb = tree["resblocks"]
         pre = f"{side}_resblocks"
         sd[f"{pre}.input_conv.0.weight"] = _oihw(rb["input_conv_kernel"])
@@ -96,4 +113,22 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     sd["conv_hr.bias"] = _t(fwd["conv_hr_bias"])
     sd["conv_last.weight"] = _oihw(fwd["conv_last_kernel"])
     sd["conv_last.bias"] = _t(fwd["conv_last_bias"])
+    for up in ("upsample1", "upsample2"):
+        if f"{up}_kernel" in fwd:
+            sd[f"{up}.upsample_conv.weight"] = _oihw(fwd[f"{up}_kernel"])
+            sd[f"{up}.upsample_conv.bias"] = _t(fwd[f"{up}_bias"])
     return sd
+
+
+def shared_aligner_to_sweeps(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A state dict under the reference's names, its one shared
+    ``deform_align.*`` written into both sweeps' aligners; other entries
+    unchanged."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        if k.startswith("deform_align."):
+            for side in ("backward", "forward"):
+                out[f"{side}_{k}"] = v.clone()
+        else:
+            out[k] = v
+    return out

@@ -4,9 +4,11 @@ flagship's 64 on a path of its own; K1b up to 712 channels, its 9 x 9
 window's shared memory).
 
 K1 replaces ``pnp_vcve_tpu/kernels/warp_pf.py: warp_pf`` (:488) where the
-port trains and evaluates with ``padgather``: the flow is read per pixel and
-not clamped, so the kernel equals ``grid_sample(align_corners=True,
-padding_mode='zeros')`` for any flow. In training, :class:`WarpFunction`
+port trains and evaluates with ``padgather`` (and in the basic DCN
+aligner's pre-warp): the flow is read per pixel and not clamped, so the
+kernel equals ``grid_sample(align_corners=True, padding_mode='zeros')`` for
+any flow. Nearest interpolation and border padding have no kernel: they
+run ``ops.warp.flow_warp`` in plain PyTorch, as JAX runs them in XLA. In training, :class:`WarpFunction`
 carries the launch: the gradient for the warped feature is the plain
 version's, and the flow gets none (it is data: motion vectors from the
 bitstream).

@@ -1,18 +1,21 @@
 """PnP-VCVE flagship generator: CAA predictors + bidirectional BAE
-(counterpart of pnp_vcve_tpu/models/pnp_vcve.py, ``sweep='full'``).
+(counterpart of pnp_vcve_tpu/models/pnp_vcve.py).
 
 Reference model ``IconVSR_restore_wo_refill_mv_ipb_fast_domain_dynamic_with_par``
-with deform='vos' and vsr=False. As in the JAX package:
+in every form the JAX builder accepts. As in the JAX package:
 
 - keyframes come from the slice codes (73 'I' and 80 'P', first and last
-  frame forced), through cumulative scans (:func:`keyframe_indices`);
+  frame forced), through cumulative scans (:func:`keyframe_indices`), or
+  from an explicit ``keyframe_mask`` (a chunk boundary is not a clip
+  boundary);
 - each sweep carries only ``(prev_out, last_key, prev_was_key)``: in sweep
   order the nearest keyframe is the last one processed, so no feature store
   is carried; the backward sweep's outputs feed the forward sweep as ``cur``;
 - the expert mixing of every block is hoisted out of both sweeps (premix);
 - the align_key select rides the input conv as per-sample kernel gains;
 - inputs whose size is not a multiple of 4 are reflect-padded (MVs and
-  partitions zero-padded) and the output cropped back.
+  partitions zero-padded) and the output cropped back (to 4x the input
+  under ``vsr``).
 
 The sweeps are Python loops over t. Each step runs the kernels of
 ``self.ops`` (``pnp_vcve_torch.kernels.KERNELS`` by default): the warp, the
@@ -21,16 +24,21 @@ The blocks take the form ``blocktype``, ``one_layer`` and ``channel_first``
 give them (models/bae.py): one K3 each in the fused forms (the flagship,
 and 'drt_woqp' with its plain conv2), K5 for each 3x3 conv in the others.
 
-``warp_impl`` picks the warp as the JAX model does (``_align``, JAX
-pnp_vcve.py:140-169):
+The keyframe aligner (``_align``, JAX pnp_vcve.py:140-169):
 
-- ``'pf'`` (the serving config): K1b on each 8x8 block's flow clamped to
-  +-16 px; the last DRT block of every step is K3s, which also writes the
-  keyframe carry (JAX ``_kernel_select``). Needs ``use_pallas_kernels``,
-  the fused block form, 64 channels and h, w multiples of 16 (JAX's
-  guards, :530-546, and bae.py:391-395);
-- ``'block8'``: K1b on each block's flow, unclamped (K1 where h or w is not
-  a multiple of 8);
+- ``warp_impl='pf'`` (the serving config): K1b on each 8x8 block's flow
+  clamped to +-16 px; the last DRT block of every step is K3s, which also
+  writes the keyframe carry (JAX ``_kernel_select``). Needs
+  ``use_pallas_kernels``, deform='vos', vsr=False, the fused block form,
+  64 channels and h, w multiples of 16 (JAX's guards, :530-546, and
+  bae.py:391-395);
+- ``deform='basic'`` / ``'fvc'`` (models/alignment.py): the DCN aligners,
+  plain PyTorch around K1 (basic's pre-warp, when bilinear); each sweep owns
+  its aligner, as in JAX (the reference shares one; core/convert.py writes
+  it into both);
+- ``flow_interpolation='nearest'``: the plain nearest warp, as in JAX;
+- ``warp_impl='block8'``: K1b on each block's flow, unclamped (K1 where h
+  or w is not a multiple of 8);
 - anything else (``'padgather'``, training): K1 on the per-pixel flow.
 
 Outside ``'pf'`` the carry update is K3 plus a ``torch.where``, as on the
@@ -39,6 +47,14 @@ JAX default path. Both routes give the same bits; JAX's
 With ``remat`` (the default, as in the JAX package's ``nn.remat`` of each
 scan step, pnp_vcve.py:520-521) a step that records a graph keeps only its
 inputs and runs again in the backward, kernels included.
+
+``vsr=True`` (JAX :360-369): the step output goes through ``upsample1`` and
+``upsample2`` (conv c -> 4c, pixel shuffle x2, leaky ReLU), then conv_hr ->
+leaky ReLU -> conv_last at 4h x 4w, which is K4's function (``ops.head``),
+plus the bilinear x4 of the frame.
+
+``sweep``, ``carry``, ``bwd_feats`` and ``keyframe_mask`` drive the exact
+chunked two-sweep pipeline (JAX :430-444, 549-601), see :meth:`forward`.
 
 Inputs are NHWC: ``lrs (b,t,h,w,3)``, ``mvs (b,t,h,w,4)`` (fwd x,y, bwd x,y),
 ``par_map (b,t,h,w,3)``, scalars ``qps/slices/base_qps (b,t)``.
@@ -52,7 +68,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from pnp_vcve_torch.kernels import KERNELS
-from pnp_vcve_torch.ops.warp import PF_MAX_MV
+from pnp_vcve_torch.ops.dynamic_conv import conv2d_nhwc
+from pnp_vcve_torch.ops.upsample import bilinear_resize, pixel_shuffle
+from pnp_vcve_torch.ops.warp import PF_MAX_MV, flow_warp
+from .alignment import BasicDeformableAlignment, FVCDeformableAlignment
 from .bae import ResidualBlocksWithInputConvDynamicDRT, hwio
 from .caa import BasePredictor, BiasPredictor, SEModule
 from .init import torch_default_
@@ -92,6 +111,20 @@ def _time_major(x: torch.Tensor, dtype) -> torch.Tensor:
     return x.to(dtype).transpose(0, 1).contiguous()
 
 
+class PixelShufflePack(nn.Module):
+    """Conv c -> c * r * r, then pixel shuffle x r (the reference's
+    ``PixelShufflePack``, parameters ``upsample_conv.*``)."""
+
+    def __init__(self, channels: int, scale: int = 2):
+        super().__init__()
+        self.scale = scale
+        self.upsample_conv = nn.Conv2d(channels, channels * scale * scale, 3, 1, 1)
+
+    def forward(self, x):
+        conv = self.upsample_conv
+        return pixel_shuffle(conv2d_nhwc(x, hwio(conv.weight), conv.bias), self.scale)
+
+
 class PnPVCVE(nn.Module):
     """Flagship generator (config configs/HR_davis_LR_128x128.py)."""
 
@@ -109,6 +142,10 @@ class PnPVCVE(nn.Module):
         channel_first: bool = True,
         blocktype: str = "drt",
         align_key: bool = True,
+        vsr: bool = False,
+        flow_interpolation: str = "bilinear",
+        deform: str = "vos",
+        deform_groups: int = 16,
         feature_dtype: torch.dtype = torch.float32,
         remat: bool = True,
         warp_impl: str = "padgather",
@@ -126,6 +163,9 @@ class PnPVCVE(nn.Module):
         self.use_dynamic = blocktype == "drt"
         self.fused_blocks = one_layer and channel_first
         self.align_key = align_key
+        self.vsr = vsr
+        self.flow_interpolation = flow_interpolation
+        self.deform = deform
         self.feature_dtype = feature_dtype
         self.remat = remat
         self.warp_impl = warp_impl
@@ -150,8 +190,29 @@ class PnPVCVE(nn.Module):
         self.forward_resblocks = ResidualBlocksWithInputConvDynamicDRT(
             3 + c * (n_feat + 1), c, num_blocks, num_experts, **blocks
         )
+        # each sweep's keyframe aligner (None: the flow warp)
+        aligners = {
+            "basic": lambda: BasicDeformableAlignment(c, deform_groups, flow_interpolation),
+            "fvc": lambda: FVCDeformableAlignment(c, deform_groups),
+        }
+        if deform != "vos" and deform not in aligners:
+            raise ValueError(f"No such DCN type: {deform!r}")
+        make = aligners.get(deform)
+        self.backward_deform_align = make() if make else None
+        self.forward_deform_align = make() if make else None
+        if vsr:
+            # the reference hardcodes 64-channel heads (iconvsr.py:365-366);
+            # identical at mid_channels=64, parameterized as in JAX
+            self.upsample1 = PixelShufflePack(c)
+            self.upsample2 = PixelShufflePack(c)
         self.conv_hr = nn.Conv2d(c, c, 3, 1, 1)
         self.conv_last = nn.Conv2d(c, 3, 3, 1, 1)
+
+    def carry_feature_shape(self, h: int, w: int) -> tuple:
+        """Per-clip shape of a carry's feature tensors and of one backward
+        feature frame at (padded) size (h, w): NHWC under every warp_impl
+        (JAX packs the 'pf' carry in its pixel-pair layout instead)."""
+        return (h, w, self.mid_channels)
 
     def reset_parameters(self, generator: torch.Generator):
         """Random init from ``generator`` (the reference's init for the
@@ -161,24 +222,46 @@ class PnPVCVE(nn.Module):
             self.BiasePredictor.reset_parameters(generator)
         self.backward_resblocks.reset_parameters(generator)
         self.forward_resblocks.reset_parameters(generator)
+        for m in (self.backward_deform_align, self.forward_deform_align):
+            if m is not None:
+                m.reset_parameters(generator)
+        if self.vsr:
+            torch_default_(self.upsample1.upsample_conv, generator)
+            torch_default_(self.upsample2.upsample_conv, generator)
         torch_default_(self.conv_hr, generator)
         torch_default_(self.conv_last, generator)
 
-    def _align(self, last_key, flow):
-        """The keyframe aligner: the warp of ``warp_impl`` (module docstring)."""
+    def _align(self, aligner, last_key, flow):
+        """The keyframe aligner (module docstring); ``aligner`` is the
+        sweep's DCN aligner or None."""
         h, w = flow.shape[1:3]
         if self.warp_impl == "pf":
             return self.ops.flow_warp_block(last_key, flow, PF_MAX_MV)
+        if aligner is not None:
+            return aligner(last_key, flow, self.ops)
+        if self.flow_interpolation != "bilinear":
+            return flow_warp(last_key, flow, self.flow_interpolation)
         if self.warp_impl == "block8" and h % 8 == 0 and w % 8 == 0:
             return self.ops.flow_warp_block(last_key, flow, None)
         return self.ops.flow_warp(last_key, flow)
 
-    def _step(self, resblocks, lr, flow, par, is_key, mixed, prev_out, last_key,
+    def _head(self, out, lr):
+        """The forward step's reconstruction: K4 on the step output (at 4x
+        after the upsampling under ``vsr``) plus the frame."""
+        ops = self.ops
+        if self.vsr:
+            out = F.leaky_relu(self.upsample1(out), 0.1)
+            out = F.leaky_relu(self.upsample2(out), 0.1)
+            lr = bilinear_resize(lr, 4)
+        return ops.head(out, hwio(self.conv_hr.weight), self.conv_hr.bias,
+                        hwio(self.conv_last.weight), self.conv_last.bias) + lr
+
+    def _step(self, resblocks, aligner, lr, flow, par, is_key, mixed, prev_out, last_key,
               prev_was_key, cur):
         """One sweep step -> ``(out, new last_key, head output or None)``."""
         ops = self.ops
         # the zero carry warps to zero: no masking of the first step
-        parts = [lr, self._align(last_key, flow)]
+        parts = [lr, self._align(aligner, last_key, flow)]
         if self.with_cat:
             parts.append(prev_out)
         if cur is not None:
@@ -191,26 +274,26 @@ class PnPVCVE(nn.Module):
         else:
             out = resblocks(parts, par, mixed, ops, gate)
             last_key = torch.where(is_key[:, None, None, None], out, last_key)
-        y = None
-        if cur is not None:
-            y = ops.head(out, hwio(self.conv_hr.weight), self.conv_hr.bias,
-                         hwio(self.conv_last.weight), self.conv_last.bias) + lr
+        y = None if cur is None else self._head(out, lr)
         return out, last_key, y
 
-    def _sweep(self, resblocks, lrs, flows, par, keyframe, mixed, cur=None):
-        """One propagation sweep over the frames in list order; returns the
-        per-step block-stack outputs without ``cur`` (the backward sweep's,
-        which the forward sweep reads) and the heads' outputs with it (the
-        forward sweep keeps only its carry: at b=4, 8 frames of 720p in
-        float32 its step outputs would hold 7.5 GB more)."""
-        prev_out = torch.zeros(lrs[0].shape[:3] + (self.mid_channels,),
+    def _sweep(self, resblocks, aligner, lrs, flows, par, keyframe, mixed, cur=None,
+               carry=None):
+        """One propagation sweep over the frames in list order from ``carry``
+        (zeros if None); returns the per-step block-stack outputs without
+        ``cur`` (the backward sweep's, which the forward sweep reads), the
+        heads' outputs with it (the forward sweep keeps only its carry: at
+        b=4, 8 frames of 720p in float32 its step outputs would hold 7.5 GB
+        more), and the carry out."""
+        if carry is None:
+            zero = torch.zeros(lrs[0].shape[:3] + (self.mid_channels,),
                                dtype=lrs.dtype, device=lrs.device)
-        last_key = prev_out
-        prev_was_key = torch.zeros(lrs.shape[1], dtype=torch.bool, device=lrs.device)
+            carry = (zero, zero, torch.zeros(lrs.shape[1], dtype=torch.bool, device=lrs.device))
+        prev_out, last_key, prev_was_key = carry
         remat = self.remat and torch.is_grad_enabled()
         outs, ys = [], []
         for i in range(lrs.shape[0]):
-            args = (resblocks, lrs[i], flows[i], par[i], keyframe[i],
+            args = (resblocks, aligner, lrs[i], flows[i], par[i], keyframe[i],
                     [{k: v[i] for k, v in m.items()} for m in mixed],
                     prev_out, last_key, prev_was_key, None if cur is None else cur[i])
             if remat:
@@ -222,10 +305,26 @@ class PnPVCVE(nn.Module):
                 outs.append(out)
             else:
                 ys.append(y)
-        return outs, ys
+        return outs, ys, (prev_out, last_key, prev_was_key)
 
     def forward(self, lrs, qps, slices, mvs, base_qps, par_map,
-                is_mirror_extended: bool = False):
+                is_mirror_extended: bool = False, sweep: str = "full", carry=None,
+                bwd_feats=None, keyframe_mask=None):
+        """``(b, t, h, w, 3)`` float32 frames (``4h x 4w`` under ``vsr``).
+
+        The chunk API (JAX :430-444): ``sweep='backward'`` runs only the
+        backward propagation from ``carry`` and returns ``(bwd_feats (b, t,
+        h, w, c) in the feature type, carry_out)``; ``sweep='forward'``
+        consumes a chunk's ``bwd_feats`` and returns ``(ys, carry_out)``.
+        ``carry`` is ``(prev_out, last_key, prev_was_key)``, ``(b, h, w, c)``
+        twice (the padded size) and ``(b,)`` bool, or None for zeros.
+        ``keyframe_mask (b, t)`` replaces the keyframes of the slice codes and
+        their forced first and last frames. ``sweep='full'`` runs both sweeps
+        from the same ``carry``."""
+        if sweep not in ("full", "backward", "forward"):
+            raise ValueError(f"sweep must be 'full', 'backward' or 'forward', got {sweep!r}")
+        if sweep == "forward" and bwd_feats is None:
+            raise ValueError("sweep='forward' requires bwd_feats")
         b, t, h_in, w_in, _ = lrs.shape
         # pad to x4 (reference spatial_padding: reflect lrs bottom/right); the
         # priors are zero-padded (zero motion, no partition), output cropped
@@ -238,7 +337,7 @@ class PnPVCVE(nn.Module):
         h, w = lrs.shape[2:4]
         if self.warp_impl == "pf":
             # the JAX model's guards for its PF-resident serving pipeline
-            if not self.use_pallas_kernels:
+            if self.vsr or self.deform != "vos" or not self.use_pallas_kernels:
                 raise ValueError(
                     "warp_impl='pf' requires use_pallas_kernels=True, deform='vos', vsr=False"
                 )
@@ -274,7 +373,8 @@ class PnPVCVE(nn.Module):
             fwd_tail = flows_fwd[:, th:].flip(1)
             flows_fwd = torch.cat([flows_bwd[:, :1] * 0, fwd_tail[:, : t - 1]], 1)
 
-        keyframe = keyframe_indices(slices)[0].transpose(0, 1)  # (t, b)
+        keyframe = (keyframe_mask.bool() if keyframe_mask is not None
+                    else keyframe_indices(slices)[0]).transpose(0, 1)  # (t, b)
         dtype = self.feature_dtype
         lrs_t = _time_major(lrs, dtype)
         par_t = _time_major(par_map, dtype)
@@ -283,16 +383,24 @@ class PnPVCVE(nn.Module):
         bwd_t = _time_major(flows_bwd, dtype)
         wt = weights.float().transpose(0, 1)
         gt = gammas.float().transpose(0, 1)
-        mixed_b = self.backward_resblocks.premix(wt, gt)
-        mixed_f = self.forward_resblocks.premix(wt, gt)
 
-        bwd_outs, _ = self._sweep(
-            self.backward_resblocks, lrs_t.flip(0), bwd_t.flip(0), par_t.flip(0),
-            keyframe.flip(0), [{k: v.flip(0) for k, v in m.items()} for m in mixed_b],
+        if sweep == "forward":
+            cur = _time_major(bwd_feats, dtype)
+        else:
+            mixed_b = self.backward_resblocks.premix(wt, gt)
+            bwd_outs, _, carry_b = self._sweep(
+                self.backward_resblocks, self.backward_deform_align, lrs_t.flip(0),
+                bwd_t.flip(0), par_t.flip(0), keyframe.flip(0),
+                [{k: v.flip(0) for k, v in m.items()} for m in mixed_b], carry=carry,
+            )
+            cur = bwd_outs[::-1]  # back to time order
+            if sweep == "backward":
+                return torch.stack(cur, dim=1), carry_b
+        mixed_f = self.forward_resblocks.premix(wt, gt)
+        _, ys, carry_f = self._sweep(
+            self.forward_resblocks, self.forward_deform_align, lrs_t, fwd_t, par_t, keyframe,
+            mixed_f, cur=cur, carry=carry,
         )
-        bwd_feats = bwd_outs[::-1]  # back to time order
-        _, ys = self._sweep(
-            self.forward_resblocks, lrs_t, fwd_t, par_t, keyframe, mixed_f, cur=bwd_feats
-        )
-        out = torch.stack(ys, dim=1).float()
-        return out[:, :, :h_in, :w_in]
+        s = 4 if self.vsr else 1
+        out = torch.stack(ys, dim=1).float()[:, :, : s * h_in, : s * w_in]
+        return (out, carry_f) if sweep == "forward" else out

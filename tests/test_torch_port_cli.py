@@ -125,15 +125,45 @@ def test_shipped_configs_build_port_generator(name):
                                             / "HR_davis_LR_128x128.py").read_text()
 
 
-# the block forms drt_woqp, one_layer=False and channel_first=False build
-# since they were ported (tests/test_torch_port_blocks.py); these still raise
+# every generator form of the JAX builder builds since the block forms and
+# vsr / deform / flow_inter were ported (tests/test_torch_port_blocks.py,
+# tests/test_torch_port_forms.py); what the JAX package refuses, the port
+# refuses: a DCN type it has not, and the 'pf' serving path with vsr or a
+# DCN aligner (JAX core/builder.py:76-78, models/pnp_vcve.py:535-539)
 @pytest.mark.parametrize("override", [
-    dict(vsr=True), dict(deform="basic"), dict(deform="fvc"),
-    dict(flow_inter="nearest"), dict(vsr=True, one_layer=False),
+    dict(deform="stdf"), dict(deform="pcd"), dict(vsr=True, warp_impl="pf"),
+    dict(deform="basic", warp_impl="pf"), dict(vsr=True, one_layer=False, warp_impl="pf"),
 ])
 def test_unported_generator_variants_raise(override):
     from pnp_vcve_torch.core.builder import build_generator
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_generator(dict(type="PnPVCVE", mid_channels=8, num_blocks=1, **override),
-                        device="cpu")
+    cfg = dict(type="PnPVCVE", mid_channels=64, num_blocks=1, num_experts=2,
+               use_pallas_kernels=True, deform_groups=8, **override)
+    if "warp_impl" not in override:
+        with pytest.raises(NotImplementedError, match="No such DCN type"):
+            build_generator(cfg, device="cpu")
+        return
+    model = build_generator(cfg, device="cpu")
+    t, h, w = 2, 16, 16
+    inp = dict(lrs=torch.zeros(1, t, h, w, 3), qps=torch.zeros(1, t),
+               slices=torch.full((1, t), 73.0), mvs=torch.zeros(1, t, h, w, 4),
+               base_qps=torch.zeros(1, t), par_map=torch.zeros(1, t, h, w, 3))
+    with pytest.raises(ValueError, match="deform='vos', vsr=False"), torch.inference_mode():
+        model(**inp)
+
+
+def test_cli_runs_vsr_on_4x_gt(fixture_root, tmp_path):
+    """A vsr generator through the entry point (``--cfg-options
+    model.generator.vsr=True``) on a clip whose GT is 4x the LR: metrics
+    against the 4x frames, 4x PNGs written."""
+    gt = fixture_root / "x4" / "png" / "000"
+    gt.mkdir(parents=True)
+    for f in sorted((fixture_root / "crf25" / "png" / "000").iterdir()):
+        Image.open(f).resize((4 * W, 4 * H), Image.BICUBIC).save(gt / f.name)
+    out_dir = tmp_path / "out"
+    metrics = _cli().main([str(_write_cfg(tmp_path, fixture_root)), "-", "--device", "cpu",
+                           "--testdir_gt", str(fixture_root / "x4" / "png"),
+                           "--cfg-options", "model.generator.vsr=True",
+                           "--save-path", str(out_dir), "--save-image"])
+    assert set(metrics) == {"PSNR", "SSIM"} and all(np.isfinite(v) for v in metrics.values())
+    assert np.asarray(Image.open(out_dir / "000" / "00000000.png")).shape == (4 * H, 4 * W, 3)
