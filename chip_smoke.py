@@ -154,7 +154,26 @@ Phases (any failure raises and the script exits non-zero):
    under the serving config (parity weights) and the training config
    ('padgather'), chunked against full (max|diff| <= 1e-5, bitwise
    equality printed). Every run's launch counts must be its form's (per
-   frame 2 K1, 2 K2, 16 K3, 1 K4; fvc and nearest no K1; 'pf' as phase 4).
+   frame 2 K1, 2 K2, 16 K3, 1 K4; fvc and nearest no K1; 'pf' as phase 4);
+15. the exact two-sweep pipeline (``pnp_vcve_torch/parallel/seqpar.py``) on
+   the one card, each chunk's device ``cuda:0``: (a) one 8-frame 720p clip
+   under the serving config (parity weights) over D = 2 and 4 chunks, and
+   under the training config ('padgather') over 2, bitwise equal to the
+   full sweep; (b) three clips through the stream at D = 2, bitwise equal to
+   three single-clip pipelines, f/s of each mode beside the full sweep's
+   (one card: the chunks run one after another, so this is the pipeline's
+   overhead, not a speedup); (c) one 100-frame 720p clip made on the card
+   (the protocol fixture's texture, motion, slices and rasterised MVs)
+   through the flagship generator ('padgather', parity weights, float32) at
+   full context, f/s and peak device memory, then in windows of 20 frames:
+   max|diff| and the PSNR delta against the GT (uint8 levels, on the card);
+   (d) ``tools/torch_dist_test.sh`` with two ranks on the card (torchrun,
+   gloo) over a 3-clip 256x256 fixture (a 2/1 share): its dataset mean
+   within 1e-6 relative of the single-process ``tools/torch_test.py``
+   run's; (e) ``tools/torch_test.py --frame-parallel exact --stream-clips
+   2`` over ``cuda:0,cuda:0`` on that fixture writes PNGs bitwise equal to
+   the plain run's, with equal metrics. The launches of (a), (b), (c) and
+   (e) must be those of their frames.
 
 Each phase prints its wall time.
 The line before the last is a JSON object with each kernel's launches
@@ -163,7 +182,9 @@ before it and read just after; then each path's own: the serving path of
 phase 4, the batched path of phase 8, the handler of phase 10, training in
 phase 7, each block form's last 720p run in phase 11, phase 14's driven
 runs (the vsr CLI drive, basic's and fvc's timed 720p clips, the chunked
-clips); the probe tools' runs of phases 12 and 13 for K6-K13), its error, its time beside the plain
+clips), phase 15's pipeline-driven runs (``exact_pipeline_launches``: (a),
+(b), (c) and (e)); the probe tools' runs of phases 12 and 13 for K6-K13),
+its error, its time beside the plain
 version's, the library call's, its yardsticks' and the bounds (K2-K5:
 also the bfloat16 row under ``bf16``; K1-K4: also the worst error at
 the other widths, K2-K4's 720p row at 128 channels, and K3's and K4's
@@ -277,6 +298,12 @@ MODEL_FORMS = {"vsr": dict(vsr=True), "basic": dict(deform="basic"),
 VSR_LR_HW = (180, 320)  # REDS-LR: 720x1280 out
 OFFSET_SCALE = 0.1  # conv_offset's last conv (zero at init): offsets of ~1 px
 CHUNK_SPLIT, TOL_CHUNK = 3, 1e-5  # an 8-frame clip as 3 + 5 frames (frame 3 a B frame)
+# phase 15: the exact two-sweep pipeline (parallel/seqpar.py) on the one card:
+# pipeline depths over [cuda:0] * D, the stream, the 100-frame full-context
+# clip and its chunked run, the 2-rank world and the exact CLI's fixture
+PIPE_DEPTHS, STREAM_B, STREAM_D = (2, 4), 3, 2
+FULL_T, FULL_CHUNK_T, FULL_MOTION = 100, 20, (2, 1)
+DIST_CLIPS, DIST_HW, DIST_RANKS, DIST_RTOL = 3, (256, 256), 2, 1e-6
 # the tensor-core kernels (K2-K5) and the names of their device functions
 # (K4's two-launch form: head_hidden_tc, then head_last_kernel on the CUDA
 # cores)
@@ -2206,6 +2233,244 @@ def phase_model_forms(dev, smi):
     return total, errs
 
 
+def _full_context_clip(dev, t, h, w):
+    """One clip of t frames of the protocol fixture's kind, made on the card:
+    a periodic texture (tools/data/make_protocol_fixture.py) rolled by
+    FULL_MOTION a frame (GT, as uint8 levels), blurred, quantised and noised
+    (LQ), with the fixture's slices, QPs and MV records rasterised as the
+    loader does. Returns the time-first numpy sample and the GT on the card."""
+    import numpy as np
+    import torch
+
+    sys.path[:0] = [str(ROOT / "tools" / "data")]
+    from make_protocol_fixture import block_mv_records, slice_type, synth_texture
+
+    from pnp_vcve_torch.data.mv_raster import rasterize_clip
+
+    dx, dy = FULL_MOTION
+    tex = torch.from_numpy(synth_texture(np.random.default_rng(SEED + 15), h, w)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    gt = torch.stack([torch.roll(tex, (i * dy, i * dx), (0, 1)) for i in range(t)])
+    gt = (gt * 255).round().clamp(0, 255) / 255
+    k = (0.25, 0.5, 0.25)
+    lq = gt
+    for ax in (1, 2):
+        lq = k[0] * lq.roll(1, ax) + k[1] * lq + k[2] * lq.roll(-1, ax)
+    lq = (lq * 64).round() / 64 + 0.004 * torch.randn(lq.shape, device=dev, generator=gen)
+    lq = (lq.clamp(0, 1) * 255).round() / 255
+    kinds = [slice_type(i) for i in range(t)]
+    mv_ip, par_ip = rasterize_clip([np.zeros((0, 10), np.float32),
+                                    block_mv_records(h, w, dx, dy)], ["I", "P"], h, w)
+    pick = np.array([0 if s == "I" else 1 for s in kinds])
+    sample = dict(lq=lq.cpu().numpy(), qps=np.array([(25 + i % 5) / 255 for i in range(t)],
+                                                    np.float32),
+                  slices=np.array([float(ord(s)) for s in kinds], np.float32),
+                  mvs=mv_ip[pick], base_qps=np.full(t, 15 / 255, np.float32),
+                  partitions=par_ip[pick] / 255)
+    return sample, gt
+
+
+def _psnr_u8(out, gt):
+    """Per-frame PSNR on uint8 levels (the harness's tensor2img and psnr),
+    averaged over the frames, on the card."""
+    import torch
+
+    q = (out.clamp(0, 1) * 255).round()
+    mse = ((q - gt * 255) ** 2).mean(dim=(1, 2, 3))
+    return float((20 * torch.log10(255 / mse.sqrt())).mean())
+
+
+def phase_exact_pipeline(dev, smi):
+    """The exact two-sweep pipeline on one card (phase 15): (a) one 720p clip
+    of FRAMES frames over [cuda:0] * D for each of PIPE_DEPTHS under the
+    serving config, and at D = 2 under the training config ('padgather'),
+    bitwise equal to the full sweep; (b) STREAM_B clips through the stream
+    at D = STREAM_D, bitwise equal to single-clip pipelines, f/s of each
+    mode beside the full sweep's; (c) one FULL_T-frame 720p clip through the
+    flagship generator at full context (float32), f/s and peak memory, then
+    in FULL_CHUNK_T windows, max|diff| and the PSNR delta against the GT;
+    (d) tools/torch_dist_test.sh with DIST_RANKS ranks on the card over a
+    DIST_CLIPS-clip fixture against the single-process CLI run; (e)
+    tools/torch_test.py --frame-parallel exact --stream-clips 2 writing the
+    plain run's PNGs. Returns the launches of the pipeline-driven runs (a,
+    b, c and e)."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from pnp_vcve_torch.core.config import Config
+    from pnp_vcve_torch.kernels import LAUNCHES, reset_launches
+    from pnp_vcve_torch.parallel.seqpar import (
+        enhance_clip_exact_pipeline,
+        enhance_clips_exact_stream,
+    )
+    from pnp_vcve_torch.train.eval import enhance_clip
+    from pnp_vcve_torch.train.train_step import MODEL_INPUT_KEYS, make_eval_step
+
+    sys.path[:0] = [str(ROOT / "tools"), str(ROOT / "tools" / "data")]
+    import torch_test
+    from make_protocol_fixture import REDS4_CLIPS, write_fixture
+
+    total = {}
+
+    def counted(fn, expected, tag):
+        """Run fn with the counts zeroed before and read after; the counts
+        must be ``expected``; returns (fn's result, seconds)."""
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        if counts != expected:
+            raise AssertionError(f"{tag}: launches {counts}, expected {expected}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return out, dt
+
+    def times(per_pass, n):
+        return {k: v * n for k, v in per_pass.items()}
+
+    cuda = [dev]
+    h, w = MAIN_HW
+    t = FRAMES
+    rng = np.random.default_rng(SEED + 15)
+    clips = [_serving_sample(rng, t, h, w) for _ in range(STREAM_B)]
+    fps = {}
+    for config in ("HR_davis_LR_128x128_serving.py", "HR_davis_LR_128x128.py"):
+        model, cfg = _flagship_generator(config, dev)
+        gen_cfg = cfg.model["generator"]
+        impl = gen_cfg.get("warp_impl", "padgather")
+        per_pass = _launches_per_pass(t, gen_cfg["num_blocks"], impl)
+        step = make_eval_step(model)
+        step({k: clips[0][k][None] for k in MODEL_INPUT_KEYS})  # warm-up
+        full = []
+        t0 = time.perf_counter()
+        for c in clips if impl == "pf" else clips[:1]:
+            full.append(step({k: c[k][None] for k in MODEL_INPUT_KEYS})[0])
+        fps[f"{impl} full sweep"] = len(full) * t / (time.perf_counter() - t0)
+        # (a) the pipeline at each depth against the full sweep, bitwise
+        for D in PIPE_DEPTHS if impl == "pf" else (2,):
+            got, dt = counted(lambda: enhance_clip_exact_pipeline(model, clips[0], cuda * D),
+                              per_pass, f"{impl} pipeline D={D}")
+            eq = bool(np.array_equal(got, full[0]))
+            err = float(np.abs(got - full[0]).max())
+            fps[f"{impl} pipeline D={D}"] = t / dt
+            print(f"[exact15] (a) {impl}, one {t}-frame {h}x{w} clip over [{dev}] x {D}: "
+                  f"bitwise equal to the full sweep {eq} (max|diff| {err:.3g}); {dt:.3f} s")
+            if not eq:
+                raise AssertionError(f"the exact pipeline ({impl}, D={D}) is not bitwise "
+                                     "equal to the full sweep")
+        if impl != "pf":
+            del model, step
+            torch.cuda.empty_cache()
+            continue
+        # (b) the stream against single-clip pipelines, bitwise
+        single, dt = counted(lambda: [enhance_clip_exact_pipeline(model, c, cuda * STREAM_D)
+                                      for c in clips], times(per_pass, STREAM_B),
+                             "single-clip pipelines")
+        fps[f"pf pipeline D={STREAM_D}, {STREAM_B} clips one by one"] = STREAM_B * t / dt
+        streamed, dt = counted(lambda: enhance_clips_exact_stream(model, clips,
+                                                                  cuda * STREAM_D),
+                               times(per_pass, STREAM_B), "stream")
+        fps[f"pf stream B={STREAM_B} D={STREAM_D}"] = STREAM_B * t / dt
+        eq = [bool(np.array_equal(a, b)) for a, b in zip(streamed, single)]
+        eq_full = [bool(np.array_equal(a, b)) for a, b in zip(streamed, full)]
+        print(f"[exact15] (b) pf, stream of {STREAM_B} clips at D={STREAM_D}: bitwise equal "
+              f"to single-clip pipelines {eq}, to full sweeps {eq_full}")
+        if not all(eq) or not all(eq_full):
+            raise AssertionError("the stream is not bitwise equal to single-clip pipelines")
+        del model, step, single, streamed, full
+        torch.cuda.empty_cache()
+    print(f"[exact15] {smi}: {t} frames {h}x{w} float32, frames/s (host clock, synchronised, "
+          "host staging and copies included): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in fps.items()))
+
+    # (c) full context: FULL_T frames in one pass, then FULL_CHUNK_T windows
+    model, cfg = _flagship_generator("HR_davis_LR_128x128.py", dev)
+    per_pass = _launches_per_pass(FULL_T, cfg.model["generator"]["num_blocks"])
+    sample, gt = _full_context_clip(dev, FULL_T, h, w)
+    step = make_eval_step(model)
+    res = {}
+    for tag, chunk_t in (("full context", None), (f"chunk_t={FULL_CHUNK_T}", FULL_CHUNK_T)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, dt = counted(lambda: enhance_clip(step, sample, chunk_t=chunk_t), per_pass, tag)
+        res[tag] = dict(peak=torch.cuda.max_memory_allocated() / 2**30, s=dt,
+                        out=torch.from_numpy(out).to(dev))
+        res[tag]["psnr"] = _psnr_u8(res[tag]["out"], gt)
+        if not bool(torch.isfinite(res[tag]["out"]).all()) or out.shape != (FULL_T, h, w, 3):
+            raise AssertionError(f"{tag}: output {out.shape} not finite or of the wrong shape")
+        del out
+    a, b = res["full context"], res[f"chunk_t={FULL_CHUNK_T}"]
+    err = float((a["out"] - b["out"]).abs().max())
+    for tag, r in res.items():
+        print(f"[exact15] (c) {smi}: {FULL_T} frames {h}x{w}, flagship (padgather, parity "
+              f"weights), float32, {tag}: {r['s']:.3f} s = {FULL_T / r['s']:.3f} frames/s "
+              f"(enhance_clip, host staging included), peak device memory {r['peak']:.3f} "
+              f"GiB, PSNR against the GT {r['psnr']:.4f} dB")
+    print(f"[exact15] (c) chunk_t={FULL_CHUNK_T} against full context: max|diff| {err:.4g}, "
+          f"PSNR delta (full - chunked) {a['psnr'] - b['psnr']:+.4f} dB")
+    del model, step, res, a, b, gt, sample
+    torch.cuda.empty_cache()
+
+    # (d) two ranks on the card against one process; (e) the exact CLI's PNGs
+    work = ROOT / "build" / "chip_smoke" / "exact"
+    dh, dw = DIST_HW
+    write_fixture(work / "data", clips=REDS4_CLIPS[:DIST_CLIPS], frames=t, height=dh,
+                  width=dw, crf=15, seed=SEED + 15, quiet=True)
+    cfg = work / "serving.py"
+    cfg.write_text(
+        f"_base_ = [{str(CONFIGS / 'HR_davis_LR_128x128_serving.py')!r}]\n"
+        "from pnp_vcve_torch.core.presets import flagship_data\n"
+        f"data = flagship_data(test_lq={str(work / 'data/crf15/png')!r}, "
+        f"test_gt={str(work / 'data/sharp/png')!r}, "
+        f"test_qp_json={str(work / 'data/qp.json')!r})\n"
+        "data['test']['type'] = 'SRFolderMultipleGTDataset'\n"
+        f"data['test']['num_input_frames'] = {t}\n"
+    )
+    ckpt = str(ROOT / "tests/fixtures/parity/state_dict.npz")
+    plain = torch_test.main([str(cfg), ckpt, "--device", dev.type, "--save-path",
+                             str(work / "plain"), "--save-image"])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        ["bash", str(ROOT / "tools" / "torch_dist_test.sh"), str(cfg), ckpt, str(DIST_RANKS),
+         "--device", dev.type, "--out", str(work / "dist.pkl")],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHON=sys.executable))
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        print(proc.stdout[-3000:], proc.stderr[-3000:])
+        raise AssertionError(f"tools/torch_dist_test.sh exited {proc.returncode}")
+    with open(work / "dist.pkl", "rb") as f:
+        dist = pickle.load(f)
+    rel = {k: abs(dist[k] - v) / abs(v) for k, v in plain.items()}
+    shares = [ln for ln in proc.stdout.splitlines() if ln.startswith("[eval] ")
+              and "dataset mean" not in ln]
+    print(f"[exact15] (d) tools/torch_dist_test.sh, {DIST_RANKS} ranks on one card, "
+          f"{DIST_CLIPS} clips x {t} frames {dh}x{dw}: {len(shares)} clip lines, mean {dist} "
+          f"against one process {plain}, relative diff {rel} (<= {DIST_RTOL}); {wall:.1f} s "
+          "with the ranks' start-up")
+    if set(dist) != set(plain) or max(rel.values()) > DIST_RTOL or len(shares) != DIST_CLIPS:
+        raise AssertionError("the 2-rank run's dataset mean differs from one process's")
+    per_pass = _launches_per_pass(t, Config.fromfile(cfg).model["generator"]["num_blocks"], "pf")
+    exact, _ = counted(lambda: torch_test.main([
+        str(cfg), ckpt, "--device", dev.type, "--save-path", str(work / "exact"), "--save-image",
+        "--frame-parallel", "exact", "--stream-clips", "2", "--pipeline-devices",
+        f"{dev},{dev}"]), times(per_pass, DIST_CLIPS), "exact CLI")
+    pngs = sorted((work / "plain").glob("*/*.png"))
+    same = [f.read_bytes() == (work / "exact" / f.parent.name / f.name).read_bytes()
+            for f in pngs]
+    print(f"[exact15] (e) tools/torch_test.py --frame-parallel exact --stream-clips 2 over "
+          f"{dev},{dev}: {sum(same)} of {len(pngs)} PNGs bitwise equal to the plain run's; "
+          f"metrics {exact} against {plain}")
+    if len(pngs) != DIST_CLIPS * t or not all(same) or exact != plain:
+        raise AssertionError("the exact CLI run's PNGs or metrics differ from the plain run's")
+    return total
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     # deterministic cuBLAS for the resume check of phase 7; read when cuBLAS
@@ -2235,6 +2500,7 @@ def main():
     probe_rows = phase("12 probes", phase_probes, dev, smi)
     b10b_rows = phase("13 probes that move data", phase_probes_b10b, dev, smi)
     forms14_counts, forms14_errs = phase("14 model forms", phase_model_forms, dev, smi)
+    exact_counts = phase("15 exact pipeline", phase_exact_pipeline, dev, smi)
     # K6 runs in both probe phases: one row, the forms and counts of both
     k6 = b10b_rows.pop("window_copy")
     probe_rows["window_copy"]["forms"] += k6["forms"]
@@ -2246,7 +2512,8 @@ def main():
 
     paths = {"serving_launches": counts, "batched_launches": batched_counts,
              "handler_launches": handler_counts, "train_launches": train_counts,
-             "block_forms_launches": forms_counts, "model_forms_launches": forms14_counts}
+             "block_forms_launches": forms_counts, "model_forms_launches": forms14_counts,
+             "exact_pipeline_launches": exact_counts}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),

@@ -96,9 +96,17 @@ def premix_block_params(weights_t, gammas_t, bank, bias_bank):
     packing): ``weights_t (..., E)`` routing (``(t, b, E)`` in the sweeps),
     ``gammas_t (..., c)`` gains, ``bank (E, c_out, c_in, 3, 3)`` and
     ``bias_bank (E, c_out)`` as stored under the reference names ->
-    ``{w2 (..., 3, 3, c_in, c_out), b2 (..., c), g (..., c)}`` in float32."""
-    w2 = torch.einsum("...e,eoiyx->...yxio", weights_t.float(), bank.float())
-    b2 = torch.einsum("...e,eo->...o", weights_t.float(), bias_bank.float())
+    ``{w2 (..., 3, 3, c_in, c_out), b2 (..., c), g (..., c)}`` in float32.
+
+    The sum over the experts runs one elementwise product and add at a time
+    (JAX: one einsum), so each frame's mix gets the same bits whatever the
+    count of frames mixed together: a matmul may pick its algorithm by the
+    row count, and then a chunk of a clip would mix other bits than the
+    whole clip."""
+    w = weights_t.float()
+    bank = bank.float().permute(0, 3, 4, 2, 1)  # (e, 3, 3, c_in, c_out)
+    w2 = sum(w[..., e, None, None, None, None] * bank[e] for e in range(w.shape[-1]))
+    b2 = sum(w[..., e, None] * bias_bank[e].float() for e in range(w.shape[-1]))
     return dict(w2=w2, b2=b2, g=gammas_t.float())
 
 

@@ -351,9 +351,14 @@ class PnPVCVE(nn.Module):
                     f"warp_impl='pf' needs mid_channels=64 and h,w % 16 == 0, got c={c}, {h}x{w}"
                 )
 
-        weights = self.BasePredictor(base_qps if self.use_base_qp else qps)
+        # the routing and the gains a frame at a time: each call then has the
+        # same shapes, and gives the same bits, whatever the length of the
+        # clip or chunk (on the CPU a matmul over 2 rows rounds otherwise than
+        # over 8), so the exact pipeline equals the full sweep bit for bit
+        q = base_qps if self.use_base_qp else qps
+        weights = torch.cat([self.BasePredictor(q[:, i:i + 1]) for i in range(t)], 1)
         if self.with_bias and self.with_se and self.use_dynamic:
-            gammas = self.BiasePredictor(qps)[0]
+            gammas = torch.cat([self.BiasePredictor(qps[:, i:i + 1])[0] for i in range(t)], 1)
         else:  # the gain applies only to the with_se dynamic blocks (JAX bae.py:169)
             gammas = torch.ones((b, t, c), device=lrs.device)
 

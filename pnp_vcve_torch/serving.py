@@ -11,8 +11,10 @@ measured.
 - :func:`batched_forward_executor` stacks B same-shape clips on the model's
   batch axis and runs one forward: one card, throughput first, each clip's
   latency growing with B.
-- :func:`exact_stream_executor`, the multi-card frame-parallel pipeline of
-  the JAX package, is not ported yet (ROADMAP Queue A item 6).
+- :func:`exact_stream_executor` runs one clip through the exact two-sweep
+  pipeline over a list of devices, and B clips through its stream
+  (parallel/seqpar.py): each output equal bit for bit to the clip's full
+  sweep.
 
 The dispatcher is a thread of its own, and PyTorch's grad mode is per
 thread: the executor enters ``torch.inference_mode()`` itself (through
@@ -203,10 +205,22 @@ def batched_forward_executor(model) -> Callable[[Sequence[dict]], List[np.ndarra
     return run
 
 
-def exact_stream_executor(*args, **kwargs):
-    """The multi-card frame-parallel executor of the JAX package (B clips
-    through the B/(B+D-1) streaming exact two-sweep pipeline)."""
-    raise NotImplementedError(
-        "exact_stream_executor (multi-card frame-parallel serving) is not ported to the "
-        "PyTorch port yet (ROADMAP Queue A item 6)"
+def exact_stream_executor(model, devices: Sequence, feature_dtype=None
+                          ) -> Callable[[Sequence[dict]], List[np.ndarray]]:
+    """Multi-device executor (JAX serving.py:235-256): one clip through the
+    exact pipeline over ``devices`` (chunk d on ``devices[d]``, repeats
+    allowed; t divisible by their count), B clips through its stream, B + D
+    - 1 steps a sweep. Each output equals the clip's full sweep bit for
+    bit. ``feature_dtype``: the sweeps' feature type (None: the
+    generator's)."""
+    from pnp_vcve_torch.parallel.seqpar import (
+        enhance_clip_exact_pipeline,
+        enhance_clips_exact_stream,
     )
+
+    def run(samples: Sequence[dict]) -> List[np.ndarray]:
+        if len(samples) == 1:
+            return [enhance_clip_exact_pipeline(model, samples[0], devices, feature_dtype)]
+        return enhance_clips_exact_stream(model, list(samples), devices, feature_dtype)
+
+    return run

@@ -1,26 +1,34 @@
 """Evaluation harness: full-clip enhancement and the sequence metrics
 (counterpart of pnp_vcve_tpu/train/eval.py: ``enhance_clip`` :57-74,
-``evaluate_dataset`` :77-190), on one device.
+``evaluate_dataset`` :77-190, ``enhance_clip_frame_parallel`` :245-309).
 
 Per clip: run the generator over the whole sequence (or over independent
 ``chunk_t``-frame windows), compute per-frame PSNR/SSIM on uint8-quantised
 frames, average per clip and then over the dataset, and optionally write
 ``<save_path>/<clip>/<i:08d>.png``.
+
+Memory: the backward sweep keeps a ``(1, t, h, w, c)`` feature stack on the
+device (100 frames of 720p at 64 channels in float32: 23.6 GB). ``chunk_t``
+splits a clip into independent windows (each window's first and last frames
+forced keyframes, like any clip boundary); ``frame_parallel='exact'``
+splits it over devices without changing a bit (parallel/seqpar.py).
 """
 
 from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
+import torch
 
 from pnp_vcve_torch.metrics import tensor2img
 from pnp_vcve_torch.models.restorer import Restorer, average_clip_metrics
-from .train_step import MODEL_INPUT_KEYS, make_eval_step
+from .train_step import MODEL_INPUT_KEYS, _model_inputs, make_eval_step
 
-__all__ = ["evaluate_dataset", "enhance_clip", "is_mirror_extended"]
+__all__ = ["evaluate_dataset", "enhance_clip", "enhance_clip_frame_parallel",
+           "is_mirror_extended"]
 
 
 def _save_frames(frames_u8: np.ndarray, clip_name: str, save_path: str):
@@ -59,6 +67,16 @@ def enhance_clip(eval_step, sample: dict, chunk_t: Optional[int] = None) -> np.n
     return np.concatenate(outs, axis=0)
 
 
+def _local_devices(model: torch.nn.Module, distributed: bool) -> list:
+    """The exact pipeline's default devices: every local card when the
+    generator is on a card and this is the only process, else the
+    generator's own device."""
+    home = next(model.parameters()).device
+    if home.type == "cuda" and not distributed:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [home]
+
+
 def evaluate_dataset(
     restorer: Restorer,
     dataset: Iterable[dict],
@@ -69,22 +87,81 @@ def evaluate_dataset(
     cascade=None,
     distributed: bool = False,
     frame_parallel: Optional[str] = None,
+    stream_clips: int = 1,
+    devices: Optional[Sequence[torch.device]] = None,
 ) -> Dict[str, float]:
     """Enhance every clip of ``dataset`` with ``restorer.generator`` and
-    return the dataset mean of the clip metrics. The cascade, multi-process
-    and frame-parallel modes of the JAX harness are not ported yet."""
+    return the dataset mean of the clip metrics.
+
+    ``frame_parallel='exact'``: each clip runs through the exact chunked
+    two-sweep pipeline over ``D = largest_divisor_chunks(t, len(devices))``
+    of ``devices`` (default: every local card, or the generator's device),
+    equal bit for bit to the full sweep (parallel/seqpar.py).
+    ``stream_clips=B > 1`` streams up to B consecutive same-shape clips
+    through it together (B + D - 1 pipeline steps instead of B * D); the
+    outputs, and so the metrics, do not change.
+
+    ``distributed=True``: this process evaluates its rank-strided share of
+    the clips (``dataset.load_clip``) and the dataset mean is the exact
+    count-weighted reduction over the process group (parallel/multihost.py).
+    Images are written by the rank that made them.
+
+    ``cascade`` (a downstream VSR model) is not ported yet (ROADMAP Queue A
+    item 8)."""
     if cascade is not None:
-        raise NotImplementedError("cascade eval is not ported yet (ROADMAP Queue A item 3)")
-    if distributed or frame_parallel:
-        raise NotImplementedError(
-            "distributed / frame-parallel eval is not ported yet (ROADMAP Queue A item 6)"
+        raise NotImplementedError("cascade eval is not ported yet (ROADMAP Queue A item 8)")
+    if frame_parallel not in (None, "exact"):
+        raise ValueError(f"frame_parallel must be None or 'exact', got {frame_parallel!r}")
+    gen = restorer.generator
+    eval_step = make_eval_step(gen)
+    if frame_parallel == "exact":
+        from pnp_vcve_torch.parallel.seqpar import (
+            enhance_clips_exact_stream,
+            largest_divisor_chunks,
         )
-    eval_step = make_eval_step(restorer.generator)
-    per_clip = []
-    for sample in dataset:
+
+        devices = list(devices) if devices else _local_devices(gen, distributed)
+    if distributed:
+        import torch.distributed as dist
+
+        from pnp_vcve_torch.parallel.multihost import allreduce_clip_metrics, shard_clips
+
+        rank, world = ((dist.get_rank(), dist.get_world_size()) if dist.is_initialized()
+                       else (0, 1))
+        idxs = shard_clips(len(dataset), rank, world)  # type: ignore[arg-type]
+        samples = (dataset.load_clip(i) for i in idxs)  # type: ignore[attr-defined]
+    else:
+        samples = dataset
+
+    def exact(buf):
+        """Yield (sample, out, seconds per clip) for a same-shape buffer."""
         t0 = time.perf_counter()
-        out = enhance_clip(eval_step, sample, chunk_t=chunk_t)
-        dt = time.perf_counter() - t0
+        d = largest_divisor_chunks(buf[0]["lq"].shape[0], len(devices))
+        outs = enhance_clips_exact_stream(gen, buf, devices[:d])
+        dt = (time.perf_counter() - t0) / len(buf)
+        for sample, out in zip(buf, outs):
+            yield sample, out, dt
+
+    def enhanced():
+        """Yield (sample, out, seconds per clip) in dataset order."""
+        if frame_parallel == "exact":
+            buf = []
+            for sample in samples:
+                if buf and (len(buf) >= stream_clips
+                            or sample["lq"].shape != buf[0]["lq"].shape):
+                    yield from exact(buf)
+                    buf = []
+                buf.append(sample)
+            if buf:
+                yield from exact(buf)
+            return
+        for sample in samples:
+            t0 = time.perf_counter()
+            out = enhance_clip(eval_step, sample, chunk_t=chunk_t)
+            yield sample, out, time.perf_counter() - t0
+
+    per_clip = []
+    for sample, out, dt in enhanced():
         clip_name = sample.get("clip_name", f"clip{len(per_clip):03d}")
         metrics = restorer.evaluate_clip(out, sample["gt"])
         per_clip.append(metrics)
@@ -93,7 +170,55 @@ def evaluate_dataset(
             print(f"[eval] {clip_name}: {msg} ({out.shape[0]} frames, {dt:.2f}s)")
         if save_image and save_path:
             _save_frames(np.stack([tensor2img(f) for f in out]), clip_name, save_path)
-    agg = average_clip_metrics(per_clip)
+    agg = allreduce_clip_metrics(per_clip) if distributed else average_clip_metrics(per_clip)
     if verbose and agg:
         print("[eval] dataset mean: " + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
     return agg
+
+
+def enhance_clip_frame_parallel(model: torch.nn.Module, sample: dict,
+                                devices: Sequence[torch.device], chunk_t: int,
+                                halo_t: int = 2) -> np.ndarray:
+    """Overlapped-window clip enhancement spread over ``devices`` (JAX
+    :245-309): an approximation, unlike the exact pipeline.
+
+    The clip splits into windows of ``chunk_t`` frames plus ``halo_t``
+    context frames on each side (each window's first and last frames forced
+    keyframes, like any clip boundary). The window list is padded to a
+    multiple of the device count (repeating the last window), every window
+    to the longest (repeating its last frame), and device ``i`` runs the
+    full two-sweep generator on the i-th group of windows as one batch; the
+    halo frames are dropped on stitching. ``halo_t=0`` is ``enhance_clip(
+    chunk_t=...)`` where ``chunk_t`` divides t; the error decays with
+    ``halo_t``. Returns ``(t, h, w, 3)`` float32 numpy."""
+    from pnp_vcve_torch.parallel.seqpar import _replicas
+
+    devices = [torch.device(d) for d in devices]
+    t = sample["lq"].shape[0]
+    windows, spans = [], []
+    for s in range(0, t, chunk_t):
+        e = min(s + chunk_t, t)
+        ws, we = max(0, s - halo_t), min(t, e + halo_t)
+        windows.append((ws, we))
+        spans.append((s - ws, e - ws))
+    wlen = max(we - ws for ws, we in windows)
+    while len(windows) % len(devices):
+        windows.append(windows[-1])
+        spans.append((0, 0))  # contributes nothing
+
+    def window(k, ws, we):
+        a = np.asarray(sample[k][ws:we], np.float32)
+        if a.shape[0] < wlen:  # repeat the edge frame
+            a = np.pad(a, [(0, wlen - a.shape[0])] + [(0, 0)] * (a.ndim - 1), mode="edge")
+        return a
+
+    batch = _model_inputs({k: np.stack([window(k, ws, we) for ws, we in windows])
+                           for k in MODEL_INPUT_KEYS})
+    per = len(windows) // len(devices)
+    reps = _replicas(model, devices)
+    with torch.inference_mode():  # every device's group launched before any is read
+        outs = [reps[dev](**{k: torch.as_tensor(v[i * per:(i + 1) * per], device=dev)
+                             for k, v in batch.items()})
+                for i, dev in enumerate(devices)]
+        out = torch.cat([o.cpu() for o in outs]).numpy()
+    return np.concatenate([out[i, s0:e0] for i, (s0, e0) in enumerate(spans) if e0 > s0])

@@ -96,17 +96,54 @@ def test_cli_refuses_cuda_without_a_card(fixture_root, tmp_path):
         _cli().main([str(_write_cfg(tmp_path, fixture_root)), "-", "--device", "cuda"])
 
 
-@pytest.mark.parametrize("flag", [["--cascade"], ["--frame-parallel", "exact"], ["--multihost"]])
+def test_cli_exact_stream_writes_the_plain_runs_pngs(fixture_root, tmp_path):
+    """--frame-parallel exact --stream-clips 2 over two chunks on the CPU
+    (--pipeline-devices cpu,cpu) and three clips (a stream of 2, then 1):
+    the PNGs and metrics of the plain run, bit for bit."""
+    import shutil
+
+    for clip in ("001", "002"):
+        for sub in ("png", "mv"):
+            src = fixture_root / "crf25" / sub
+            shutil.copytree(src / "000", src / clip)
+    qp = json.loads((fixture_root / "qp.json").read_text())
+    entries = qp["crf25"]["000"]
+    qp["crf25"]["001"] = {k: dict(v, slice="P" if v["slice"] == "B" else v["slice"])
+                          for k, v in entries.items()}
+    qp["crf25"]["002"] = dict(entries)
+    (fixture_root / "qp.json").write_text(json.dumps(qp))
+    cfg = str(_write_cfg(tmp_path, fixture_root))
+    cli = _cli()
+    plain = cli.main([cfg, "-", "--device", "cpu", "--save-path", str(tmp_path / "a"),
+                      "--save-image"])
+    exact = cli.main([cfg, "-", "--device", "cpu", "--save-path", str(tmp_path / "b"),
+                      "--save-image", "--frame-parallel", "exact", "--stream-clips", "2",
+                      "--pipeline-devices", "cpu,cpu"])
+    assert exact == plain
+    pngs = sorted((tmp_path / "a").glob("*/*.png"))
+    assert len(pngs) == 3 * T_FRAMES
+    for f in pngs:
+        assert f.read_bytes() == (tmp_path / "b" / f.parent.name / f.name).read_bytes()
+    with pytest.raises(SystemExit):  # argparse: exact is the one mode
+        cli.parse_args([cfg, "-", "--frame-parallel", "halo"])
+
+
+@pytest.mark.parametrize("flag", [["--cascade"], ["--joint-pqf-config", "pqf.py"],
+                                  ["--cascade_config", "vsr.py"]])
 def test_cli_unported_flags_name_their_roadmap_item(fixture_root, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The cascade and the MFQE joint protocol wait for the baselines."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
         _cli().main([str(_write_cfg(tmp_path, fixture_root)), "-", "--device", "cpu", *flag])
 
 
-@pytest.mark.parametrize("name", ["HR_davis_LR_128x128.py", "HR_davis_LR_128x128_serving.py"])
+@pytest.mark.parametrize("name", ["HR_davis_LR_128x128.py", "HR_davis_LR_128x128_serving.py",
+                                  "HR_davis_LR_128x128_IPB.py",
+                                  "HR_davis_LR_128x128_IPB_LR_test.py"])
 def test_shipped_configs_build_port_generator(name):
     """The port's flagship configs load through its own Config and builder,
     at the flagship widths, under the reference's parameter names, and
-    carry the shipped configs' settings."""
+    carry the shipped configs' settings; the IPB configs' loaders read the
+    slice type for the QP, as the JAX package's do, over its test folders."""
     from pnp_vcve_torch.core.config import Config
     from pnp_vcve_torch.core.builder import build_restorer
     from pnp_vcve_torch.models.pnp_vcve import PnPVCVE
@@ -118,6 +155,15 @@ def test_shipped_configs_build_port_generator(name):
     with np.load(REPO / "tests" / "fixtures" / "parity" / "state_dict.npz") as z:
         ref = {k: z[k].shape for k in z.files}
     assert {k: tuple(v.shape) for k, v in gen.state_dict().items()} == ref
+    if "IPB" in name:
+        jax_cfg = Config.fromfile(REPO / "configs" / name)
+        for c in (cfg, jax_cfg):
+            loaders = [s for d in c.data["train"] + [c.data["test"]]
+                       for s in (d.get("dataset", d)["pipeline"])
+                       if s["type"] == "LoadImageFromFileList_ipb"]
+            assert loaders and all(s["replace_qp_withIPB"] for s in loaders)
+        for k in ("lq_folder", "gt_folder", "type"):
+            assert cfg.data["test"][k] == jax_cfg.data["test"][k]
     shipped = (REPO / "configs" / "HR_davis_LR_128x128.py").read_text()
     for line in ("optimizers = dict(generator=dict(type=\"Adam\", lr=2e-4, betas=(0.9, 0.99)))",
                  "train_cfg = dict(fix_iter=5000)", "min_lr=1e-7,", "periods=[300000],"):

@@ -160,8 +160,23 @@ def test_scheduler_concurrent_submitters(tiny):
 
 
 def test_exact_stream_executor_not_ported(tiny):
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        exact_stream_executor(tiny)
+    """The exact pipeline's executor behind the scheduler (two chunks on the
+    CPU): dispatches of 1 and of 2 clips, each clip bitwise equal to its
+    own full sweep."""
+    rng = np.random.default_rng(8)
+    samples = [make_sample(rng, 4, 16, 16) for _ in range(3)]
+    sched = StreamScheduler(exact_stream_executor(tiny, ["cpu", "cpu"]), max_batch=2,
+                            max_wait_s=0.5)
+    tickets = [sched.submit("a", samples[0]), sched.submit("a", samples[1])]
+    outs = [t.wait(60) for t in tickets]
+    tickets.append(sched.submit("b", samples[2]))
+    outs.append(tickets[-1].wait(60))
+    sched.close()
+    assert sorted(t.dispatched_batch for t in tickets) == [1, 2, 2]
+    eval_step = make_eval_step(tiny)
+    for s, o in zip(samples, outs):
+        np.testing.assert_array_equal(
+            o, eval_step({k: np.asarray(s[k])[None] for k in MODEL_INPUT_KEYS})[0])
 
 
 # ---- the APIs ---------------------------------------------------------------------------------

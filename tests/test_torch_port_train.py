@@ -300,9 +300,11 @@ def test_train_cli_resume_equals_uninterrupted_run(fixture_root, tmp_path):
 
 
 def test_port_and_clis_import_no_jax(fixture_root, tmp_path):
-    """One process imports every module of pnp_vcve_torch (serving and apis
-    among them), runs both CLIs on the CPU, a batched dispatch, the serving
-    curve, the packager, the handler and the five probe tools (K6-K13's
+    """One process imports every module of pnp_vcve_torch (serving, apis and
+    parallel among them), runs both CLIs on the CPU (the test CLI also as the
+    exact pipeline's stream over two chunks), a batched dispatch and an exact
+    one, the overlapped-window eval, the serving curve, the packager, the
+    handler, the protocol tool's exact leg and the five probe tools (K6-K13's
     plain versions at small shapes); neither jax nor any pnp_vcve_tpu module
     gets imported."""
     cfg = _write_cli_cfg(tmp_path, fixture_root)
@@ -316,19 +318,29 @@ mods = [m.name for m in pkgutil.walk_packages(pnp_vcve_torch.__path__, "pnp_vcve
 for m in mods:
     importlib.import_module(m)
 import torch_test, torch_train, torch_serving_curve, torch_pnp2servable, torch_serving_handler
-import torch_kernel_bounds
+import torch_kernel_bounds, torch_protocol_eval
 import torch_int8_probe, torch_warp_kernel_probe2, torch_warp_bisect
 import torch_warp_kernel_probe, torch_dma_probe
 from pnp_vcve_torch import apis, serving
 torch_train.main([{str(cfg)!r}, "--device", "cpu", "--work-dir", {str(tmp_path / 'w')!r},
                   "--total-iters", "1"])
 torch_test.main([{str(cfg)!r}, {str(ckpt)!r}, "--device", "cpu"])
+torch_test.main([{str(cfg)!r}, {str(ckpt)!r}, "--device", "cpu", "--frame-parallel", "exact",
+                 "--stream-clips", "2", "--pipeline-devices", "cpu,cpu"])
 model = apis.init_model({str(cfg)!r}, {str(ckpt)!r}, device="cpu")
 run = serving.batched_forward_executor(model.generator)
 sample = dict(lq=np.zeros((2, 8, 8, 3), np.float32), qps=np.zeros(2, np.float32),
               slices=np.full(2, 73.0, np.float32), mvs=np.zeros((2, 8, 8, 4), np.float32),
               base_qps=np.zeros(2, np.float32), partitions=np.zeros((2, 8, 8, 3), np.float32))
 assert [o.shape for o in run([sample, sample])] == [(2, 8, 8, 3)] * 2
+exact = serving.exact_stream_executor(model.generator, ["cpu", "cpu"])
+assert [o.shape for o in exact([sample, sample])] == [(2, 8, 8, 3)] * 2
+from pnp_vcve_torch.train.eval import enhance_clip_frame_parallel
+assert enhance_clip_frame_parallel(model.generator, sample, ["cpu"], 1, 1).shape == (2, 8, 8, 3)
+torch_protocol_eval.main(["--device", "cpu", "--root", {str(tmp_path / 'proto')!r}, "--frames",
+                          "2", "--height", "16", "--width", "16", "--clips", "000",
+                          "--skip-card", "--exact-mid", "8", "--exact-blocks", "1",
+                          "--exact-experts", "2"])
 torch_serving_curve.main(["--device", "cpu", "--config", {str(cfg)!r}, "--max-b", "1",
                           "--t", "2", "--hw", "8", "8", "--iters", "1"])
 srv = torch_pnp2servable.main([{str(cfg)!r}, {str(ckpt)!r}, "--output-folder",

@@ -5,6 +5,8 @@ tools/test.py, plus ``--device``).
     python tools/torch_test.py CONFIG CHECKPOINT [--testdir_lr D] [--testdir_gt D]
         [--save-path P --save-image] [--chunk-t N] [--cfg-options k=v ...]
         [--out metrics.pkl] [--device cuda|cpu]
+        [--frame-parallel exact [--stream-clips N] [--pipeline-devices cuda:0,cuda:1]]
+        [--launcher pytorch] [--multihost]
 
 CONFIG is any config file, for example the port's own
 ``pnp_vcve_torch/configs/HR_davis_LR_128x128_serving.py``. CHECKPOINT is a
@@ -12,6 +14,17 @@ CONFIG is any config file, for example the port's own
 training checkpoint of tools/torch_train.py, or ``-`` for a random init.
 ``--device cuda`` (the default) runs the CUDA kernels and fails when there
 is no GPU; ``--device cpu`` runs the kernels' plain PyTorch versions.
+
+``--frame-parallel exact`` runs each clip through the exact chunked
+two-sweep pipeline (pnp_vcve_torch/parallel/seqpar.py), equal bit for bit
+to the plain run, over every local card or over ``--pipeline-devices``
+(this port's option: a comma-separated device list, repeats allowed, e.g.
+``cuda:0,cuda:0`` for two chunks on one card); ``--stream-clips N`` streams
+N same-shape clips through it together. ``--launcher pytorch`` or
+``--multihost`` joins the ``torchrun`` world (tools/torch_dist_test.sh):
+each rank takes the card ``LOCAL_RANK % device_count`` and its rank-strided
+share of the clips, and the dataset mean is the exact count-weighted
+reduction over the ranks (gloo); rank 0 writes ``--out``.
 """
 
 import argparse
@@ -22,15 +35,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 # options of tools/test.py the port does not have yet -> ROADMAP item
 UNPORTED = {
-    "--frame-parallel": "Queue A item 6",
-    "--stream-clips": "Queue A item 6",
     "--joint-pqf-config": "Queue A item 8",
     "--joint-pqf-ckpt": "Queue A item 8",
-    "--cascade": "Queue A item 3",
-    "--cascade_config": "Queue A item 3",
-    "--cascade_ckpt": "Queue A item 3",
-    "--multihost": "Queue A item 6",
-    "--launcher": "Queue A item 6",
+    "--cascade": "Queue A item 8",
+    "--cascade_config": "Queue A item 8",
+    "--cascade_ckpt": "Queue A item 8",
 }
 
 
@@ -46,17 +55,29 @@ def parse_args(argv=None):
     p.add_argument("--out", default=None, help="output result pickle")
     p.add_argument("--cfg-options", nargs="+", default=[])
     p.add_argument("--device", default="cuda", help="'cuda' (kernels) or 'cpu' (plain versions)")
+    p.add_argument(
+        "--frame-parallel", choices=["exact"], default=None,
+        help="'exact': chunked two-sweep pipeline over the local cards (or "
+        "--pipeline-devices), equal bit for bit to the single-device sweep",
+    )
+    p.add_argument(
+        "--stream-clips", type=int, default=1,
+        help="with --frame-parallel exact: stream N same-shape clips through the "
+        "pipeline together (each device holds the backward features of N clips)",
+    )
+    p.add_argument("--pipeline-devices", default=None,
+                   help="with --frame-parallel exact: comma-separated devices, one per chunk")
+    p.add_argument("--launcher", choices=["none", "pytorch"], default="none",
+                   help="'pytorch': join the torchrun world (RANK, WORLD_SIZE, LOCAL_RANK)")
+    p.add_argument("--local_rank", type=int, default=0)
+    p.add_argument("--multihost", action="store_true",
+                   help="join the torchrun world; clips shard across the ranks")
     # accepted as in tools/test.py; setting one raises with its ROADMAP item
-    p.add_argument("--frame-parallel", default=None)
-    p.add_argument("--stream-clips", type=int, default=1)
     p.add_argument("--joint-pqf-config", default=None)
     p.add_argument("--joint-pqf-ckpt", default=None)
     p.add_argument("--cascade", action="store_true")
     p.add_argument("--cascade_config", default=None)
     p.add_argument("--cascade_ckpt", default=None)
-    p.add_argument("--launcher", default="none")
-    p.add_argument("--local_rank", type=int, default=0)
-    p.add_argument("--multihost", action="store_true")
     return p.parse_args(argv)
 
 
@@ -69,11 +90,21 @@ def main(argv=None):
             raise NotImplementedError(f"{option} is not ported to the PyTorch port yet "
                                       f"(ROADMAP {item})")
 
+    import os
+
     import torch
 
     device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    distributed = args.multihost or args.launcher == "pytorch"
+    if distributed:
+        from pnp_vcve_torch.parallel.multihost import init_distributed
+
+        os.environ.setdefault("LOCAL_RANK", str(args.local_rank))
+        device = init_distributed("pytorch", device.type)
+    elif device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
+    devices = ([torch.device(d) for d in args.pipeline_devices.split(",")]
+               if args.pipeline_devices else None)
 
     from pnp_vcve_torch.core.config import Config
     from pnp_vcve_torch.core.builder import build_dataset, build_restorer
@@ -99,9 +130,20 @@ def main(argv=None):
         save_path=args.save_path,
         save_image=args.save_image,
         chunk_t=args.chunk_t,
+        distributed=distributed,
+        frame_parallel=args.frame_parallel,
+        stream_clips=args.stream_clips,
+        devices=devices,
     )
     if metrics:
         print(", ".join(f"{k}: {v:.4f}" for k, v in metrics.items()))
+    if distributed:
+        import torch.distributed as dist
+
+        rank = dist.get_rank()
+        dist.destroy_process_group()
+        if rank:  # rank 0 writes the result
+            return metrics
     if args.out:
         import pickle
 
