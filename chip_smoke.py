@@ -173,7 +173,26 @@ Phases (any failure raises and the script exits non-zero):
    run's; (e) ``tools/torch_test.py --frame-parallel exact --stream-clips
    2`` over ``cuda:0,cuda:0`` on that fixture writes PNGs bitwise equal to
    the plain run's, with equal metrics. The launches of (a), (b), (c) and
-   (e) must be those of their frames.
+   (e) must be those of their frames;
+16. the eval entry point's last two modes, float32, TF32 off: (a) the
+   cascade, ``tools/torch_test.py --cascade`` with the serving config on
+   the parity weights into vanilla BasicVSR++ at its published widths (64
+   channels, 7 blocks, 16 deform groups, x4; seeded, offset heads seeded
+   non-zero, loaded through ``--cascade_ckpt``) on 2 clips x 8 frames at
+   176x320 (REDS-LR's width; 176 rows because 'pf' needs sides that are
+   multiples of 16) with a x4 GT written under build/chip_smoke/baselines:
+   finite metrics, x4 PNGs, the launches of the flagship's frames plus
+   BasicVSR++'s K1 (4 x (2t - 3) a clip); then one clip through both
+   models, kernel path against plain path (max|diff| <= 3e-3), each
+   stage's f/s, peak device memory, and a profiled clip (BasicVSR++'s
+   device time split into the DCN, the convolutions, K1 and the rest);
+   (b) the port's BasicVSR++ PQF v2 config (64 channels, 7 blocks,
+   full-size input) through ``tools/torch_test.py`` on one 8-frame 720p
+   clip (phase 4's first, linked), K1 only, then kernel path against plain path (3e-3) and its f/s;
+   (c) the MFQE joint protocol, ``--joint-pqf-config`` with the port's
+   MFQEv2 configs (nf 32, seeded, BatchNorm statistics away from 0 / 1) on
+   that clip, no kernel launched, then the protocol on a 128x128 crop on
+   the card against the CPU (max|diff| <= 1e-4) and its f/s.
 
 Each phase prints its wall time.
 The line before the last is a JSON object with each kernel's launches
@@ -183,14 +202,16 @@ phase 4, the batched path of phase 8, the handler of phase 10, training in
 phase 7, each block form's last 720p run in phase 11, phase 14's driven
 runs (the vsr CLI drive, basic's and fvc's timed 720p clips, the chunked
 clips), phase 15's pipeline-driven runs (``exact_pipeline_launches``: (a),
-(b), (c) and (e)); the probe tools' runs of phases 12 and 13 for K6-K13),
+(b), (c) and (e)), phase 16's cascade through ``tools/torch_test.py``
+(``cascade_launches``: the flagship's kernels and K1 inside BasicVSR++);
+the probe tools' runs of phases 12 and 13 for K6-K13),
 its error, its time beside the plain
 version's, the library call's, its yardsticks' and the bounds (K2-K5:
 also the bfloat16 row under ``bf16``; K1-K4: also the worst error at
 the other widths, K2-K4's 720p row at 128 channels, and K3's and K4's
 two-launch forms under ``two_launch``;
 K6-K13: the headline stage, every stage under ``forms``), phase 5's
-errors at the other widths and phase 14's per form; the last line is
+errors at the other widths, phase 14's per form and phase 16's; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -304,6 +325,16 @@ CHUNK_SPLIT, TOL_CHUNK = 3, 1e-5  # an 8-frame clip as 3 + 5 frames (frame 3 a B
 PIPE_DEPTHS, STREAM_B, STREAM_D = (2, 4), 3, 2
 FULL_T, FULL_CHUNK_T, FULL_MOTION = 100, 20, (2, 1)
 DIST_CLIPS, DIST_HW, DIST_RANKS, DIST_RTOL = 3, (256, 256), 2, 1e-6
+# phase 16: the eval entry point's last modes. The cascade: the serving
+# config into vanilla BasicVSR++ at its published widths on REDS-LR-width
+# clips (176 rows: 'pf' needs sides that are multiples of 16, REDS-LR's 180
+# is not) with a x4 GT; BasicVSR++ PQF v2 (the port's config) and the MFQE
+# joint protocol (nf 32) on one 720p clip; the joint gate on a crop
+CASCADE_CLIPS, CASCADE_HW = 2, (176, 320)
+BVPP = dict(type="BasicVSRPlusPlus", mid_channels=64, num_blocks=7, deform_groups=16,
+            is_low_res_input=True)
+BVPP_OFFSET_SCALE = 0.01  # conv_offset.6 (zero at init): offsets of about a pixel
+JOINT_CROP, TOL_JOINT = 128, 1e-4
 # the tensor-core kernels (K2-K5) and the names of their device functions
 # (K4's two-launch form: head_hidden_tc, then head_last_kernel on the CUDA
 # cores)
@@ -2471,6 +2502,356 @@ def phase_exact_pipeline(dev, smi):
     return total
 
 
+def _bvpp_launches(clips, t):
+    """K1 launches of BasicVSR++ over ``clips`` clips of t frames: per branch
+    t - 1 first-order and t - 2 second-order feature warps, four branches."""
+    return clips * 4 * (2 * t - 3)
+
+
+def _seed_offset_heads(model, seed):
+    """Seeded weights in every second-order aligner's zero-initialised last
+    offset conv."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for align in model.deform_align.values():
+            w = align.conv_offset[6].weight
+            w.copy_(torch.randn(w.shape, generator=gen).to(w.device) * BVPP_OFFSET_SCALE)
+    return model
+
+
+def _fixture_cfg(path, base, work, gt_sub, t, extra=""):
+    """A config on ``base`` whose test set is the fixture under ``work``."""
+    path.write_text(
+        f"_base_ = [{str(base)!r}]\n"
+        "from pnp_vcve_torch.core.presets import flagship_data\n"
+        f"data = flagship_data(test_lq={str(work / 'crf15/png')!r}, "
+        f"test_gt={str(work / gt_sub)!r}, test_qp_json={str(work / 'qp.json')!r})\n"
+        "data['test']['type'] = 'SRFolderMultipleGTDataset'\n"
+        f"data['test']['num_input_frames'] = {t}\n" + extra)
+    return path
+
+
+def _labeled(fn, label, sync):
+    """``fn`` inside ``torch.profiler.record_function(label)``, the device
+    synchronised before and after (so that its kernels run inside the
+    label's host interval too)."""
+    import torch
+
+    def run(*args, **kwargs):
+        sync()
+        with torch.profiler.record_function(label):
+            out = fn(*args, **kwargs)
+            sync()
+        return out
+    return run
+
+
+def _label_times(prof, labels):
+    """Device seconds of the kernels under each label of ``labels`` (the
+    innermost that holds a kernel's start), from the device's mirror of the
+    labels where the profile has it, else their host intervals; and the
+    kernel times by name."""
+    from torch.autograd import DeviceType
+
+    spans = {lb: {"cuda": [], "cpu": []} for lb in labels}
+    kernels = []
+    for e in prof.events():
+        start, end = e.time_range.start, e.time_range.end
+        if e.name in spans:
+            spans[e.name]["cuda" if e.device_type == DeviceType.CUDA else "cpu"].append(
+                (start, end))
+        elif e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
+            kernels.append((start, end - start, e.name))
+    where = {lb: (v["cuda"] or v["cpu"]) for lb, v in spans.items()}
+    mirrored = all(v["cuda"] for v in spans.values())
+    times, by_name = {lb: 0.0 for lb in labels}, {}
+    for start, dur, name in kernels:
+        inside = [(e - s, lb) for lb, iv in where.items() for s, e in iv if s <= start <= e]
+        if inside:
+            times[min(inside)[1]] += dur * 1e-6
+        by_name[name] = by_name.get(name, 0.0) + dur * 1e-6
+    return times, by_name, mirrored
+
+
+def _cascade_profile(flagship, vsr, inputs, counts_of):
+    """One profiled cascade clip: the flagship stage, then BasicVSR++ with its
+    DCN and its convolutions labelled. Prints BasicVSR++'s device time by
+    part (the DCN, K1, the convolutions, the rest) and fails when a kernel
+    that ran matches no device-function name."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from pnp_vcve_torch.models.baselines import basicvsr_pp
+
+    sync = torch.cuda.synchronize
+    conv, dcn = F.conv2d, basicvsr_pp.modulated_deform_conv2d
+    labels = ("cascade.flagship", "cascade.bvpp", "bvpp.dcn", "bvpp.conv")
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            enhanced = _labeled(lambda: flagship(**inputs), labels[0], sync)()
+            F.conv2d = _labeled(conv, labels[3], sync)
+            basicvsr_pp.modulated_deform_conv2d = _labeled(dcn, labels[2], sync)
+            _labeled(lambda: vsr(enhanced), labels[1], sync)()
+    finally:
+        F.conv2d, basicvsr_pp.modulated_deform_conv2d = conv, dcn
+    counts = counts_of()
+    times, by_name, mirrored = _label_times(prof, labels)
+    if not by_name:
+        print("[cascade16] profiler recorded no device events; breakdown not measured")
+        return
+    kt = _kernel_times(by_name, counts, ("warp", "warp_block", "input_conv", "drt_block", "head"))
+    k1 = kt["warp"]  # K1 runs only in BasicVSR++ under 'pf'
+    bvpp = times[labels[1]] + times[labels[2]] + times[labels[3]]
+    rest = times[labels[1]] - k1
+    print(f"[cascade16] profiled clip (labels {'on the device' if mirrored else 'by host interval'}"
+          f"; launches {counts}): flagship stage {times[labels[0]]:.4f} s of device time, "
+          f"BasicVSR++ {bvpp:.4f} s: the DCN {times[labels[2]] / bvpp:.4f}, the convolutions "
+          f"{times[labels[3]] / bvpp:.4f}, K1 {k1 / bvpp:.4f}, the rest (torch glue: cat, where, "
+          f"tanh, the flow warps, resizes, pixel shuffle) {rest / bvpp:.4f}")
+    for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[cascade16]   {v:.4f} s  {name[:110]}")
+
+
+def phase_baselines(dev, smi):
+    """The eval entry point's last modes (phase 16), float32, TF32 off: (a)
+    the cascade through tools/torch_test.py --cascade (the serving config on
+    the parity weights into vanilla BasicVSR++ at its published widths,
+    seeded, offset heads non-zero) on CASCADE_CLIPS clips of FRAMES frames
+    at CASCADE_HW with a x4 GT; kernel path vs plain path, each stage's f/s,
+    a profile and peak memory; (b) the port's BasicVSR++ PQF v2 config as
+    the main model on one 720p clip; (c) the MFQE joint protocol (nf 32,
+    seeded, BatchNorm statistics away from 0 / 1) through
+    --joint-pqf-config, the card against the CPU on a crop. Returns the
+    cascade run's launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from pnp_vcve_torch.core.builder import build_dataset, build_generator
+    from pnp_vcve_torch.core.checkpoint import load_generator_weights
+    from pnp_vcve_torch.core.config import Config
+    from pnp_vcve_torch.kernels import KERNELS, LAUNCHES, PLAIN, reset_launches
+    from pnp_vcve_torch.models.baselines import mfqe_joint_enhance
+    from pnp_vcve_torch.train.train_step import MODEL_INPUT_KEYS, _model_inputs
+
+    sys.path[:0] = [str(ROOT / "tools"), str(ROOT / "tools" / "data")]
+    import torch_test
+    from make_protocol_fixture import REDS4_CLIPS, write_fixture
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t = FRAMES
+    work = ROOT / "build" / "chip_smoke" / "baselines"
+    bconf = CONFIGS / "baselines"
+
+    def clip_inputs(cfg_path):
+        """Clip 0 of a config's test set as model inputs on the card."""
+        sample = build_dataset(dict(Config.fromfile(cfg_path).data["test"])).load_clip(0)
+        batch = {k: np.asarray(sample[k])[None] for k in MODEL_INPUT_KEYS}
+        return sample, {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+                        for k, v in _model_inputs(batch).items()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def check(tag, got, want, counts, expected, tol=TOL_MODEL):
+        err = float((got - want).abs().max())
+        print(f"[cascade16] {tag}: kernel path vs plain path max|diff| {err:.3g} (<= {tol}); "
+              f"launches {counts} (expected {expected})")
+        if not bool(torch.isfinite(got).all()) or err > tol or counts != expected:
+            raise AssertionError(f"{tag}: kernel path disagrees with its plain path, output not "
+                                 "finite, or launches")
+        return err
+
+    # (a) the cascade: serving config -> vanilla BasicVSR++, x4 GT
+    h, w = CASCADE_HW
+    t0 = time.perf_counter()
+    write_fixture(work / "data", clips=REDS4_CLIPS[:CASCADE_CLIPS], frames=t, height=h,
+                  width=w, crf=15, seed=SEED + 16, quiet=True)
+    for f in sorted((work / "data" / "sharp" / "png").glob("*/*.png")):
+        out = work / "data" / "x4" / "png" / f.parent.name / f.name
+        out.parent.mkdir(parents=True, exist_ok=True)
+        Image.open(f).resize((4 * w, 4 * h), Image.BICUBIC).save(out)
+    cfg = _fixture_cfg(work / "serving.py", CONFIGS / "HR_davis_LR_128x128_serving.py",
+                       work / "data", "x4/png", t)
+    vsr_cfg = work / "bvpp.py"
+    vsr_cfg.write_text(f"model = dict(type='BasicVSR', generator={BVPP!r})\n"
+                       "test_cfg = dict(metrics=['PSNR', 'SSIM'], crop_border=0)\n")
+    vsr_ckpt = work / "bvpp.pth"
+    vsr = _seed_offset_heads(build_generator(BVPP, device="cpu", seed=SEED + 16), SEED + 16)
+    torch.save(vsr.state_dict(), vsr_ckpt)
+    print(f"[cascade16] fixture: {CASCADE_CLIPS} clips x {t} frames at {h}x{w}, x4 GT, "
+          f"in {time.perf_counter() - t0:.1f} s")
+    parity = str(ROOT / "tests/fixtures/parity/state_dict.npz")
+    gen_cfg = Config.fromfile(cfg).model["generator"]
+    expected = _launches_per_pass(CASCADE_CLIPS * t, gen_cfg["num_blocks"], "pf")
+    expected["warp"] = _bvpp_launches(CASCADE_CLIPS, t)
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = torch_test.main([str(cfg), parity, "--device", dev.type, "--cascade",
+                               "--cascade_config", str(vsr_cfg), "--cascade_ckpt", str(vsr_ckpt),
+                               "--save-path", str(work / "out"), "--save-image"])
+    wall = time.perf_counter() - t0
+    counts = cascade_counts = dict(LAUNCHES)
+    pngs = sorted((work / "out").glob("*/*.png"))
+    shape = np.asarray(Image.open(pngs[0])).shape if pngs else None
+    print(f"[cascade16] tools/torch_test.py --cascade: {metrics} against the x4 GT, {wall:.2f} s "
+          f"with loading, host metrics and PNGs; {len(pngs)} PNGs of {shape}; launches {counts} "
+          f"(expected {expected})")
+    if (counts != expected or set(metrics) != {"PSNR", "SSIM"}
+            or not all(np.isfinite(v) for v in metrics.values())
+            or len(pngs) != CASCADE_CLIPS * t or shape != (4 * h, 4 * w, 3)):
+        raise AssertionError("the cascade through tools/torch_test.py: launches, metrics or frames")
+
+    flagship, _ = _flagship_generator("HR_davis_LR_128x128_serving.py", dev)
+    vsr = load_generator_weights(build_generator(BVPP, device=dev), str(vsr_ckpt))
+    _, inputs = clip_inputs(cfg)
+    with torch.inference_mode():
+        reset_launches()
+        got = vsr(flagship(**inputs))
+        counts = dict(LAUNCHES)
+        flagship.ops = vsr.ops = PLAIN
+        want = vsr(flagship(**inputs))
+        flagship.ops = vsr.ops = KERNELS
+        per_clip = _launches_per_pass(t, gen_cfg["num_blocks"], "pf")
+        per_clip["warp"] = _bvpp_launches(1, t)
+        err = check(f"cascade, {t} frames {h}x{w} -> {4 * h}x{4 * w}", got, want, counts,
+                    per_clip)
+        del got, want
+        torch.cuda.reset_peak_memory_stats()
+        enhanced, wall_f = timed(lambda: flagship(**inputs))
+        _, wall_v = timed(lambda: vsr(enhanced))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[cascade16] {smi}: flagship ('pf') {t / wall_f:.3f} f/s ({wall_f:.4f} s), "
+              f"BasicVSR++ 64/7/16 {t / wall_v:.3f} f/s ({wall_v:.4f} s), the cascade "
+              f"{t / (wall_f + wall_v):.3f} f/s at {h}x{w} -> {4 * h}x{4 * w}, float32; peak "
+              f"device memory {peak:.3f} GiB")
+        reset_launches()
+        _cascade_profile(flagship, vsr, inputs, lambda: dict(LAUNCHES))
+    del flagship, vsr, enhanced
+    torch.cuda.empty_cache()
+
+    # (b) BasicVSR++ PQF v2 (the port's config) as the main model, 720p: the
+    # first clip of phase 4's fixture, linked, where that phase wrote it
+    mh, mw = MAIN_HW
+    t0 = time.perf_counter()
+    main_data, clip = ROOT / "build" / "chip_smoke" / "data", REDS4_CLIPS[0]
+    if len(list((main_data / "crf15" / "png" / clip).glob("*.png"))) == t:
+        for sub in ("crf15/png", "crf15/mv", "sharp/png"):
+            (work / "data720" / sub).mkdir(parents=True, exist_ok=True)
+            (work / "data720" / sub / clip).symlink_to(main_data / sub / clip)
+        (work / "data720" / "qp.json").write_bytes((main_data / "qp.json").read_bytes())
+        made = "phase 4's first clip, linked"
+    else:
+        write_fixture(work / "data720", clips=[clip], frames=t, height=mh, width=mw, crf=15,
+                      seed=SEED, quiet=True)
+        made = "written"
+    print(f"[pqf16] fixture: 1 clip x {t} frames at {mh}x{mw} ({made}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    pqf_cfg = _fixture_cfg(work / "pqf_v2.py", bconf / "basicvsr_pp_pqf_v2.py",
+                           work / "data720", "sharp/png", t)
+    pqf_gen = Config.fromfile(pqf_cfg).model["generator"]
+    pqf = _seed_offset_heads(build_generator(pqf_gen, device="cpu", seed=SEED + 17), SEED + 17)
+    torch.save(pqf.state_dict(), work / "pqf_v2.pth")
+    expected = {k: 0 for k in counts}
+    expected["warp"] = _bvpp_launches(1, t)
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = torch_test.main([str(pqf_cfg), str(work / "pqf_v2.pth"), "--device", dev.type])
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    print(f"[pqf16] tools/torch_test.py, {pqf_gen['type']} 64/7 on {t} frames {mh}x{mw}: "
+          f"{metrics}, {wall:.2f} s with loading and host metrics; launches {counts}")
+    if counts != expected or not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError("BasicVSR++ PQF v2 through tools/torch_test.py: launches or metrics")
+    pqf = load_generator_weights(build_generator(pqf_gen, device=dev), str(work / "pqf_v2.pth"))
+    _, inputs = clip_inputs(pqf_cfg)
+    with torch.inference_mode():
+        reset_launches()
+        got = pqf(inputs["lrs"], slices=inputs["slices"])
+        counts = dict(LAUNCHES)
+        pqf.ops = PLAIN
+        want = pqf(inputs["lrs"], slices=inputs["slices"])
+        pqf.ops = KERNELS
+        err_pqf = check(f"PQF v2, {t} frames {mh}x{mw}", got, want, counts, expected)
+        del got, want
+        _, wall = timed(lambda: pqf(inputs["lrs"], slices=inputs["slices"]))
+    print(f"[pqf16] {smi}: BasicVSR++ PQF v2 64/7 {t / wall:.3f} f/s ({wall:.4f} s) on "
+          f"{mh}x{mw} input (features {mh // 4}x{mw // 4}), float32")
+    del pqf
+    torch.cuda.empty_cache()
+
+    # (c) the MFQE joint protocol, nf 32, BatchNorm statistics away from 0 / 1
+    joint = {}
+    for name, seed in (("mfqev2_pqf", SEED + 18), ("mfqev2_nonpqf", SEED + 19)):
+        jcfg = _fixture_cfg(work / f"{name}.py", bconf / f"{name}.py", work / "data720",
+                            "sharp/png", t)
+        m = build_generator(Config.fromfile(jcfg).model["generator"], device="cpu", seed=seed)
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for i in range(5):
+                bn = getattr(m, f"rec{i}").bn
+                bn.running_mean.copy_(torch.randn(bn.running_mean.shape, generator=gen) * 0.1)
+                bn.running_var.copy_(torch.rand(bn.running_var.shape, generator=gen) * 1.5 + 0.5)
+        torch.save(m.state_dict(), work / f"{name}.pth")
+        joint[name] = (jcfg, m)
+    reset_launches()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        metrics = torch_test.main([
+            str(joint["mfqev2_nonpqf"][0]), str(work / "mfqev2_nonpqf.pth"), "--device", dev.type,
+            "--joint-pqf-config", str(joint["mfqev2_pqf"][0]), "--joint-pqf-ckpt",
+            str(work / "mfqev2_pqf.pth")])
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("[mfqe-joint]")]
+    print("\n".join(lines))
+    print(f"[joint16] tools/torch_test.py --joint-pqf-config, MFQEv2 nf 32 on {t} frames "
+          f"{mh}x{mw}: {metrics}, {wall:.2f} s with loading and host metrics; launches {counts}")
+    if (any(counts.values()) or len(lines) != 2
+            or not all(np.isfinite(v) for v in metrics.values())):
+        raise AssertionError("the MFQE joint protocol: launches, [mfqe-joint] lines or metrics")
+    sample, _ = clip_inputs(joint["mfqev2_nonpqf"][0])
+    frames = np.asarray(sample["lq"], np.float32)
+    letters = [chr(int(round(float(c)))) for c in np.asarray(sample["slices"])]
+
+    def apply(model):
+        device = next(model.parameters()).device
+
+        def run(lrs):
+            with torch.inference_mode():
+                return model(torch.as_tensor(lrs, device=device)).float().cpu().numpy()
+        return run
+
+    cpu = [joint[n][1] for n in ("mfqev2_pqf", "mfqev2_nonpqf")]
+    card = [build_generator(dict(type="MFQEv2", nf=32), device=dev) for _ in cpu]
+    for c, m in zip(card, cpu):
+        c.load_state_dict(m.state_dict())
+    crop = frames[:, :JOINT_CROP, :JOINT_CROP]
+    got = mfqe_joint_enhance(apply(card[0]), apply(card[1]), crop, letters)
+    want = mfqe_joint_enhance(apply(cpu[0]), apply(cpu[1]), crop, letters)
+    err_joint = float(np.abs(got - want).max())
+    print(f"[joint16] {t} frames ({''.join(letters)}) cropped to {JOINT_CROP}x{JOINT_CROP}: "
+          f"the card against the CPU max|diff| {err_joint:.3g} (<= {TOL_JOINT})")
+    if not np.isfinite(got).all() or err_joint > TOL_JOINT:
+        raise AssertionError("the MFQE joint protocol on the card disagrees with the CPU")
+    _, wall = timed(lambda: mfqe_joint_enhance(apply(card[0]), apply(card[1]), frames, letters))
+    print(f"[joint16] {smi}: MFQEv2 joint protocol {t / wall:.3f} f/s ({wall:.4f} s) on "
+          f"{mh}x{mw}, float32, host copies included")
+    return cascade_counts, {"cascade": err, "pqf_v2": err_pqf, "joint_cpu": err_joint}
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     # deterministic cuBLAS for the resume check of phase 7; read when cuBLAS
@@ -2501,6 +2882,8 @@ def main():
     b10b_rows = phase("13 probes that move data", phase_probes_b10b, dev, smi)
     forms14_counts, forms14_errs = phase("14 model forms", phase_model_forms, dev, smi)
     exact_counts = phase("15 exact pipeline", phase_exact_pipeline, dev, smi)
+    cascade_counts, baseline_errs = phase("16 cascade and joint protocol", phase_baselines, dev,
+                                          smi)
     # K6 runs in both probe phases: one row, the forms and counts of both
     k6 = b10b_rows.pop("window_copy")
     probe_rows["window_copy"]["forms"] += k6["forms"]
@@ -2513,7 +2896,7 @@ def main():
     paths = {"serving_launches": counts, "batched_launches": batched_counts,
              "handler_launches": handler_counts, "train_launches": train_counts,
              "block_forms_launches": forms_counts, "model_forms_launches": forms14_counts,
-             "exact_pipeline_launches": exact_counts}
+             "exact_pipeline_launches": exact_counts, "cascade_launches": cascade_counts}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
@@ -2524,7 +2907,8 @@ def main():
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "also_replaces": also,
          **probe_rows[name]}
         for name, (src, rep, also) in PROBE_INFO.items()
-    ], "model_widths_max_abs_err": model_widths, "model_forms_max_abs_err": forms14_errs}))
+    ], "model_widths_max_abs_err": model_widths, "model_forms_max_abs_err": forms14_errs,
+        "baselines_max_abs_err": baseline_errs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

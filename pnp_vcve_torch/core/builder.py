@@ -1,8 +1,9 @@
 """Builders: config dicts -> the port's objects (counterpart of the parts of
 pnp_vcve_tpu/core/builder.py that the flagship enhancement and training
-paths use: the generator :33-100, the restorer :568-578, the train datasets
-:660-750 and :1195-1208, the eval datasets :1117-1192, the optimizer
-:1211-1261).
+paths and the eval entry point's modes use: the generator :33-100, the
+baselines MFQEv2 and the BasicVSR++ family :112-164, the restorers
+:568-600, the train datasets :660-750 and :1195-1208, the eval datasets
+:1117-1192, the optimizer :1211-1261).
 
 The registries carry the reference type names, so the flagship configs load
 unchanged. Types the port does not have yet raise ``NotImplementedError``
@@ -26,7 +27,7 @@ from pnp_vcve_torch.data.datasets import (
     reds_train_clips,
 )
 from pnp_vcve_torch.models.pnp_vcve import PnPVCVE
-from pnp_vcve_torch.models.restorer import Restorer
+from pnp_vcve_torch.models.restorer import CenterFrameRestorer, Restorer
 from pnp_vcve_torch.train.schedule import cosine_restart_schedule
 
 __all__ = [
@@ -87,11 +88,11 @@ def _build_pnp_vcve(
     # reference knobs with no effect on the flagship path (as in the JAX builder)
     **_ignored,
 ):
+    if blocktype not in ("drt", "drt_woqp"):
+        raise NotImplementedError(f"blocktype={blocktype!r} not implemented yet")
     if deform not in ("vos", "basic", "fvc"):
         # 'stdf' raises in the reference too (iconvsr_ipb.py:26-28)
         raise NotImplementedError(f"No such DCN type: {deform!r}")
-    # build without drawing from the global RNG, then init from a seeded
-    # generator on the CPU
     with torch.device("meta"):
         model = PnPVCVE(
             mid_channels=mid_channels,
@@ -114,9 +115,72 @@ def _build_pnp_vcve(
             warp_impl=warp_impl,
             use_pallas_kernels=use_pallas_kernels,
         )
+    return _seeded(model, device, seed)
+
+
+def _seeded(model: torch.nn.Module, device, seed: int):
+    """A model built on ``meta`` (without drawing from the global RNG),
+    moved to ``device`` and initialised from a seeded CPU generator."""
     model = model.to_empty(device=device)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model
+
+
+def _known(kwargs: dict, names) -> dict:
+    """The JAX builders' kwarg filters: the reference configs' other keys
+    are dropped."""
+    return {k: v for k, v in kwargs.items() if k in names}
+
+
+_BVPP_KEYS = ("mid_channels", "num_blocks", "max_residue_magnitude", "is_low_res_input",
+              "deform_groups")
+
+
+@BACKBONES.register(name="MFQEv2")
+def _build_mfqev2(*, device, seed: int = 0, **kwargs):
+    from pnp_vcve_torch.models.baselines import MFQEv2
+
+    with torch.device("meta"):
+        model = MFQEv2(**_known(kwargs, ("in_channels", "out_channels", "nf")))
+    return _seeded(model, device, seed)
+
+
+@BACKBONES.register(name="BasicVSRPlusPlus")
+def _build_bvpp_vanilla(*, device, seed: int = 0, **kwargs):
+    """Vanilla BasicVSR++ (reference basicvsr_pp.py:17-383), the downstream
+    VSR of the ``--cascade`` mode."""
+    from pnp_vcve_torch.models.baselines import BasicVSRPlusPlus
+
+    with torch.device("meta"):
+        model = BasicVSRPlusPlus(**_known(kwargs, _BVPP_KEYS))
+    return _seeded(model, device, seed)
+
+
+@BACKBONES.register(name="BasicVSRPlusPlusPQF", aliases=("BasicVSRPlusPlus_PQF",))
+def _build_bvpp_pqf(*, device, seed: int = 0, variant: str = "base", **kwargs):
+    from pnp_vcve_torch.models.baselines import BasicVSRPlusPlusPQF
+
+    with torch.device("meta"):
+        model = BasicVSRPlusPlusPQF(variant=variant, **_known(kwargs, _BVPP_KEYS))
+    return _seeded(model, device, seed)
+
+
+# the variant family (reference basicvsr_pp_v2.py:395, 504, 630)
+@BACKBONES.register(name="BasicVSRPlusPlusPQFv2", aliases=("BasicVSRPlusPlus_PQF_v2",))
+def _build_bvpp_pqf_v2(**kwargs):
+    return _build_bvpp_pqf(**{**kwargs, "variant": "v2"})
+
+
+@BACKBONES.register(name="BasicVSRPlusPlusPQFv2WithBSkip",
+                    aliases=("BasicVSRPlusPlus_PQF_v2_withB_skip",))
+def _build_bvpp_pqf_v2_withb(**kwargs):
+    return _build_bvpp_pqf(**{**kwargs, "variant": "v2_withB_skip"})
+
+
+@BACKBONES.register(name="BasicVSRPlusPlusPQFv2OnlyBSkip",
+                    aliases=("BasicVSRPlusPlus_PQF_v2_onlyB_skip",))
+def _build_bvpp_pqf_v2_onlyb(**kwargs):
+    return _build_bvpp_pqf(**{**kwargs, "variant": "v2_onlyB_skip"})
 
 
 def build_generator(cfg: dict, *, device, seed: int = 0):
@@ -130,6 +194,19 @@ def _build_restorer(generator: dict, pixel_loss: Optional[dict] = None, test_cfg
     test_cfg = dict(test_cfg or {"metrics": ["PSNR", "SSIM"], "crop_border": 0})
     pl = dict(pixel_loss or {})
     return Restorer(
+        generator=build_generator(dict(generator), device=device, seed=seed),
+        pixel_loss=pl.pop("type", "CharbonnierLoss"),
+        loss_weight=pl.pop("loss_weight", 1.0),
+        test_cfg=test_cfg,
+    )
+
+
+@MODELS.register(name="CenterFrameRestorer", aliases=("STDF", "MFQEv2Restorer", "DCNGAN", "WMGAN"))
+def _build_center_restorer(generator: dict, pixel_loss: Optional[dict] = None, test_cfg=None, *,
+                           device, seed=0, **_train_cfg):
+    test_cfg = dict(test_cfg or {"metrics": ["PSNR", "SSIM"], "crop_border": 0})
+    pl = dict(pixel_loss or {})
+    return CenterFrameRestorer(
         generator=build_generator(dict(generator), device=device, seed=seed),
         pixel_loss=pl.pop("type", "CharbonnierLoss"),
         loss_weight=pl.pop("loss_weight", 1.0),

@@ -17,7 +17,7 @@ from __future__ import annotations
 import os
 import re
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -30,13 +30,21 @@ __all__ = [
 ]
 
 _IGNORED = ("spynet.", "edvr.", "step_counter")
+# buffers of the reference's SPyNet that the port holds as constants
+_CONSTANTS = ("spynet.mean", "spynet.std")
 
 
-def read_state_dict(path: str | Path) -> Dict[str, torch.Tensor]:
+def read_state_dict(path: str | Path, owned: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
     """Float32 CPU tensors under the port's names: the reference's
     (``generator.`` prefix stripped; the other entries of a full restorer
     checkpoint, such as a discriminator's, dropped), with the reference's
-    one ``deform_align.*`` written into each sweep's aligner."""
+    one ``deform_align.*`` written into each sweep's aligner.
+
+    ``owned``: the names of the model that will load it. Submodules of other
+    reference generators (``spynet.``, ``edvr.``, ``step_counter``) are
+    dropped unless the model owns names under them (the baselines carry a
+    SPyNet), and ``deform_align.*`` stays as it is where the model owns it
+    (BasicVSR++'s four aligners)."""
     path = Path(path)
     if path.suffix == ".npz":
         with np.load(path) as z:
@@ -47,8 +55,13 @@ def read_state_dict(path: str | Path) -> Dict[str, torch.Tensor]:
     if any(k.startswith("generator.") for k in raw):
         raw = {k: v for k, v in raw.items() if k.startswith("generator.")}
     sd = {re.sub(r"^generator\.", "", k): v.float() for k, v in raw.items()}
+    owned = tuple(owned)
     # submodules of other reference generators, ignored as the JAX converter does
-    return shared_aligner_to_sweeps({k: v for k, v in sd.items() if not k.startswith(_IGNORED)})
+    ignored = tuple(p for p in _IGNORED if not any(k.startswith(p) for k in owned))
+    sd = {k: v for k, v in sd.items() if not k.startswith(ignored) and not k.endswith(_CONSTANTS)}
+    if any(k.startswith("deform_align.") for k in owned):
+        return sd
+    return shared_aligner_to_sweeps(sd)
 
 
 def load_generator_weights(model: nn.Module, checkpoint: str, seed: int = 0):
@@ -57,7 +70,7 @@ def load_generator_weights(model: nn.Module, checkpoint: str, seed: int = 0):
     if checkpoint == "-":
         model.reset_parameters(torch.Generator().manual_seed(seed))
     else:
-        model.load_state_dict(read_state_dict(checkpoint), strict=True)
+        model.load_state_dict(read_state_dict(checkpoint, model.state_dict()), strict=True)
     return model
 
 

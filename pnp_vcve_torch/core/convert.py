@@ -14,6 +14,14 @@ does (:133-155).
 Layouts: flax Dense ``(in, out)`` -> Linear ``(out, in)``; HWIO -> OIHW;
 expert bank ``(K, kh, kw, in, out)`` -> ``(K, out, in, kh, kw)``; the stacked
 partition kernel ``(in, 3, out)`` -> three 1x1 convs ``(out, in, 1, 1)``.
+
+The baselines: :func:`spynet_state_dict` and :func:`bvpp_state_dict` invert
+``pnp_vcve_tpu/core/convert_baselines.py: convert_spynet`` (:63-72) and
+``convert_bvpp_pqf`` (:115-153) for SPyNet and the BasicVSR++ family (and
+carry the full-size input's ``feat_down{0,1}``, which that converter does
+not read, to the reference's ``feat_extract.{0,2}``);
+:func:`mfqev2_state_dict` carries MFQEv2's flax ``params`` and
+``batch_stats``.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 
 __all__ = [
     "from_jax_params", "block_state_dict", "aligner_state_dict", "shared_aligner_to_sweeps",
+    "spynet_state_dict", "bvpp_state_dict", "mfqev2_state_dict",
 ]
 
 
@@ -132,3 +141,87 @@ def shared_aligner_to_sweeps(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.
         else:
             out[k] = v
     return out
+
+
+def _conv(out: dict, prefix: str, p: Mapping):
+    """A flax ``{kernel, bias}`` conv -> ``prefix.weight`` (OIHW), ``.bias``."""
+    out[f"{prefix}.weight"] = _oihw(p["kernel"])
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def spynet_state_dict(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``SPyNet`` params -> the reference's
+    ``basic_module.{i}.basic_module.{j}.conv.*`` under ``prefix``."""
+    sd: Dict[str, torch.Tensor] = {}
+    i = 0
+    while f"basic_module{i}" in params:
+        mod = params[f"basic_module{i}"]
+        j = 0
+        while f"conv{j}" in mod:
+            _conv(sd, f"{prefix}basic_module.{i}.basic_module.{j}.conv", mod[f"conv{j}"])
+            j += 1
+        i += 1
+    return sd
+
+
+def _res_blocks(out: dict, prefix: str, tree: Mapping):
+    """JAX ``ResidualBlocksWithInputConv`` -> ``prefix.main.{0, 2.<i>.conv1,
+    2.<i>.conv2}``."""
+    _conv(out, f"{prefix}.main.0", tree["input_conv"])
+    i = 0
+    while f"block{i}_conv1" in tree:
+        for j in (1, 2):
+            _conv(out, f"{prefix}.main.2.{i}.conv{j}", tree[f"block{i}_conv{j}"])
+        i += 1
+
+
+def bvpp_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``BasicVSRPlusPlus`` / ``BasicVSRPlusPlusPQF`` params -> the
+    port's state dict under the reference's names."""
+    sd: Dict[str, torch.Tensor] = {}
+    if "feat_down0" in params:  # full-size input: two stride-2 convs first
+        _conv(sd, "feat_extract.0", params["feat_down0"])
+        _conv(sd, "feat_extract.2", params["feat_down1"])
+        _res_blocks(sd, "feat_extract.4", params["feat_extract"])
+    else:
+        _res_blocks(sd, "feat_extract", params["feat_extract"])
+    for branch in ("backward_1", "forward_1", "backward_2", "forward_2"):
+        align = params[branch]["deform_align"]
+        sd[f"deform_align.{branch}.weight"] = _oihw(align["weight"])
+        sd[f"deform_align.{branch}.bias"] = _t(align["bias"])
+        for ours, ref in enumerate((0, 2, 4, 6)):
+            _conv(sd, f"deform_align.{branch}.conv_offset.{ref}", align[f"conv_offset{ours}"])
+        _res_blocks(sd, f"backbone.{branch}", params[branch]["backbone"])
+    _res_blocks(sd, "reconstruction", params["reconstruction"])
+    for up in ("upsample1", "upsample2"):
+        _conv(sd, f"{up}.upsample_conv",
+              {"kernel": params[f"{up}_kernel"], "bias": params[f"{up}_bias"]})
+    _conv(sd, "conv_hr", params["conv_hr"])
+    _conv(sd, "conv_last", params["conv_last"])
+    sd.update(spynet_state_dict(params["spynet"], "spynet."))
+    return sd
+
+
+def mfqev2_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``MFQEv2`` variables (``params`` and ``batch_stats``) -> the
+    port's state dict: convs ``weight``/``bias``, PReLU ``weight``,
+    BatchNorm ``weight``, ``bias``, ``running_mean``, ``running_var``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = spynet_state_dict(params["spynet"], "spynet.")
+    for ks in (3, 5, 7):
+        for j in range(3):
+            _conv(sd, f"ks{ks}_conv{j}", params[f"ks{ks}_conv{j}"])
+    i = 0
+    while f"rec{i}" in stats:
+        p, bn = params[f"rec{i}"], stats[f"rec{i}"]["bn"]
+        _conv(sd, f"rec{i}.conv", p["conv"])
+        sd[f"rec{i}.prelu.weight"] = _t(np.reshape(p["prelu"]["negative_slope"], (1,)))
+        sd[f"rec{i}.bn.weight"] = _t(p["bn"]["scale"])
+        sd[f"rec{i}.bn.bias"] = _t(p["bn"]["bias"])
+        sd[f"rec{i}.bn.running_mean"] = _t(bn["mean"])
+        sd[f"rec{i}.bn.running_var"] = _t(bn["var"])
+        sd[f"rec{i}.bn.num_batches_tracked"] = torch.tensor(0)
+        i += 1
+    _conv(sd, f"rec{i}", params[f"rec{i}"])
+    return sd

@@ -112,13 +112,14 @@ def _time_major(x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 class PixelShufflePack(nn.Module):
-    """Conv c -> c * r * r, then pixel shuffle x r (the reference's
-    ``PixelShufflePack``, parameters ``upsample_conv.*``)."""
+    """Conv c -> out * r * r (out = c unless given), then pixel shuffle x r
+    (the reference's ``PixelShufflePack``, parameters ``upsample_conv.*``)."""
 
-    def __init__(self, channels: int, scale: int = 2):
+    def __init__(self, channels: int, scale: int = 2, out_channels: int | None = None):
         super().__init__()
         self.scale = scale
-        self.upsample_conv = nn.Conv2d(channels, channels * scale * scale, 3, 1, 1)
+        out = channels if out_channels is None else out_channels
+        self.upsample_conv = nn.Conv2d(channels, out * scale * scale, 3, 1, 1)
 
     def forward(self, x):
         conv = self.upsample_conv

@@ -1,6 +1,8 @@
 """Restorer: the generator, its pixel loss and the eval metric protocol
-(counterpart of pnp_vcve_tpu/models/restorer.py:60-102): per-frame metrics
-on uint8-quantised images, averaged over the clip, then over the dataset."""
+(counterpart of pnp_vcve_tpu/models/restorer.py:60-122): per-frame metrics
+on uint8-quantised images, averaged over the clip, then over the dataset;
+:class:`CenterFrameRestorer` for the window -> centre-frame models (MFQEv2),
+whose metrics run per centre frame."""
 
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from torch import nn
 from pnp_vcve_torch.metrics import l1_evaluation, mae, niqe, psnr, ssim, tensor2img
 from pnp_vcve_torch.train.losses import LOSSES
 
-__all__ = ["Restorer", "ALLOWED_METRICS", "average_clip_metrics"]
+__all__ = ["Restorer", "CenterFrameRestorer", "ALLOWED_METRICS", "average_clip_metrics"]
 
 ALLOWED_METRICS: Dict[str, Callable] = {
     "PSNR": psnr,
@@ -63,3 +65,19 @@ def average_clip_metrics(per_clip: list[Dict[str, float]]) -> Dict[str, float]:
     if not per_clip:
         return {}
     return {k: float(np.mean([c[k] for c in per_clip])) for k in per_clip[0]}
+
+
+@dataclass
+class CenterFrameRestorer(Restorer):
+    """Restorer of a model that maps a ``(b, t, h, w, c)`` window to its
+    enhanced centre frame ``(b, h, w, c)`` (STDF, MFQEv2, DCNGAN; reference
+    restorers/stdf.py:13-120, mfqev2_restorer.py:14-140). Its clips are
+    scored with :meth:`Restorer.evaluate_clip`; ``evaluate_center_frame_dataset``
+    waits for the centre-frame training sets (ROADMAP Queue A item 8)."""
+
+    def evaluate_frame(self, output: np.ndarray, gt: np.ndarray) -> Dict[str, float]:
+        """The test config's metrics of one frame, ``(h, w, 3)`` floats in [0, 1]."""
+        crop_border = int(self.test_cfg.get("crop_border", 0))
+        metrics = self.test_cfg.get("metrics", ["PSNR", "SSIM"])
+        out_img, gt_img = tensor2img(output), tensor2img(gt)
+        return {m: ALLOWED_METRICS[m](out_img, gt_img, crop_border=crop_border) for m in metrics}

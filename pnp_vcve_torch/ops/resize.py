@@ -9,6 +9,11 @@ position in both directions.
 :func:`resize_bilinear`: half-pixel centers (``align_corners=False``),
 ``src = (i + 0.5) * n_in / n_out - 0.5`` clamped to the valid range.
 :func:`resize_bilinear_align_corners`: ``src = i * (n_in - 1) / (n_out - 1)``.
+:func:`resize_bicubic`: ``jax.image.resize(method='bicubic')``, which the
+JAX package's BasicVSR++ uses to bring full-size frames to the flow
+network's quarter size: Keys' cubic (a = -0.5) at half-pixel centers,
+widened by the factor when it shrinks (antialiasing), each output's weights
+normalised to sum 1.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resize_bilinear", "resize_bilinear_align_corners"]
+__all__ = ["resize_bilinear", "resize_bilinear_align_corners", "resize_bicubic"]
 
 
 def _matrix_from_pos(pos: np.ndarray, n_in: int) -> np.ndarray:
@@ -44,6 +49,22 @@ def _align_corners_matrix(n_out: int, n_in: int) -> np.ndarray:
     return _matrix_from_pos(pos, n_in)
 
 
+def _keys_cubic_matrix(n_out: int, n_in: int) -> np.ndarray:
+    """JAX ``image.scale.compute_weight_mat`` with the Keys kernel, translation
+    0 and antialiasing, as rows ``(n_out, n_in)``."""
+    inv_scale = n_in / n_out
+    pos = (np.arange(n_out, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    x = np.abs(pos[:, None] - np.arange(n_in, dtype=np.float64)[None, :]) / max(inv_scale, 1.0)
+    k = ((1.5 * x - 2.5) * x) * x + 1.0
+    k = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, k)
+    k = np.where(x >= 2.0, 0.0, k)
+    total = k.sum(axis=1, keepdims=True)
+    k = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 k / np.where(total != 0, total, 1.0), 0.0)
+    inside = (pos >= -0.5) & (pos <= n_in - 0.5)
+    return np.where(inside[:, None], k, 0.0)
+
+
 def _apply(x: torch.Tensor, ah: np.ndarray, aw: np.ndarray) -> torch.Tensor:
     ah_t, aw_t = (torch.from_numpy(a.astype(np.float32)).to(x.device) for a in (ah, aw))
     out = torch.einsum("oh,bhwc->bowc", ah_t, x.float())
@@ -65,3 +86,12 @@ def resize_bilinear_align_corners(x: torch.Tensor, size: tuple[int, int]) -> tor
     if (h, w) == tuple(size):
         return x
     return _apply(x, _align_corners_matrix(size[0], h), _align_corners_matrix(size[1], w))
+
+
+def resize_bicubic(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """(b, h, w, c) -> (b, *size, c), ``jax.image.resize(method='bicubic')``
+    (antialiased when it shrinks)."""
+    _, h, w, _ = x.shape
+    if (h, w) == tuple(size):
+        return x
+    return _apply(x, _keys_cubic_matrix(size[0], h), _keys_cubic_matrix(size[1], w))

@@ -1,6 +1,7 @@
 """Evaluation harness: full-clip enhancement and the sequence metrics
 (counterpart of pnp_vcve_tpu/train/eval.py: ``enhance_clip`` :57-74,
-``evaluate_dataset`` :77-190, ``enhance_clip_frame_parallel`` :245-309).
+``evaluate_dataset`` :77-190, ``evaluate_dataset_mfqe_joint`` :193-242,
+``enhance_clip_frame_parallel`` :245-309).
 
 Per clip: run the generator over the whole sequence (or over independent
 ``chunk_t``-frame windows), compute per-frame PSNR/SSIM on uint8-quantised
@@ -12,6 +13,12 @@ device (100 frames of 720p at 64 channels in float32: 23.6 GB). ``chunk_t``
 splits a clip into independent windows (each window's first and last frames
 forced keyframes, like any clip boundary); ``frame_parallel='exact'``
 splits it over devices without changing a bit (parallel/seqpar.py).
+
+The cascade (``tools/test.py --cascade``): each enhanced clip, whichever
+mode made it, goes through a downstream VSR model (vanilla BasicVSR++ in
+the plug-and-play story) and the metrics are taken on its output, against
+the x4 GT. The MFQE joint protocol runs a PQF model and a non-PQF model
+over each clip (models/baselines/mfqev2.py: ``mfqe_joint_enhance``).
 """
 
 from __future__ import annotations
@@ -27,8 +34,8 @@ from pnp_vcve_torch.metrics import tensor2img
 from pnp_vcve_torch.models.restorer import Restorer, average_clip_metrics
 from .train_step import MODEL_INPUT_KEYS, _model_inputs, make_eval_step
 
-__all__ = ["evaluate_dataset", "enhance_clip", "enhance_clip_frame_parallel",
-           "is_mirror_extended"]
+__all__ = ["evaluate_dataset", "evaluate_dataset_mfqe_joint", "enhance_clip",
+           "enhance_clip_frame_parallel", "is_mirror_extended"]
 
 
 def _save_frames(frames_u8: np.ndarray, clip_name: str, save_path: str):
@@ -65,6 +72,17 @@ def enhance_clip(eval_step, sample: dict, chunk_t: Optional[int] = None) -> np.n
         batch = {k: np.asarray(sample[k][s:e])[None] for k in MODEL_INPUT_KEYS}
         outs.append(eval_step(batch, is_mirror_extended=mirror)[0])
     return np.concatenate(outs, axis=0)
+
+
+def _cascade_clip(model: torch.nn.Module, clip: np.ndarray) -> np.ndarray:
+    """A downstream model over one enhanced clip ``(t, h, w, 3)`` on the
+    model's device: its frames alone, as JAX's ``casc_step(params,
+    out[None])`` (no priors; no mirror-extension check). Returns the
+    model's ``(t, H, W, 3)`` float32 numpy output."""
+    device = next(model.parameters()).device
+    with torch.inference_mode():
+        out = model(torch.as_tensor(np.asarray(clip, np.float32)[None], device=device))
+    return out[0].float().cpu().numpy()
 
 
 def _local_devices(model: torch.nn.Module, distributed: bool) -> list:
@@ -106,10 +124,9 @@ def evaluate_dataset(
     count-weighted reduction over the process group (parallel/multihost.py).
     Images are written by the rank that made them.
 
-    ``cascade`` (a downstream VSR model) is not ported yet (ROADMAP Queue A
-    item 8)."""
-    if cascade is not None:
-        raise NotImplementedError("cascade eval is not ported yet (ROADMAP Queue A item 8)")
+    ``cascade``: a ``(model, restorer)`` pair; each enhanced clip, from any
+    of the modes above, goes through ``model`` (:func:`_cascade_clip`) and
+    the metrics are taken on its output (reference tools/test.py:121-134)."""
     if frame_parallel not in (None, "exact"):
         raise ValueError(f"frame_parallel must be None or 'exact', got {frame_parallel!r}")
     gen = restorer.generator
@@ -162,6 +179,8 @@ def evaluate_dataset(
 
     per_clip = []
     for sample, out, dt in enhanced():
+        if cascade is not None:
+            out = _cascade_clip(cascade[0], out)
         clip_name = sample.get("clip_name", f"clip{len(per_clip):03d}")
         metrics = restorer.evaluate_clip(out, sample["gt"])
         per_clip.append(metrics)
@@ -173,6 +192,53 @@ def evaluate_dataset(
     agg = allreduce_clip_metrics(per_clip) if distributed else average_clip_metrics(per_clip)
     if verbose and agg:
         print("[eval] dataset mean: " + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
+    return agg
+
+
+def evaluate_dataset_mfqe_joint(
+    pqf_model: torch.nn.Module,
+    nonpqf_model: torch.nn.Module,
+    dataset: Iterable[dict],
+    restorer: Restorer,
+    save_path: Optional[str] = None,
+    save_image: bool = False,
+    verbose: bool = True,
+) -> Dict[str, float]:
+    """The MFQE two-model joint protocol over a clip dataset (reference
+    restorers/mfqev2_restorer.py:14- and the MFQE 2.0 cascade): per clip,
+    the PQFs enhanced first by ``pqf_model``, then each non-PQF by
+    ``nonpqf_model`` against the enhanced PQFs; metrics, ``[mfqe-joint]``
+    lines and PNGs as in :func:`evaluate_dataset`. Each model runs on its
+    own device, its BatchNorm on running statistics."""
+    from pnp_vcve_torch.models.baselines.mfqev2 import mfqe_joint_enhance
+
+    def apply(model):
+        device = next(model.parameters()).device
+
+        def run(lrs):
+            with torch.inference_mode():
+                return model(torch.as_tensor(lrs, device=device)).float().cpu().numpy()
+        return run
+
+    pqf_apply, nonpqf_apply = apply(pqf_model), apply(nonpqf_model)
+    per_clip = []
+    for sample in dataset:
+        t0 = time.perf_counter()
+        frames = np.asarray(sample["lq"], np.float32)
+        letters = [chr(int(round(float(c)))) for c in np.asarray(sample["slices"])]
+        out = mfqe_joint_enhance(pqf_apply, nonpqf_apply, frames, letters)
+        dt = time.perf_counter() - t0
+        clip_name = sample.get("clip_name", f"clip{len(per_clip):03d}")
+        metrics = restorer.evaluate_clip(out, sample["gt"])
+        per_clip.append(metrics)
+        if verbose:
+            msg = " ".join(f"{k}={v:.4f}" for k, v in metrics.items())
+            print(f"[mfqe-joint] {clip_name}: {msg} ({out.shape[0]} frames, {dt:.2f}s)")
+        if save_image and save_path:
+            _save_frames(np.stack([tensor2img(f) for f in out]), clip_name, save_path)
+    agg = average_clip_metrics(per_clip)
+    if verbose and agg:
+        print("[mfqe-joint] dataset mean: " + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
     return agg
 
 

@@ -365,18 +365,35 @@ def test_pf_needs_the_fused_block_form():
 
 
 def test_other_blocktype_is_drt_woqp_as_in_jax():
-    """JAX takes any blocktype but 'drt' as 'drt_woqp' (pnp_vcve.py:507,
-    ``use_dynamic = blocktype == "drt"``); so does the port. One such value
-    on both sides: JAX's parameters load strictly into the port's plain-conv2
-    blocks, and the forwards agree."""
+    """JAX's model class takes any blocktype but 'drt' as 'drt_woqp'
+    (pnp_vcve.py:507, ``use_dynamic = blocktype == "drt"``); so does the
+    port's. One such value on both classes, built directly (the builders
+    refuse it, see the next test): JAX's parameters load strictly into the
+    port's plain-conv2 blocks, and the forwards agree."""
+    from pnp_vcve_torch.models.pnp_vcve import PnPVCVE
+
     jm = JaxPnPVCVE(**SMALL, blocktype="dcn", remat=False)
     inp = _inputs(np.random.default_rng(11))
     params = _jax_params(jm, 12, **{k: jnp.asarray(v) for k, v in inp.items()})
     want = np.asarray(jm.apply({"params": params}, **{k: jnp.asarray(v) for k, v in inp.items()}))
-    model = build_generator(dict(type="PnPVCVE", **SMALL, blocktype="dcn", remat=False),
-                            device="cpu")
+    model = PnPVCVE(**SMALL, blocktype="dcn", remat=False)
     assert not model.use_dynamic
     model.load_state_dict(from_jax_params(params), strict=True)
     with torch.inference_mode():
         got = model(**{k: _t(v) for k, v in inp.items()}).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("blocktype", ["dcn", "drt_wo_qp"])
+def test_builder_refuses_other_blocktype_as_in_jax(blocktype):
+    """JAX's builder refuses a blocktype but 'drt' and 'drt_woqp'
+    (core/builder.py:74-75), with its message; so does the port's, where it
+    once built 'drt_woqp' quietly."""
+    from pnp_vcve_tpu.core.builder import build_generator as jax_build_generator
+
+    msg = f"blocktype={blocktype!r} not implemented yet"
+    with pytest.raises(NotImplementedError) as jax_err:
+        jax_build_generator(dict(type="PnPVCVE", **SMALL, blocktype=blocktype))
+    with pytest.raises(NotImplementedError) as err:
+        build_generator(dict(type="PnPVCVE", **SMALL, blocktype=blocktype), device="cpu")
+    assert str(err.value) == str(jax_err.value) == msg

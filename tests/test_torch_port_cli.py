@@ -128,12 +128,31 @@ def test_cli_exact_stream_writes_the_plain_runs_pngs(fixture_root, tmp_path):
         cli.parse_args([cfg, "-", "--frame-parallel", "halo"])
 
 
-@pytest.mark.parametrize("flag", [["--cascade"], ["--joint-pqf-config", "pqf.py"],
+@pytest.mark.parametrize("flag", [["--cascade", "--cascade_config", "vsr.py"],
+                                  ["--joint-pqf-config", "pqf.py"],
                                   ["--cascade_config", "vsr.py"]])
 def test_cli_unported_flags_name_their_roadmap_item(fixture_root, tmp_path, flag):
-    """The cascade and the MFQE joint protocol wait for the baselines."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
-        _cli().main([str(_write_cfg(tmp_path, fixture_root)), "-", "--device", "cpu", *flag])
+    """The options that once raised with ROADMAP Queue A item 8 run their
+    modes: the cascade into a BasicVSR++ (``vsr.py``; same-size input here,
+    so the clip's own GT scores it), the MFQE joint protocol (``pqf.py``,
+    with an MFQEv2 main config, as the protocol needs), and
+    ``--cascade_config`` alone is read only with ``--cascade``, as in
+    tools/test.py."""
+    (tmp_path / "vsr.py").write_text(
+        'model = dict(type="BasicVSR", generator=dict(type="BasicVSRPlusPlus", mid_channels=8, '
+        'num_blocks=1, deform_groups=2, is_low_res_input=False))\n')
+    (tmp_path / "pqf.py").write_text(
+        'model = dict(type="MFQEv2Restorer", generator=dict(type="MFQEv2", nf=4))\n')
+    cfg = plain_cfg = _write_cfg(tmp_path, fixture_root)
+    if flag[0] == "--joint-pqf-config":
+        cfg = tmp_path / "non_pqf.py"
+        cfg.write_text(plain_cfg.read_text() + (tmp_path / "pqf.py").read_text())
+    cli = _cli()
+    metrics = cli.main([str(cfg), "-", "--device", "cpu"]
+                       + [f if f.startswith("-") else str(tmp_path / f) for f in flag])
+    assert set(metrics) == {"PSNR", "SSIM"} and all(np.isfinite(v) for v in metrics.values())
+    plain = cli.main([str(plain_cfg), "-", "--device", "cpu"])
+    assert (metrics == plain) == (flag[0] == "--cascade_config")
 
 
 @pytest.mark.parametrize("name", ["HR_davis_LR_128x128.py", "HR_davis_LR_128x128_serving.py",

@@ -192,7 +192,8 @@ def test_frame_parallel_halo_matches_jax(clips):
 def test_evaluate_dataset_exact_stream_equals_plain(clips, tmp_path):
     """evaluate_dataset(frame_parallel='exact', stream_clips=2) over three
     clips (two same-shape, then one of another shape: a flush before it)
-    gives the plain path's metrics and PNGs exactly."""
+    gives the plain path's metrics and PNGs exactly; so does the cascade
+    into a BasicVSR++ after each mode (its offset heads seeded non-zero)."""
     model = build_generator(dict(type="PnPVCVE", **MODELS["padgather"], remat=False),
                             device="cpu", seed=5)
     restorer = Restorer(generator=model, test_cfg=dict(metrics=["PSNR", "SSIM"], crop_border=0))
@@ -208,8 +209,18 @@ def test_evaluate_dataset_exact_stream_equals_plain(clips, tmp_path):
     assert len(pngs) == 3 * T
     for p in pngs:
         assert p.read_bytes() == (tmp_path / "b" / p.parent.name / p.name).read_bytes()
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        evaluate_dataset(restorer, data, cascade=object())
+    vsr = build_generator(dict(type="BasicVSRPlusPlus", mid_channels=8, num_blocks=1,
+                               deform_groups=2, is_low_res_input=False), device="cpu", seed=6)
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for align in vsr.deform_align.values():
+            w = align.conv_offset[6].weight
+            w.copy_(torch.randn(w.shape, generator=gen) * 0.02)
+    cascade = (vsr, Restorer(generator=vsr))
+    plain_c = evaluate_dataset(restorer, data, verbose=False, cascade=cascade)
+    exact_c = evaluate_dataset(restorer, data, verbose=False, cascade=cascade,
+                               frame_parallel="exact", stream_clips=2, devices=[CPU] * 4)
+    assert exact_c == plain_c and plain_c != plain
 
 
 def test_protocol_eval_tool_both_legs(tmp_path):

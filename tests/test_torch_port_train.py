@@ -300,15 +300,22 @@ def test_train_cli_resume_equals_uninterrupted_run(fixture_root, tmp_path):
 
 
 def test_port_and_clis_import_no_jax(fixture_root, tmp_path):
-    """One process imports every module of pnp_vcve_torch (serving, apis and
-    parallel among them), runs both CLIs on the CPU (the test CLI also as the
-    exact pipeline's stream over two chunks), a batched dispatch and an exact
+    """One process imports every module of pnp_vcve_torch (serving, apis,
+    parallel and the baselines among them), runs both CLIs on the CPU (the
+    test CLI also as the exact pipeline's stream over two chunks, the cascade
+    into BasicVSR++ and the MFQE joint protocol), a batched dispatch and an exact
     one, the overlapped-window eval, the serving curve, the packager, the
     handler, the protocol tool's exact leg and the five probe tools (K6-K13's
     plain versions at small shapes); neither jax nor any pnp_vcve_tpu module
     gets imported."""
     cfg = _write_cli_cfg(tmp_path, fixture_root)
     ckpt = tmp_path / "w" / "ckpt" / "1.pth"
+    # the cascade into a same-size BasicVSR++, the joint protocol on MFQEv2
+    vsr_cfg, mfqe_cfg = tmp_path / "vsr.py", tmp_path / "mfqe.py"
+    vsr_cfg.write_text('model = dict(type="BasicVSR", generator=dict(type="BasicVSRPlusPlus", '
+                       'mid_channels=8, num_blocks=1, deform_groups=2, is_low_res_input=False))\n')
+    mfqe_cfg.write_text(cfg.read_text() + '\nmodel = dict(type="MFQEv2Restorer", '
+                        'generator=dict(type="MFQEv2", nf=4))\n')
     code = f"""
 import importlib, pkgutil, sys
 sys.path[:0] = [{str(REPO)!r}, {str(REPO / 'tools')!r}]
@@ -317,6 +324,8 @@ import pnp_vcve_torch
 mods = [m.name for m in pkgutil.walk_packages(pnp_vcve_torch.__path__, "pnp_vcve_torch.")]
 for m in mods:
     importlib.import_module(m)
+assert {{"pnp_vcve_torch.models.baselines.basicvsr_pp", "pnp_vcve_torch.models.baselines.mfqev2",
+         "pnp_vcve_torch.models.spynet", "pnp_vcve_torch.data.ldp"}} <= set(mods)
 import torch_test, torch_train, torch_serving_curve, torch_pnp2servable, torch_serving_handler
 import torch_kernel_bounds, torch_protocol_eval
 import torch_int8_probe, torch_warp_kernel_probe2, torch_warp_bisect
@@ -327,6 +336,10 @@ torch_train.main([{str(cfg)!r}, "--device", "cpu", "--work-dir", {str(tmp_path /
 torch_test.main([{str(cfg)!r}, {str(ckpt)!r}, "--device", "cpu"])
 torch_test.main([{str(cfg)!r}, {str(ckpt)!r}, "--device", "cpu", "--frame-parallel", "exact",
                  "--stream-clips", "2", "--pipeline-devices", "cpu,cpu"])
+torch_test.main([{str(cfg)!r}, {str(ckpt)!r}, "--device", "cpu", "--cascade",
+                 "--cascade_config", {str(vsr_cfg)!r}])
+torch_test.main([{str(mfqe_cfg)!r}, "-", "--device", "cpu", "--joint-pqf-config",
+                 {str(mfqe_cfg)!r}])
 model = apis.init_model({str(cfg)!r}, {str(ckpt)!r}, device="cpu")
 run = serving.batched_forward_executor(model.generator)
 sample = dict(lq=np.zeros((2, 8, 8, 3), np.float32), qps=np.zeros(2, np.float32),

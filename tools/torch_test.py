@@ -7,6 +7,8 @@ tools/test.py, plus ``--device``).
         [--out metrics.pkl] [--device cuda|cpu]
         [--frame-parallel exact [--stream-clips N] [--pipeline-devices cuda:0,cuda:1]]
         [--launcher pytorch] [--multihost]
+        [--cascade [--cascade_config CFG] [--cascade_ckpt CKPT|-]]
+        [--joint-pqf-config CFG [--joint-pqf-ckpt CKPT|-]]
 
 CONFIG is any config file, for example the port's own
 ``pnp_vcve_torch/configs/HR_davis_LR_128x128_serving.py``. CHECKPOINT is a
@@ -25,6 +27,16 @@ N same-shape clips through it together. ``--launcher pytorch`` or
 each rank takes the card ``LOCAL_RANK % device_count`` and its rank-strided
 share of the clips, and the dataset mean is the exact count-weighted
 reduction over the ranks (gloo); rank 0 writes ``--out``.
+
+``--cascade`` feeds each enhanced clip to a downstream model, built from
+``--cascade_config`` (default: CONFIG) with the weights of
+``--cascade_ckpt`` (default ``-``), and scores its output, for example
+vanilla BasicVSR++ at x4 against ``--testdir_gt`` pointed at the x4 frames.
+``--joint-pqf-config`` runs the MFQE two-model joint protocol: CONFIG and
+CHECKPOINT are the non-PQF model, ``--joint-pqf-config`` and
+``--joint-pqf-ckpt`` (default ``-``) the PQF model; PQFs are enhanced first
+from the decoded frames, then the non-PQFs against the enhanced PQFs.
+Both checkpoints take what CHECKPOINT takes.
 """
 
 import argparse
@@ -32,15 +44,6 @@ import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-
-# options of tools/test.py the port does not have yet -> ROADMAP item
-UNPORTED = {
-    "--joint-pqf-config": "Queue A item 8",
-    "--joint-pqf-ckpt": "Queue A item 8",
-    "--cascade": "Queue A item 8",
-    "--cascade_config": "Queue A item 8",
-    "--cascade_ckpt": "Queue A item 8",
-}
 
 
 def parse_args(argv=None):
@@ -72,23 +75,24 @@ def parse_args(argv=None):
     p.add_argument("--local_rank", type=int, default=0)
     p.add_argument("--multihost", action="store_true",
                    help="join the torchrun world; clips shard across the ranks")
-    # accepted as in tools/test.py; setting one raises with its ROADMAP item
-    p.add_argument("--joint-pqf-config", default=None)
-    p.add_argument("--joint-pqf-ckpt", default=None)
-    p.add_argument("--cascade", action="store_true")
-    p.add_argument("--cascade_config", default=None)
-    p.add_argument("--cascade_ckpt", default=None)
+    p.add_argument(
+        "--joint-pqf-config", default=None,
+        help="PQF model config: run the MFQE two-model joint protocol "
+        "(PQFs enhanced first, non-PQFs reference the enhanced PQFs)",
+    )
+    p.add_argument("--joint-pqf-ckpt", default=None,
+                   help="PQF model state dict (.pth/.npz) or '-' (the default) for random init")
+    p.add_argument("--cascade", action="store_true",
+                   help="feed the enhanced clips to a downstream model and score its output")
+    p.add_argument("--cascade_config", default=None,
+                   help="config of the downstream (VSR) model; default: CONFIG")
+    p.add_argument("--cascade_ckpt", default=None,
+                   help="downstream model state dict or '-' (the default) for random init")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    defaults = parse_args([args.config, args.checkpoint])
-    for option, item in UNPORTED.items():
-        dest = option.lstrip("-").replace("-", "_")
-        if getattr(args, dest) != getattr(defaults, dest):
-            raise NotImplementedError(f"{option} is not ported to the PyTorch port yet "
-                                      f"(ROADMAP {item})")
 
     import os
 
@@ -109,7 +113,7 @@ def main(argv=None):
     from pnp_vcve_torch.core.config import Config
     from pnp_vcve_torch.core.builder import build_dataset, build_restorer
     from pnp_vcve_torch.core.checkpoint import load_generator_weights
-    from pnp_vcve_torch.train.eval import evaluate_dataset
+    from pnp_vcve_torch.train.eval import evaluate_dataset, evaluate_dataset_mfqe_joint
 
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
@@ -124,17 +128,37 @@ def main(argv=None):
     load_generator_weights(restorer.generator, args.checkpoint)
     dataset = build_dataset(test_cfg)
 
-    metrics = evaluate_dataset(
-        restorer,
-        dataset,
-        save_path=args.save_path,
-        save_image=args.save_image,
-        chunk_t=args.chunk_t,
-        distributed=distributed,
-        frame_parallel=args.frame_parallel,
-        stream_clips=args.stream_clips,
-        devices=devices,
-    )
+    def other_model(config, checkpoint):
+        """The restorer of another config on this device, with its weights."""
+        other = Config.fromfile(config)
+        r = build_restorer(other.model, other.get("test_cfg"), device=device)
+        load_generator_weights(r.generator, checkpoint or "-")
+        return r
+
+    if args.joint_pqf_config:
+        # the main config and checkpoint are the non-PQF model; every rank
+        # runs the whole dataset, as in tools/test.py
+        pqf = other_model(args.joint_pqf_config, args.joint_pqf_ckpt)
+        metrics = evaluate_dataset_mfqe_joint(
+            pqf.generator, restorer.generator, dataset, restorer,
+            save_path=args.save_path, save_image=args.save_image)
+    else:
+        cascade = None
+        if args.cascade:
+            casc = other_model(args.cascade_config or args.config, args.cascade_ckpt)
+            cascade = (casc.generator, casc)
+        metrics = evaluate_dataset(
+            restorer,
+            dataset,
+            save_path=args.save_path,
+            save_image=args.save_image,
+            chunk_t=args.chunk_t,
+            cascade=cascade,
+            distributed=distributed,
+            frame_parallel=args.frame_parallel,
+            stream_clips=args.stream_clips,
+            devices=devices,
+        )
     if metrics:
         print(", ".join(f"{k}: {v:.4f}" for k, v in metrics.items()))
     if distributed:
