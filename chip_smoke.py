@@ -192,7 +192,21 @@ Phases (any failure raises and the script exits non-zero):
    (c) the MFQE joint protocol, ``--joint-pqf-config`` with the port's
    MFQEv2 configs (nf 32, seeded, BatchNorm statistics away from 0 / 1) on
    that clip, no kernel launched, then the protocol on a 128x128 crop on
-   the card against the CPU (max|diff| <= 1e-4) and its f/s.
+   the card against the CPU (max|diff| <= 1e-4) and its f/s;
+17. data-parallel training and KITTI: (a) ``tools/torch_dist_train.sh``
+   with 2 ranks sharing the card over gloo (5 samples each) and
+   ``tools/torch_train.py`` in this process at 10 samples, phase 7's
+   fixture and published settings for 4 iterations, ``--deterministic``,
+   TF32 off in cuDNN and cuBLAS: the ranks' final weights and logged losses
+   (unrounded, from each run's scalars.json) within 1e-5 of the one
+   process's; (b) each rank's launches (rank 0 logs every rank's) and
+   the one process's equal phase 7's; (c) seconds per iteration of both
+   runs (iterations 2-4, from their logs) and rank 0's all-reduce time a
+   step (``--time-allreduce``); (d) ``tools/torch_test_kitti.py`` with the training config and the
+   parity weights on a KITTI-layout fixture of 2 sequences x 2 frames at
+   375x1242 (tools/data/make_kitti_fixture.py): finite metrics, frames/s,
+   the launches of 2 frames a sequence, then the first pair kernel path
+   against plain path (max|diff| <= 3e-3, float32, TF32 off).
 
 Each phase prints its wall time.
 The line before the last is a JSON object with each kernel's launches
@@ -203,7 +217,9 @@ phase 7, each block form's last 720p run in phase 11, phase 14's driven
 runs (the vsr CLI drive, basic's and fvc's timed 720p clips, the chunked
 clips), phase 15's pipeline-driven runs (``exact_pipeline_launches``: (a),
 (b), (c) and (e)), phase 16's cascade through ``tools/torch_test.py``
-(``cascade_launches``: the flagship's kernels and K1 inside BasicVSR++);
+(``cascade_launches``: the flagship's kernels and K1 inside BasicVSR++),
+phase 17's ranks (``ddp_train_launches``: the two ranks' counts summed; each
+rank's equals ``train_launches``) and its KITTI CLI run (``kitti_launches``);
 the probe tools' runs of phases 12 and 13 for K6-K13),
 its error, its time beside the plain
 version's, the library call's, its yardsticks' and the bounds (K2-K5:
@@ -325,6 +341,11 @@ CHUNK_SPLIT, TOL_CHUNK = 3, 1e-5  # an 8-frame clip as 3 + 5 frames (frame 3 a B
 PIPE_DEPTHS, STREAM_B, STREAM_D = (2, 4), 3, 2
 FULL_T, FULL_CHUNK_T, FULL_MOTION = 100, 20, (2, 1)
 DIST_CLIPS, DIST_HW, DIST_RANKS, DIST_RTOL = 3, (256, 256), 2, 1e-6
+# phase 17: data-parallel training against one process on the global batch
+# (the bound of the 5-step Adam test against JAX), KITTI's frame size
+DDP_RANKS, DDP_TOL = 2, 1e-5
+KITTI_HW, KITTI_SEQS = (375, 1242), ("000000", "000001")
+PARITY_WEIGHTS = ROOT / "tests" / "fixtures" / "parity" / "state_dict.npz"
 # phase 16: the eval entry point's last modes. The cascade: the serving
 # config into vanilla BasicVSR++ at its published widths on REDS-LR-width
 # clips (176 rows: 'pf' needs sides that are multiples of 16, REDS-LR's 180
@@ -1143,6 +1164,37 @@ def _grad_check(tag, model, gen_cfg, per_pass, seed, dev):
     return ratios[worst]
 
 
+def _train_fixture(work):
+    """Phase 7's DAVIS-layout fixture under ``work/data`` (2 clips x
+    TRAIN_FRAMES frames at TRAIN_HW, CRF 15/25/35 and sharp; written where it
+    is missing) and the port's flagship training config with data.train
+    pointed at it through the DAVIS type, every other setting as published.
+    Returns the config's path."""
+    sys.path.insert(0, str(ROOT / "tools" / "data"))
+    from make_protocol_fixture import write_fixture
+
+    data = work / "data"
+    if not (data / "qp.json").exists():
+        t0 = time.perf_counter()
+        qp = {}
+        # one CRF per call; each call rewrites qp.json, so the three are merged
+        for crf in (15, 25, 35):
+            write_fixture(data, clips=("bear", "boat"), frames=TRAIN_FRAMES, height=TRAIN_HW[0],
+                          width=TRAIN_HW[1], crf=crf, seed=SEED, quiet=True)
+            qp.update(json.loads((data / "qp.json").read_text()))
+        (data / "qp.json").write_text(json.dumps(qp))
+        print(f"[train] fixture: 2 clips x {TRAIN_FRAMES} frames at {TRAIN_HW[0]}x"
+              f"{TRAIN_HW[1]}, CRF 15/25/35 + sharp, in {time.perf_counter() - t0:.1f} s")
+    cfg_path = work / "train_davis.py"
+    cfg_path.write_text(
+        f"_base_ = [{str(CONFIGS / 'HR_davis_LR_128x128.py')!r}]\n"
+        "from pnp_vcve_torch.core.presets import train_dataset\n"
+        f"data = dict(train=[train_dataset('DAVISMultipleGTMixCompressDataset', {str(data)!r}, "
+        f"'sharp', {str(data / 'qp.json')!r})])\n"
+    )
+    return cfg_path
+
+
 def phase_train(dev, smi):
     """tools/torch_train.py at the flagship training settings on a DAVIS
     fixture: 4 iterations with a checkpoint at 2, then a resume from 2."""
@@ -1159,32 +1211,12 @@ def phase_train(dev, smi):
 
     sys.path[:0] = [str(ROOT / "tools"), str(ROOT / "tools" / "data")]
     import torch_train
-    from make_protocol_fixture import write_fixture
 
     work = ROOT / "build" / "chip_smoke" / "train"
     if work.exists():
         shutil.rmtree(work)
-    data = work / "data"
-    t0 = time.perf_counter()
-    qp = {}
-    # one CRF per call; each call rewrites qp.json, so the three are merged
-    for crf in (15, 25, 35):
-        write_fixture(data, clips=("bear", "boat"), frames=TRAIN_FRAMES, height=TRAIN_HW[0],
-                      width=TRAIN_HW[1], crf=crf, seed=SEED, quiet=True)
-        qp.update(json.loads((data / "qp.json").read_text()))
-    (data / "qp.json").write_text(json.dumps(qp))
-    cfg_path = work / "train_davis.py"
-    # the port's flagship training config with data.train pointed at the
-    # fixture through the DAVIS type; every other setting as published
-    cfg_path.write_text(
-        f"_base_ = [{str(CONFIGS / 'HR_davis_LR_128x128.py')!r}]\n"
-        "from pnp_vcve_torch.core.presets import train_dataset\n"
-        f"data = dict(train=[train_dataset('DAVISMultipleGTMixCompressDataset', {str(data)!r}, "
-        f"'sharp', {str(data / 'qp.json')!r})])\n"
-    )
+    cfg_path = _train_fixture(work)
     cfg = Config.fromfile(cfg_path)
-    print(f"[train] fixture: 2 clips x {TRAIN_FRAMES} frames at {TRAIN_HW[0]}x{TRAIN_HW[1]}, "
-          f"CRF 15/25/35 + sharp, in {time.perf_counter() - t0:.1f} s")
 
     # training keeps PyTorch's defaults (cuDNN convolutions in TF32); the
     # resume check needs deterministic algorithms (cuDNN's weight gradients
@@ -2852,6 +2884,181 @@ def phase_baselines(dev, smi):
     return cascade_counts, {"cascade": err, "pqf_v2": err_pqf, "joint_cpu": err_joint}
 
 
+def _log_iterations(log_path):
+    """Per logged iteration: ``(seconds, all-reduce seconds or None)`` from
+    the ``iter N/M loss=... (x it/s[; all-reduce y s/it ...])`` lines (log
+    interval 1)."""
+    out = []
+    for ln in Path(log_path).read_text().splitlines():
+        if " loss=" not in ln:
+            continue
+        rate = ln.split("(", 1)[1]
+        red = float(rate.split("all-reduce ")[1].split()[0]) if "all-reduce" in rate else None
+        out.append((1.0 / float(rate.split()[0]), red))
+    return out
+
+
+def phase_ddp_train(dev, smi):
+    """Phase 17: (a) tools/torch_dist_train.sh with DDP_RANKS ranks on the
+    card (gloo; on a machine with more cards, a rank a card over NCCL)
+    against one process (tools/torch_train.py in this process)
+    on the global batch, both at the published settings for TRAIN_ITERS
+    iterations with --deterministic and TF32 off (the ranks through
+    NVIDIA_TF32_OVERRIDE=0): the weights and the logged losses within
+    DDP_TOL; (b) each rank's
+    launches equal phase 7's one-process counts, and so do the one
+    process's; (c) seconds per iteration of both
+    runs and rank 0's all-reduce time; (d) tools/torch_test_kitti.py on a
+    KITTI-layout fixture at KITTI_HW (the training config, parity weights):
+    its frames/s and launches, then the first pair kernel path against
+    plain path (TOL_MODEL). Returns ``(the ranks' summed launches, the KITTI
+    run's launches)``."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pnp_vcve_torch.core.config import Config
+    from pnp_vcve_torch.data.extra_datasets import KittiPairDataset
+    from pnp_vcve_torch.kernels import LAUNCHES, reset_launches
+
+    sys.path[:0] = [str(ROOT / "tools"), str(ROOT / "tools" / "data")]
+    import torch_test_kitti
+    import torch_train
+    from make_kitti_fixture import write_kitti_fixture
+
+    work = ROOT / "build" / "chip_smoke" / "ddp"
+    if work.exists():
+        shutil.rmtree(work)
+    cfg_path = _train_fixture(ROOT / "build" / "chip_smoke" / "train")
+    cfg = Config.fromfile(cfg_path)
+    gen_cfg = cfg.model["generator"]
+    t = cfg.data["train"][0]["dataset"]["num_input_frames"]
+    b = cfg.data["train_dataloader"]["samples_per_gpu"]
+    per_iter = {k: 2 * v for k, v in _launches_per_pass(t, gen_cfg["num_blocks"]).items()}
+    want = {k: TRAIN_ITERS * v for k, v in per_iter.items()}  # phase 7's counts
+    n = max(DDP_RANKS, torch.cuda.device_count())
+    shared = "sharing the card" if n > torch.cuda.device_count() else "a card each"
+
+    # (a) the same run twice: n ranks x b samples through the
+    # launcher, one process x n * b here; deterministic algorithms
+    # and no TF32 in cuDNN and cuBLAS (the kernels' float32 is 3xTF32
+    # regardless), so what differs is the batch split and the order of the
+    # gradient sums
+    opts = ["--device", dev.type, "--total-iters", str(TRAIN_ITERS), "--deterministic",
+            "--cfg-options", "log_config.interval=1", f"checkpoint_config.interval={TRAIN_ITERS}"]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    torch_train.main([str(cfg_path), "--work-dir", str(work / "one"), *opts,
+                      f"data.train_dataloader.samples_per_gpu={n * b}"])
+    torch.cuda.synchronize()
+    walls = {"one": time.perf_counter() - t0}
+    single = dict(LAUNCHES)
+    torch.cuda.empty_cache()  # the ranks need the card's memory
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        ["bash", str(ROOT / "tools" / "torch_dist_train.sh"), str(cfg_path), str(n),
+         "--work-dir", str(work / "ranks"), *opts, "--time-allreduce"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env=dict(os.environ, PYTHON=sys.executable, NVIDIA_TF32_OVERRIDE="0"))
+    walls["ranks"] = time.perf_counter() - t0
+    if proc.returncode:
+        print(proc.stdout[-3000:], proc.stderr[-3000:])
+        raise AssertionError(f"tools/torch_dist_train.sh exited {proc.returncode}")
+    backend = [ln for ln in proc.stdout.splitlines() if ln.startswith("[dist]")]
+    runs = ("one", "ranks")
+    one, ranks = (torch.load(work / tag / "ckpt" / f"{TRAIN_ITERS}.pth", weights_only=True)
+                  for tag in ("one", "ranks"))
+    diff = max(float((one["model"][k] - v).abs().max()) for k, v in ranks["model"].items())
+    scale = max(float(v.abs().max()) for v in one["model"].values())
+    # the logged losses unrounded: Adam's update barely moves with the
+    # gradients' scale, so the losses are what shows a wrong average
+    losses = {tag: [json.loads(ln)["loss"]
+                    for ln in (work / tag / "scalars.json").read_text().splitlines()]
+              for tag in runs}
+    dloss = max((abs(a - c) for a, c in zip(losses["ranks"], losses["one"])), default=np.inf)
+    print(f"[ddp17] (a) {backend}; {n} ranks x {b} samples against one process x "
+          f"{n * b}, {t} frames, 128x128 crops, {TRAIN_ITERS} iterations, "
+          f"deterministic, TF32 off: max|dw| {diff:.4g} (<= {DDP_TOL}; largest weight "
+          f"{scale:.4g}); logged losses {losses['ranks']} against {losses['one']}: "
+          f"max|dloss| {dloss:.4g} (<= {DDP_TOL})")
+    if diff > DDP_TOL or not ranks["step"] == one["step"] == TRAIN_ITERS:
+        raise AssertionError("the ranks' weights differ from one process's on the global batch")
+    if len(losses["ranks"]) != TRAIN_ITERS or len(losses["one"]) != TRAIN_ITERS \
+            or dloss > DDP_TOL:
+        raise AssertionError("the ranks' logged losses differ from one process's")
+
+    # (b) launches: each rank's (rank 0 logs them all) and the one process's
+    key = "kernel launches by rank: "
+    by_rank = json.loads(next(ln for ln in (work / "ranks" / "train.log").read_text()
+                              .splitlines() if key in ln).split(key, 1)[1])
+    print(f"[ddp17] (b) launches by rank {by_rank}, one process {single}; phase 7's counts "
+          f"{want}")
+    if len(by_rank) != n or any(c != want for c in by_rank) or single != want:
+        raise AssertionError("a rank did not launch phase 7's kernels as often as one process")
+
+    # (c) seconds per iteration (iterations 2 on: the first holds the
+    # allocator's and cuDNN's warm-up) and rank 0's all-reduce
+    it = {tag: _log_iterations(work / tag / "train.log")[1:] for tag in runs}
+    sec = {tag: sum(s for s, _ in v) / len(v) for tag, v in it.items()}
+    red = sum(r for _, r in it["ranks"]) / len(it["ranks"])
+    print(f"[ddp17] (c) {smi}: seconds per iteration over iterations 2-{TRAIN_ITERS}: "
+          f"{n} ranks {shared} {sec['ranks']:.4f} s (global batch "
+          f"{n * b}), one process {sec['one']:.4f} s (batch {n * b}); rank 0's "
+          f"all-reduce {red:.4f} s an iteration = {red / sec['ranks']:.4f} of it (flat float32 "
+          f"gradients; rank 0 synchronises the card before and after it to time it); walls "
+          f"with start-up: ranks {walls['ranks']:.1f} s, one {walls['one']:.1f} s")
+
+    # (d) KITTI pairs at KITTI_HW through the CLI, then kernel vs plain
+    t0 = time.perf_counter()
+    root = write_kitti_fixture(work / "kitti", seqs=KITTI_SEQS, height=KITTI_HW[0],
+                               width=KITTI_HW[1], seed=SEED + 17)
+    fixture_s = time.perf_counter() - t0
+    args = [str(CONFIGS / "HR_davis_LR_128x128.py"), str(PARITY_WEIGHTS), "--device", dev.type,
+            "--testdir_lr", str(root / "crf15" / "png"), "--testdir_gt", str(root / "clean"),
+            "--qp-slice-file", str(root / "qp.json")]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch_test_kitti.main(args)  # warm-up: cuDNN's plans at this size
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = torch_test_kitti.main(args)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    kitti = dict(LAUNCHES)
+    kitti_want = {k: len(KITTI_SEQS) * v
+                  for k, v in _launches_per_pass(2, gen_cfg["num_blocks"]).items()}
+    model, _ = _flagship_generator("HR_davis_LR_128x128.py", dev)
+    sample = KittiPairDataset(str(root / "crf15" / "png"), str(root / "clean"),
+                              str(root / "qp.json")).load_clip(0)
+    inputs = {k: torch.from_numpy(np.ascontiguousarray(sample[v][None])).to(dev)
+              for k, v in dict(lrs="lq", qps="qps", slices="slices", mvs="mvs",
+                               base_qps="base_qps", par_map="partitions").items()}
+    with torch.no_grad():
+        gen_s, _, out = _timed_clip(model, inputs)
+        got, ref, counts = _kernel_vs_plain(model, inputs)
+    err = float((got - ref).abs().max())
+    frames = 2 * len(KITTI_SEQS)
+    print(f"[ddp17] (d) {smi}: tools/torch_test_kitti.py, {len(KITTI_SEQS)} sequences x 2 frames "
+          f"at {KITTI_HW[0]}x{KITTI_HW[1]} (KITTI's size; the training config's padgather, "
+          f"parity weights, float32, TF32 off): {metrics}; {cli_s:.3f} s = "
+          f"{frames / cli_s:.3f} frames/s with PNG loading and SSIM; the generator alone "
+          f"{gen_s:.4f} s a pair = {2 / gen_s:.3f} frames/s; launches {kitti} (expected "
+          f"{kitti_want}); kernel path vs plain path max|diff| {err:.4g} (<= {TOL_MODEL}); "
+          f"fixture {fixture_s:.1f} s")
+    if kitti != kitti_want or counts != {k: v // len(KITTI_SEQS) for k, v in kitti_want.items()}:
+        raise AssertionError("the KITTI run did not go through the kernels")
+    if err > TOL_MODEL or not all(np.isfinite(v) for v in metrics.values()) or \
+            tuple(out.shape) != (1, 2, *KITTI_HW, 3):
+        raise AssertionError("the KITTI pair's kernel path differs from its plain path")
+    summed = {k: sum(c[k] for c in by_rank) for k in want}
+    return summed, kitti
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     # deterministic cuBLAS for the resume check of phase 7; read when cuBLAS
@@ -2884,6 +3091,8 @@ def main():
     exact_counts = phase("15 exact pipeline", phase_exact_pipeline, dev, smi)
     cascade_counts, baseline_errs = phase("16 cascade and joint protocol", phase_baselines, dev,
                                           smi)
+    ddp_counts, kitti_counts = phase("17 data-parallel training and KITTI", phase_ddp_train,
+                                     dev, smi)
     # K6 runs in both probe phases: one row, the forms and counts of both
     k6 = b10b_rows.pop("window_copy")
     probe_rows["window_copy"]["forms"] += k6["forms"]
@@ -2896,7 +3105,8 @@ def main():
     paths = {"serving_launches": counts, "batched_launches": batched_counts,
              "handler_launches": handler_counts, "train_launches": train_counts,
              "block_forms_launches": forms_counts, "model_forms_launches": forms14_counts,
-             "exact_pipeline_launches": exact_counts, "cascade_launches": cascade_counts}
+             "exact_pipeline_launches": exact_counts, "cascade_launches": cascade_counts,
+             "ddp_train_launches": ddp_counts, "kitti_launches": kitti_counts}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),

@@ -2,8 +2,8 @@
 pnp_vcve_tpu/core/builder.py that the flagship enhancement and training
 paths and the eval entry point's modes use: the generator :33-100, the
 baselines MFQEv2 and the BasicVSR++ family :112-164, the restorers
-:568-600, the train datasets :660-750 and :1195-1208, the eval datasets
-:1117-1192, the optimizer :1211-1261).
+:568-600, the train datasets :660-750, :950-1062 and :1195-1208, the eval
+datasets :1064-1192, the optimizer :1211-1261).
 
 The registries carry the reference type names, so the flagship configs load
 unchanged. Types the port does not have yet raise ``NotImplementedError``
@@ -26,6 +26,8 @@ from pnp_vcve_torch.data.datasets import (
     MixCompressTrainDataset,
     reds_train_clips,
 )
+from pnp_vcve_torch.data.extra_datasets import KittiPairDataset, VimeoMixDataset, VimeoTestDataset
+from pnp_vcve_torch.data.loader import WeightedMixture
 from pnp_vcve_torch.models.pnp_vcve import PnPVCVE
 from pnp_vcve_torch.models.restorer import CenterFrameRestorer, Restorer
 from pnp_vcve_torch.train.schedule import cosine_restart_schedule
@@ -280,6 +282,108 @@ def _build_davis_train(lq_folder, gt_folder, cprs15_folder, cprs25_folder, cprs3
                           [ClipIndex(n, 20) for n in names], num_input_frames, scale, pipeline)
 
 
+@DATASETS.register(name="BigMultipleGTMixCompressDataset")
+def _build_big_train(lq_folder, gt_folder, cprs15_folder, cprs25_folder, cprs35_folder,
+                     num_input_frames=15, scale=1, pipeline=None, test_mode=False,
+                     sequence_length=None, **_ignored):
+    """The multi-dataset training mixture (reference sr_big_dataset.py:6-87):
+    every folder argument is a dict keyed by dataset name, and so may the
+    pipeline's ``qp_slice_file`` be (loading_ipb_mix.py:14-217). Each
+    dataset is one source weighted by its clip count, so clips pool
+    uniformly, as the reference concatenates its data_infos."""
+    sequence_length = dict(sequence_length or {"HR": 100, "LR": 100, "DAVIS": 20})
+    tf, p = _pipeline(pipeline)
+    qp_files = p["qp_slice_file"]
+    sources, weights = [], []
+    for name in dict(lq_folder):
+        root = lq_folder[name]
+        names = sorted(d.name for d in os.scandir(root) if d.is_dir())
+        clips = [ClipIndex(n, sequence_length.get(name, 100)) for n in names]
+        sources.append(MixCompressTrainDataset(
+            transforms=tf,
+            lq_folder=root,
+            gt_folder=gt_folder[name],
+            cprs15_folder=cprs15_folder[name],
+            cprs25_folder=cprs25_folder[name],
+            cprs35_folder=cprs35_folder[name],
+            qp_slice_file=qp_files.get(name) if isinstance(qp_files, dict) else qp_files,
+            clips=clips,
+            num_input_frames=num_input_frames,
+            scale=scale,
+            gt_patch_size=p["gt_patch_size"],
+            filename_tmpl=p["filename_tmpl"],
+            data_ratio=p["data_ratio"],
+            interval_list=p["interval_list"],
+            replace_qp_with_ipb=p["replace_qp_with_ipb"],
+        ))
+        weights.append(len(clips))
+    return WeightedMixture(sources, weights)
+
+
+def _vimeo_keys(ann_file: str) -> list[str]:
+    """Annotation lines '00001/0266 (256,448,3)' -> keys (reference
+    sr_vimeo90k_multiple_gt_compress_dataset.py:66-67)."""
+    with open(ann_file) as fin:
+        return [line.strip().split(" ")[0] for line in fin if line.strip()]
+
+
+@DATASETS.register(name="SRVimeo90KMultipleGTMixCompressDataset")
+def _build_vimeo_mix(cprs_all_folder, lq_folder, gt_folder, ann_file, pipeline=None, scale=1,
+                     num_input_frames=7, test_mode=False, _bd_prefix="", **_ignored):
+    """Vimeo-90k mixture training source (reference
+    sr_vimeo90k_multiple_gt_compress_dataset.py:92-181): the uncompressed
+    frames under ``lq_folder/png``, the compressed ones under
+    ``cprs_all_folder/{prefix}crf{15,25,35}/png``."""
+    _, p = _pipeline(pipeline)
+    return VimeoMixDataset(
+        lq_folder=os.path.join(lq_folder, "png"),
+        gt_folder=gt_folder,
+        cprs15_folder=os.path.join(cprs_all_folder, f"{_bd_prefix}crf15", "png"),
+        cprs25_folder=os.path.join(cprs_all_folder, f"{_bd_prefix}crf25", "png"),
+        cprs35_folder=os.path.join(cprs_all_folder, f"{_bd_prefix}crf35", "png"),
+        qp_slice_file=p["qp_slice_file"],
+        clips=_vimeo_keys(ann_file),
+        num_input_frames=num_input_frames,
+        scale=scale,
+        gt_patch_size=p["gt_patch_size"],
+        data_ratio=p["data_ratio"],
+        replace_qp_with_ipb=p["replace_qp_with_ipb"],
+    )
+
+
+@DATASETS.register(name="SRVimeo90KMultipleGTMixCompressDataset_BD")
+def _build_vimeo_mix_bd(**kwargs):
+    """The blur-downsampled form: compressed folders ``BD_crf{15,25,35}/png``
+    (reference sr_vimeo90k_multiple_gt_compress_dataset.py:183-225)."""
+    return _build_vimeo_mix(_bd_prefix="BD_", **kwargs)
+
+
+@DATASETS.register(name="SRVimeo90KMultipleGTCompressDataset")
+def _build_vimeo_test(cprs_folder, gt_folder, ann_file, lq_folder=None, pipeline=None, scale=1,
+                      num_input_frames=7, test_mode=True, **_ignored):
+    """Vimeo-90k whole-septuplet test source (reference
+    sr_vimeo90k_multiple_gt_compress_dataset.py:10-89)."""
+    _, p = _pipeline(pipeline)
+    return VimeoTestDataset(
+        cprs_folder=cprs_folder,
+        gt_folder=gt_folder,
+        qp_slice_file=p["qp_slice_file"],
+        clips=_vimeo_keys(ann_file),
+        num_input_frames=num_input_frames,
+        scale=scale,
+        replace_qp_with_ipb=p["replace_qp_with_ipb"],
+    )
+
+
+@DATASETS.register(name="KITTIMultipleGTMixCompressDataset", aliases=("WMGANDataset_test_kitti",))
+def _build_kitti_pairs(lq_folder, gt_folder, pipeline=None, scale=1, test_mode=True, **_ignored):
+    """KITTI's fixed (10, 11) frame pairs (reference
+    sr_kitti_multiple_gt_compress_dataset.py:6-150, augmentation.py:1549-1604)."""
+    _, p = _pipeline(pipeline)
+    return KittiPairDataset(lq_folder=lq_folder, gt_folder=gt_folder,
+                            qp_slice_file=p["qp_slice_file"])
+
+
 def _test_dataset(lq_folder, gt_folder, clips, num_input_frames, scale, pipeline):
     tf, p = _pipeline(pipeline)
     return CompressTestDataset(
@@ -330,7 +434,7 @@ def build_dataset(cfg: dict):
     cfg = dict(cfg)
     if cfg.get("type") == "RepeatDataset":
         return build_dataset(dict(cfg["dataset"]))
-    return _build(DATASETS, cfg, "Queue A item 3")
+    return _build(DATASETS, cfg, "Queue A item 8")
 
 
 def build_train_datasets(cfg_list):

@@ -7,7 +7,7 @@ an unknown ``type`` raises ``KeyError`` naming the known stages. Stages run
 in three phases of the host-side data flow:
 
 - ``index`` stages make or reorder the frame plan before any IO
-  (GenerateSegmentIndices*, TemporalReverse);
+  (GenerateSegmentIndices*, GenerateFrameIndicesEDVR_mix, TemporalReverse);
 - ``load`` stages carry the knobs of what the dataset reads (CRF buckets,
   QP/slice sidecar, MV and partition rasters); the dataset does the IO;
 - ``sample`` stages transform the loaded sample in config order
@@ -27,6 +27,7 @@ from .pipeline import (
     SPATIAL_KEYS,
     Sample,
     flip,
+    generate_edvr_window_indices,
     generate_segment_indices,
     paired_random_crop_mv,
     random_transpose_hw,
@@ -65,6 +66,19 @@ class GenerateSegmentIndicesStage:
     def __call__(self, plan: dict, rng: np.random.Generator) -> dict:
         idxs = generate_segment_indices(plan["sequence_length"], plan["num_input_frames"],
                                         rng, self.interval_list, self.start_idx)
+        plan["lq_idxs"] = list(idxs)
+        plan["gt_idxs"] = list(idxs)
+        return plan
+
+
+@PIPELINES.register(name="GenerateFrameIndicesEDVR_mix")
+class GenerateEDVRWindowStage(GenerateSegmentIndicesStage):
+    """Centre-frame window with the border redraw (reference
+    augmentation.py:960-1045); the Big mixture's index stage."""
+
+    def __call__(self, plan: dict, rng: np.random.Generator) -> dict:
+        idxs = generate_edvr_window_indices(plan["sequence_length"], plan["num_input_frames"],
+                                            rng, self.interval_list, self.start_idx)
         plan["lq_idxs"] = list(idxs)
         plan["gt_idxs"] = list(idxs)
         return plan

@@ -12,7 +12,11 @@ DistributedWeightedSampler, mmedit/datasets/builder.py:52-199).
 
 Every sample comes from an ``np.random.Generator`` seeded by
 ``(seed, step, slot)``, so one seed and start step give the same batches
-whatever the number of threads, as the JAX loader does.
+whatever the number of threads, as the JAX loader does. Under data
+parallelism the global batch of ``world * batch_size`` slots is drawn as
+one process would draw it, and rank ``r`` loads only its rows, slots
+``r * batch_size .. (r + 1) * batch_size - 1`` (JAX shards the global
+batch's rows over ``dp`` in the same order).
 """
 
 from __future__ import annotations
@@ -50,14 +54,19 @@ def collate(samples: Sequence[Sample]) -> dict:
 
 class PrefetchLoader:
     """Endless batch iterator: worker threads build the batches of the next
-    steps, at most ``num_threads + prefetch`` ahead of the consumer."""
+    steps, at most ``num_threads + prefetch`` ahead of the consumer.
+    ``batch_size`` is this rank's share; ``rank`` of ``world`` picks its rows
+    of the global batch."""
 
     def __init__(self, source, batch_size: int, seed: int = 0, num_threads: int = 4,
                  prefetch: int = 2, device: Optional[torch.device] = None,
-                 start_step: int = 0):
+                 start_step: int = 0, rank: int = 0, world: int = 1):
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside a world of {world}")
         self.source = source
         self.batch_size = batch_size
         self.seed = seed
+        self.first_slot = rank * batch_size
         # workers_per_gpu=0 (the reference's synchronous loading) is one
         # worker thread here
         self.num_threads = max(1, num_threads)
@@ -76,7 +85,7 @@ class PrefetchLoader:
         """The batch of ``step`` as CPU tensors."""
         samples = [
             self.source.sample(np.random.default_rng(np.random.SeedSequence([self.seed, step, slot])))
-            for slot in range(self.batch_size)
+            for slot in range(self.first_slot, self.first_slot + self.batch_size)
         ]
         batch = {k: torch.from_numpy(v) for k, v in collate(samples).items()}
         if self._pin:

@@ -92,6 +92,27 @@ def random_transpose_hw(sample: Sample, rng: np.random.Generator, ratio: float =
     return sample
 
 
+def generate_edvr_window_indices(sequence_length: int, num_input_frames: int,
+                                 rng: np.random.Generator,
+                                 interval_list: Sequence[int] = (1,),
+                                 start_idx: int = 0) -> list[int]:
+    """EDVR-style window around a random centre frame (reference
+    GenerateFrameIndicesEDVR_mix, augmentation.py:960-1045): the centre is
+    drawn again, uniformly, until the window fits inside the clip."""
+    interval = int(rng.choice(list(interval_list)))
+    half = num_input_frames // 2
+    last = sequence_length - 1
+    if 2 * half * interval > last:
+        raise ValueError(
+            f"sequence_length {sequence_length} too short for "
+            f"{num_input_frames} frames at interval {interval}"
+        )
+    center = int(rng.integers(0, sequence_length))
+    while center - half * interval < 0 or center + half * interval > last:
+        center = int(rng.integers(0, last + 1))
+    return [center + (i - half) * interval + start_idx for i in range(num_input_frames)]
+
+
 def generate_segment_indices(sequence_length: int, num_input_frames: int,
                              rng: np.random.Generator, interval_list: Sequence[int] = (1,),
                              start_idx: int = 0) -> list[int]:

@@ -6,7 +6,9 @@ Schema (reference loading_ipb.py:102-134):
 with ``frame`` the unpadded decimal index. Uncompressed inputs (CRF bucket
 0) have no entry: QP 0, slice I for frame 0 and P after it. With
 ``replace_qp_with_ipb`` (the IPB config) the QP is the slice type's ordinal
-(loading_ipb.py:120-123).
+(loading_ipb.py:120-123). Vimeo-90k's sidecar nests one level deeper,
+``qp_slice_dict[crf][clip][subclip][frame]`` (loading_ipb.py:104-112): pass
+``subclip``.
 """
 
 from __future__ import annotations
@@ -25,16 +27,19 @@ class QpSliceLookup:
             with open(json_path) as f:
                 self._dict = json.load(f)
 
-    def __call__(self, crf: int, clip: str, frame_idx: int):
+    def __call__(self, crf: int, clip: str, frame_idx: int, subclip: str | None = None):
         """``(qp, slice_type)`` of one frame; ``crf`` 0 for uncompressed,
-        else the CRF bucket (15/25/35)."""
+        else the CRF bucket (15/25/35); ``subclip`` for the 4-level layout."""
         if crf == 0:
             slice_type = "I" if frame_idx == 0 else "P"
             qp = 0.0
         else:
             if self._dict is None:
                 raise ValueError("qp_slice_file required for compressed inputs")
-            entry = self._dict[f"crf{crf}"][clip][str(frame_idx)]
+            entry = self._dict[f"crf{crf}"][clip]
+            if subclip is not None:
+                entry = entry[subclip]
+            entry = entry[str(frame_idx)]
             slice_type = entry["slice"]
             qp = float(entry["QP"])
         if self.replace_qp_with_ipb:

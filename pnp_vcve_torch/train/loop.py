@@ -1,9 +1,17 @@
 """Iteration-based training loop (counterpart of pnp_vcve_tpu/train/loop.py:
 ``train_loop`` :39-98; the reference's mmcv IterBasedRunner with its hooks,
 mmedit/apis/train.py:75-239): a log line every ``log_interval`` iterations
-(TextLoggerHook), a checkpoint every ``checkpoint_interval``
-(CheckpointHook), an evaluation every ``eval_interval`` (DistEvalIterHook)
-and a final checkpoint."""
+(TextLoggerHook) and the writer's scalars, the visual hook after every
+step (VisualizationHook, which gates on its own interval), a checkpoint
+every ``checkpoint_interval`` (CheckpointHook), an evaluation every
+``eval_interval`` (DistEvalIterHook) and a final checkpoint.
+
+In a process group every rank runs the steps and the evaluations (each
+evaluates its share of the clips); only rank 0 writes checkpoints, and the
+other ranks wait at a barrier until each is on disk, so no rank reads a
+checkpoint before it is whole. Logs, the writer and the visual hook are the
+caller's to keep to rank 0 (tools/torch_train.py builds them there only).
+"""
 
 from __future__ import annotations
 
@@ -11,6 +19,8 @@ import time
 from typing import Callable, Iterable, Optional
 
 import torch
+
+from pnp_vcve_torch.parallel.multihost import rank_and_world
 
 from .state import TrainState, state_payload
 
@@ -30,32 +40,57 @@ def train_loop(
     logger: Callable[[str], None] = print,
     start_iter: int = 0,
     save_optimizer: bool = True,
+    metrics_writer=None,
+    visual_fn: Optional[Callable] = None,
 ) -> TrainState:
     """Run iterations ``start_iter .. total_iters - 1``. ``eval_fn(model)``
     returns a metrics dict; ``ckpt_manager`` is a
-    :class:`pnp_vcve_torch.core.checkpoint.CheckpointManager`."""
+    :class:`pnp_vcve_torch.core.checkpoint.CheckpointManager`;
+    ``metrics_writer.scalars(step, **values)`` takes the logged loss, the
+    iteration rate and the evaluation's metrics (``val/<name>``);
+    ``visual_fn(step, batch, state)`` runs after every step."""
+    rank, world = rank_and_world()
+
+    def save(step: int):
+        if ckpt_manager is not None and rank == 0:
+            ckpt_manager.save(step, state_payload(state, save_optimizer))
+        if world > 1:
+            torch.distributed.barrier()
+
     it = iter(loader)
-    losses = []
+    losses, reduce_s = [], []
     t_last = time.perf_counter()
     for step in range(start_iter, total_iters):
-        state, metrics = train_step(state, next(it))
+        batch = next(it)
+        state, metrics = train_step(state, batch)
         losses.append(metrics["loss"])
+        if "allreduce_s" in metrics:
+            reduce_s.append(metrics["allreduce_s"])
+
+        if visual_fn is not None:
+            visual_fn(step, batch, state)
 
         if (step + 1) % log_interval == 0:
             loss = float(torch.stack(losses).mean())  # waits for the device
             losses.clear()
             dt = time.perf_counter() - t_last
             t_last = time.perf_counter()
-            logger(f"iter {step + 1}/{total_iters} loss={loss:.5f} "
-                   f"({log_interval / dt:.2f} it/s)")
+            ips = log_interval / dt
+            reduced = (f"; all-reduce {sum(reduce_s) / len(reduce_s):.4f} s/it over {world} ranks"
+                       if reduce_s else "")
+            reduce_s.clear()
+            logger(f"iter {step + 1}/{total_iters} loss={loss:.5f} ({ips:.2f} it/s{reduced})")
+            if metrics_writer is not None:
+                metrics_writer.scalars(step + 1, loss=loss, iters_per_sec=ips)
 
-        if ckpt_manager is not None and (step + 1) % checkpoint_interval == 0:
-            ckpt_manager.save(step + 1, state_payload(state, save_optimizer))
+        if (step + 1) % checkpoint_interval == 0:
+            save(step + 1)
 
         if eval_fn is not None and eval_interval and (step + 1) % eval_interval == 0:
             metrics = eval_fn(state.model)
             logger(f"iter {step + 1} eval: "
                    + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
-    if ckpt_manager is not None:
-        ckpt_manager.save(total_iters, state_payload(state, save_optimizer))
+            if metrics_writer is not None:
+                metrics_writer.scalars(step + 1, **{f"val/{k}": v for k, v in metrics.items()})
+    save(total_iters)
     return state

@@ -32,6 +32,10 @@ from pnp_vcve_tpu.core.convert_baselines import convert_bvpp_pqf, convert_spynet
 from pnp_vcve_torch.core.builder import build_generator
 from pnp_vcve_torch.core.convert import bvpp_state_dict, mfqev2_state_dict, spynet_state_dict
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 H, W = 32, 48
 SMALL = dict(mid_channels=8, num_blocks=1, deform_groups=2)
 PQF_SLICES = np.array([[73, 66, 66, 80, 66, 66], [73, 80, 66, 66, 66, 80]], np.float32)

@@ -42,6 +42,10 @@ from pnp_vcve_torch.kernels import drt_stack as kd
 from pnp_vcve_torch.kernels import warp as kw
 from pnp_vcve_torch.models.bae import DRTBlock, ResidualBlocksWithInputConvDynamicDRT
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 B, H, W, C = 2, 32, 48, 8  # tests/test_kernels.py:12
 
 

@@ -17,6 +17,10 @@ import pytest
 import torch
 from PIL import Image
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 

@@ -21,6 +21,10 @@ import torch
 from pnp_vcve_torch.core.builder import build_generator
 from pnp_vcve_torch.models.pnp_vcve import keyframe_indices
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 T, SPLIT = 8, 3
 SLICES = [73.0, 66.0, 80.0, 66.0, 66.0, 80.0, 66.0, 66.0]  # keyframes 0, 2, 5, 7 (forced)
 MODELS = {

@@ -2,6 +2,7 @@
 port's builder on the shipped configs."""
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -10,6 +11,10 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
+
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 T_FRAMES, H, W = 4, 24, 32
@@ -71,7 +76,7 @@ def test_cli_enhances_and_saves_without_jax(fixture_root, tmp_path):
         "print('JAX_IMPORTED', 'jax' in sys.modules)"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          cwd=tmp_path, timeout=300)
+                          cwd=tmp_path, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr
     assert "[eval] 000: PSNR=" in proc.stdout and "SSIM=" in proc.stdout
     assert "dataset mean" in proc.stdout

@@ -34,6 +34,10 @@ from pnp_vcve_torch.ops import resize as tresize
 from pnp_vcve_torch.ops import upsample as tup
 from pnp_vcve_torch.ops import warp as twarp
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 SMALL = dict(mid_channels=8, num_blocks=2, num_experts=2, deform_groups=4)
 FORMS = {
     "vsr_basic": dict(vsr=True, deform="basic"),

@@ -27,6 +27,10 @@ import torch
 from pnp_vcve_torch.kernels import KERNELS, LAUNCHES, PLAIN, reset_launches
 from pnp_vcve_torch.kernels import drt_stack as kd
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 SHAPES = [(2, 20, 36), (1, 64, 128)]  # a ragged size (no multiple of the 8x16 tile) and an aligned one

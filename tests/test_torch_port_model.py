@@ -22,6 +22,10 @@ from pnp_vcve_torch.core.builder import build_generator
 from pnp_vcve_torch.core.checkpoint import load_generator_weights, read_state_dict
 from pnp_vcve_torch.core.convert import from_jax_params
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 FIXTURE = REPO / "tests" / "fixtures" / "parity"
 SMALL = dict(mid_channels=16, num_blocks=2, num_experts=3)

@@ -70,7 +70,7 @@ def test_two_process_world(tmp_path):
     """A real 2-rank gloo world: 5 clips split 3/2, the exact global means."""
     worker = tmp_path / "worker.py"
     worker.write_text(_WORKER)
-    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+    env = dict(os.environ, OMP_NUM_THREADS="1", WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(_free_port()))
     procs = [subprocess.Popen([sys.executable, str(worker), str(REPO)],
                               env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),

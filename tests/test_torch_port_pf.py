@@ -22,6 +22,10 @@ from pnp_vcve_torch.kernels import drt_stack as kd
 from pnp_vcve_torch.kernels import warp as kw
 from pnp_vcve_torch.ops import warp as twarp
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _interpret_mode():

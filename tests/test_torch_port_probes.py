@@ -37,6 +37,10 @@ import torch
 
 from pnp_vcve_torch.kernels import probes as P
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 TOOLS = str(Path(__file__).resolve().parents[1] / "tools")
 
 INT8_SHAPES = dict(M=64, K=32, N=16, BH=6, BW=20, C2=32, ROWS=4, COLS=18)

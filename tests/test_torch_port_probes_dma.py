@@ -28,6 +28,10 @@ from pnp_vcve_torch.kernels import probes as P
 
 from test_torch_port_probes import _bitwise, _interpret, _tool
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 WKP_SHAPES = [((16, 256), 8), ((24, 384), 16)]  # ((H, W), C)
 DMA_HW, DMA_LANES, DMA_N = (48, 48), 128, 2
 

@@ -33,6 +33,10 @@ from pnp_vcve_torch.train.eval import (
 )
 from pnp_vcve_torch.train.train_step import MODEL_INPUT_KEYS, make_eval_step
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 T, H, W = 8, 16, 16
 SLICES = [

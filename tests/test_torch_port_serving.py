@@ -31,6 +31,10 @@ from pnp_vcve_torch.serving import (
 )
 from pnp_vcve_torch.train.train_step import MODEL_INPUT_KEYS, make_eval_step
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 TINY = dict(mid_channels=8, num_blocks=1, num_experts=2)
 TINY_CFG = dict(

@@ -31,6 +31,10 @@ from pnp_vcve_torch.kernels import KERNELS, LAUNCHES, PLAIN, reset_launches
 from pnp_vcve_torch.kernels import drt_stack as kd
 from pnp_vcve_torch.kernels import launch as kl
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 F32, BF16 = torch.float32, torch.bfloat16
 
 

@@ -34,6 +34,10 @@ from pnp_vcve_torch.kernels import drt_stack as kd
 from test_torch_port_tc import (  # noqa: F401  (cuda: the card fixture)
     CARD_WIDTHS, DTYPES, RAGGED, _check, _launched_once, _operand, _rand, _taps_conv, cuda)
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 F32, BF16 = torch.float32, torch.bfloat16
 CONV_IN, CONV_OUT = [3, 8, 64, 131], [8, 64, 128]
 

@@ -8,6 +8,7 @@ Weights are drawn by the port and carried to the JAX side through
 """
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -28,6 +29,10 @@ from pnp_vcve_torch.kernels import warp as kw
 from pnp_vcve_torch.train.state import TrainState
 from pnp_vcve_torch.train.train_step import make_train_step
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 SMALL = dict(mid_channels=16, num_blocks=2, num_experts=3)
 # the flagship optimizer and schedule (configs/HR_davis_LR_128x128.py:19-28)
@@ -37,7 +42,10 @@ LR_CONFIG = dict(policy="CosineRestart", by_epoch=False, periods=[300000],
 
 
 def _jax_params(model):
-    sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    # copies: JAX's CPU arrays may alias numpy memory, and the port's
+    # optimizer updates its parameters in place while JAX's step may still
+    # be reading them
+    sd = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
     return convert_generator_state_dict(sd, num_blocks=SMALL["num_blocks"])
 
 
@@ -301,9 +309,11 @@ def test_train_cli_resume_equals_uninterrupted_run(fixture_root, tmp_path):
 
 def test_port_and_clis_import_no_jax(fixture_root, tmp_path):
     """One process imports every module of pnp_vcve_torch (serving, apis,
-    parallel and the baselines among them), runs both CLIs on the CPU (the
-    test CLI also as the exact pipeline's stream over two chunks, the cascade
-    into BasicVSR++ and the MFQE joint protocol), a batched dispatch and an exact
+    parallel, utils and the baselines among them), runs the CLIs on the CPU
+    (the train CLI also as a one-rank torchrun world with --launcher
+    pytorch, the KITTI CLI on a KITTI-layout fixture, the test CLI also as
+    the exact pipeline's stream over two chunks, the cascade into
+    BasicVSR++ and the MFQE joint protocol), a batched dispatch and an exact
     one, the overlapped-window eval, the serving curve, the packager, the
     handler, the protocol tool's exact leg and the five probe tools (K6-K13's
     plain versions at small shapes); neither jax nor any pnp_vcve_tpu module
@@ -325,15 +335,31 @@ mods = [m.name for m in pkgutil.walk_packages(pnp_vcve_torch.__path__, "pnp_vcve
 for m in mods:
     importlib.import_module(m)
 assert {{"pnp_vcve_torch.models.baselines.basicvsr_pp", "pnp_vcve_torch.models.baselines.mfqev2",
-         "pnp_vcve_torch.models.spynet", "pnp_vcve_torch.data.ldp"}} <= set(mods)
+         "pnp_vcve_torch.models.spynet", "pnp_vcve_torch.data.ldp",
+         "pnp_vcve_torch.data.extra_datasets", "pnp_vcve_torch.utils.logging",
+         "pnp_vcve_torch.train.ema", "pnp_vcve_torch.train.visualization"}} <= set(mods)
 import torch_test, torch_train, torch_serving_curve, torch_pnp2servable, torch_serving_handler
-import torch_kernel_bounds, torch_protocol_eval
+import torch_kernel_bounds, torch_protocol_eval, torch_test_kitti
 import torch_int8_probe, torch_warp_kernel_probe2, torch_warp_bisect
 import torch_warp_kernel_probe, torch_dma_probe
 from pnp_vcve_torch import apis, serving
 torch_train.main([{str(cfg)!r}, "--device", "cpu", "--work-dir", {str(tmp_path / 'w')!r},
                   "--total-iters", "1"])
 torch_test.main([{str(cfg)!r}, {str(ckpt)!r}, "--device", "cpu"])
+import os, socket
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(s.getsockname()[1]))
+torch_train.main([{str(cfg)!r}, "--device", "cpu", "--work-dir", {str(tmp_path / 'wd')!r},
+                  "--total-iters", "1", "--launcher", "pytorch", "--deterministic"])
+sys.path.insert(0, {str(REPO / 'tools' / 'data')!r})
+from make_kitti_fixture import write_kitti_fixture
+kitti = write_kitti_fixture({str(tmp_path / 'kitti')!r}, height=16, width=24)
+assert torch_test_kitti.main([{str(cfg)!r}, {str(ckpt)!r}, "--device", "cpu",
+                              "--testdir_lr", str(kitti / "crf15" / "png"),
+                              "--testdir_gt", str(kitti / "clean"),
+                              "--qp-slice-file", str(kitti / "qp.json")])
 torch_test.main([{str(cfg)!r}, {str(ckpt)!r}, "--device", "cpu", "--frame-parallel", "exact",
                  "--stream-clips", "2", "--pipeline-devices", "cpu,cpu"])
 torch_test.main([{str(cfg)!r}, {str(ckpt)!r}, "--device", "cpu", "--cascade",
@@ -381,7 +407,7 @@ bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pnp_vcve_
 print("MODULES", len(mods), "BAD", bad)
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          cwd=tmp_path, timeout=300)
+                          cwd=tmp_path, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr
     assert "iter 1/1 loss=" in proc.stdout and "dataset mean" in proc.stdout
     for line in ("[ok] quantize-in-kernel + int8 matmul", "[ok] int8 tap-conv",

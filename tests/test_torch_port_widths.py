@@ -18,6 +18,10 @@ from pnp_vcve_torch.kernels import drt_stack as kd
 from pnp_vcve_torch.kernels import launch as kl
 from pnp_vcve_torch.kernels import warp as kw
 
+# one intra-op thread a process: the test workers run side by side, and
+# thread pools that each span every core slow small CPU ops many times over
+torch.set_num_threads(1)
+
 
 def _args(c, b=2, h=16, w=24):
     """One call's arguments of each model kernel at width c."""
