@@ -206,7 +206,24 @@ Phases (any failure raises and the script exits non-zero):
    parity weights on a KITTI-layout fixture of 2 sequences x 2 frames at
    375x1242 (tools/data/make_kitti_fixture.py): finite metrics, frames/s,
    the launches of 2 frames a sequence, then the first pair kernel path
-   against plain path (max|diff| <= 3e-3, float32, TF32 off).
+   against plain path (max|diff| <= 3e-3, float32, TF32 off);
+18. export and deployment, float32, TF32 off: (a)
+   ``tools/torch_export_model.py --verify`` on the serving config and the
+   parity weights at (3, 720, 1280): the reloaded artifact within 1e-4 of
+   the eager forward, its launches for one window (K1b, K2, K3, K3s, K4
+   through the registered ops ``torch.ops.pnp_vcve.*``) equal to the eager
+   kernel path's, the export's and the save's seconds, the size, and both
+   paths' frames/s timed in turns; (b) the training config (K1) and
+   one_layer=False (K5), each cut to 2 blocks with seeded weights, exported
+   at 256x448, each
+   reloaded artifact launching its kernels and within 3e-3 of the plain
+   path; (c) ``tools/torch_deploy_test.py`` with (a)'s artifact on clip 000
+   of phase 4's fixture (2 windows of 3 frames): its per-clip PSNR / SSIM
+   within the parity gate's bounds of the eager path's on the same windows;
+   (d) ``tools/torch_parity_check.py --fixture`` on the kernel path passes
+   and ``--tamper`` fails; (e) ``tools/torch_get_flops.py`` at JAX's default
+   shape and at 720p, and ``tools/torch_publish_model.py`` on a training
+   checkpoint of the flagship, the published weights equal to it.
 
 Each phase prints its wall time.
 The line before the last is a JSON object with each kernel's launches
@@ -219,7 +236,9 @@ clips), phase 15's pipeline-driven runs (``exact_pipeline_launches``: (a),
 (b), (c) and (e)), phase 16's cascade through ``tools/torch_test.py``
 (``cascade_launches``: the flagship's kernels and K1 inside BasicVSR++),
 phase 17's ranks (``ddp_train_launches``: the two ranks' counts summed; each
-rank's equals ``train_launches``) and its KITTI CLI run (``kitti_launches``);
+rank's equals ``train_launches``) and its KITTI CLI run (``kitti_launches``),
+phase 18's exported artifacts (``export_launches``: (a)'s window, (b)'s
+runs and (c)'s deploy-test CLI);
 the probe tools' runs of phases 12 and 13 for K6-K13),
 its error, its time beside the plain
 version's, the library call's, its yardsticks' and the bounds (K2-K5:
@@ -346,6 +365,12 @@ DIST_CLIPS, DIST_HW, DIST_RANKS, DIST_RTOL = 3, (256, 256), 2, 1e-6
 DDP_RANKS, DDP_TOL = 2, 1e-5
 KITTI_HW, KITTI_SEQS = (375, 1242), ("000000", "000001")
 PARITY_WEIGHTS = ROOT / "tests" / "fixtures" / "parity" / "state_dict.npz"
+# phase 18: the exported program's fixed window (JAX's t), the small size of
+# the training config's and the block form's exports and their depth, timed
+# calls a path. Export time grows with the depth (the sweeps unroll): on the
+# card 31.2 s for the training config at 8 blocks after phases 1-17, 27.5 s
+# for one_layer=False at 8 (8.4 s at 2)
+EXPORT_T, EXPORT_SMALL_HW, EXPORT_SMALL_BLOCKS, EXPORT_REPS = 3, (256, 448), 2, 3
 # phase 16: the eval entry point's last modes. The cascade: the serving
 # config into vanilla BasicVSR++ at its published widths on REDS-LR-width
 # clips (176 rows: 'pf' needs sides that are multiples of 16, REDS-LR's 180
@@ -3059,6 +3084,212 @@ def phase_ddp_train(dev, smi):
     return summed, kitti
 
 
+def _export_window_runs(fn, inputs, reps):
+    """Seconds of one call of ``fn(*inputs)`` (synchronised host clock,
+    the mean of ``reps`` calls after one untimed)."""
+    import torch
+
+    with torch.no_grad():
+        fn(*inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(*inputs)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def _counted(fn, *args):
+    """``(fn(*args) under no_grad, the model kernels' launches of the call)``."""
+    import torch
+
+    from pnp_vcve_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    with torch.no_grad():
+        out = fn(*args)
+    torch.cuda.synchronize()
+    return out, dict(LAUNCHES)
+
+
+def _write_cfg(path, base, generator=None, data=""):
+    path.write_text(f"_base_ = [{str(CONFIGS / base)!r}]\n"
+                    + (f"model = dict(generator={generator!r})\n" if generator else "") + data)
+    return path
+
+
+def phase_export(dev, smi):
+    """Phase 18: (a) tools/torch_export_model.py on the serving config and
+    the parity weights at (EXPORT_T, 720, 1280) with --verify (1e-4), the
+    reloaded artifact's launches for one window equal to the eager kernel
+    path's (K1b, K2, K3, K3s, K4), export wall time, size and both paths'
+    frames/s; (b) the training config (K1) and the block form
+    one_layer=False (K5), each EXPORT_SMALL_BLOCKS blocks deep with seeded
+    weights, exported at EXPORT_SMALL_HW, each
+    reloaded artifact launching its kernels and within TOL_MODEL of the
+    plain path; (c) tools/torch_deploy_test.py with (a)'s artifact on clip
+    000 of phase 4's fixture, per-clip metrics equal to the eager path's on
+    the same windows within the parity gate's bounds; (d)
+    tools/torch_parity_check.py --fixture on the kernel path (float32, TF32
+    off) passes and --tamper fails; (e) tools/torch_get_flops.py at JAX's
+    default shape and at 720p, and tools/torch_publish_model.py on a
+    training checkpoint. Returns the artifacts' launches ((a)'s window,
+    (b)'s runs, (c)'s CLI run)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pnp_vcve_torch.kernels import KERNELS, PLAIN
+
+    sys.path[:0] = [str(ROOT / "tools")]
+    import torch_deploy_test
+    import torch_export_model
+    import torch_get_flops
+    import torch_parity_check
+    import torch_publish_model
+
+    work = ROOT / "build" / "chip_smoke" / "export"
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    total = dict.fromkeys(KERNEL_INFO, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # (a) the serving config at 720p
+    h, w = MAIN_HW
+    serving = str(CONFIGS / "HR_davis_LR_128x128_serving.py")
+    pt2 = work / "serving_720p.pt2"
+    res = torch_export_model.main([serving, str(PARITY_WEIGHTS), str(pt2), "--shape",
+                                   str(EXPORT_T), str(h), str(w), "--verify"])
+    program = res["loaded"].module()
+    eager = torch_export_model.load_model(serving, str(PARITY_WEIGHTS), dev)
+    inputs = tuple(_clip_inputs(np.random.default_rng(SEED), 1, EXPORT_T, h, w, dev).values())
+    got, counts = _counted(program, *inputs)
+    want, eager_counts = _counted(eager, *inputs)
+    add(counts)
+    err = float((got - want).abs().max())
+    blocks = len(eager.backward_resblocks.main)
+    expected = _launches_per_pass(EXPORT_T, blocks, "pf")
+    secs = {}
+    for tag in ("eager", "export", "export", "eager"):
+        fn = program if tag == "export" else eager
+        secs.setdefault(tag, []).append(_export_window_runs(fn, inputs, EXPORT_REPS))
+    fps = {k: EXPORT_T / min(v) for k, v in secs.items()}
+    print(f"[export18] (a) {smi}: serving config, parity weights, ({EXPORT_T}, {h}, {w}): "
+          f"export {res['seconds']:.3f} s, save {res['save_seconds']:.3f} s, "
+          f"{res['bytes'] / 1e6:.3f} MB, ops {res['ops']}; "
+          f"--verify {res['max_abs_err']:.3g}; seeded window artifact vs eager max|diff| "
+          f"{err:.3g}; launches artifact {counts} eager {eager_counts} (expected {expected}); "
+          f"frames/s artifact {fps['export']:.3f} eager {fps['eager']:.3f} (ratio "
+          f"{fps['export'] / fps['eager']:.4f}; float32, TF32 off, b=1)")
+    if counts != eager_counts or counts != expected or not err <= 1e-4:
+        raise AssertionError("the serving artifact differs from the eager kernel path")
+
+    # (b) the training config (K1) and a block form (K5) at a small size
+    sh, sw = EXPORT_SMALL_HW
+    small_inputs = tuple(_clip_inputs(np.random.default_rng(SEED + 1), 1, EXPORT_T, sh, sw,
+                                      dev).values())
+    for form, extra in {"padgather": {}, "one_layer_false": dict(one_layer=False)}.items():
+        cfg = _write_cfg(work / f"{form}.py", "HR_davis_LR_128x128.py",
+                         dict(num_blocks=EXPORT_SMALL_BLOCKS, **extra))
+        out = work / f"{form}.pt2"
+        r = torch_export_model.main([str(cfg), "-", str(out), "--shape", str(EXPORT_T),
+                                     str(sh), str(sw)])
+        loaded = torch.export.load(str(out)).module()
+        got, counts = _counted(loaded, *small_inputs)
+        add(counts)
+        model = torch_export_model.load_model(str(cfg), "-", dev)
+        model.ops = PLAIN
+        with torch.no_grad():
+            ref = model(*small_inputs)
+        model.ops = KERNELS
+        err = float((got - ref).abs().max())
+        want = _launches_per_pass(EXPORT_T, len(model.backward_resblocks.main), "padgather",
+                                  fused_blocks=not extra)
+        print(f"[export18] (b) {form}: ({EXPORT_T}, {sh}, {sw}) export {r['seconds']:.3f} s, "
+              f"save {r['save_seconds']:.3f} s, {r['bytes'] / 1e6:.3f} MB, ops {r['ops']}; "
+              f"artifact vs plain path max|diff| {err:.3g} (<= {TOL_MODEL}); launches {counts} "
+              f"(expected {want})")
+        if counts != want or not err <= TOL_MODEL:
+            raise AssertionError(f"the {form} artifact does not launch its kernels or differs")
+
+    # (c) the deploy test of (a)'s artifact on clip 000 of phase 4's fixture
+    data, view = ROOT / "build" / "chip_smoke" / "data", work / "view"
+    for sub in ("crf15/png", "crf15/mv", "sharp/png"):
+        (view / sub).mkdir(parents=True)
+        (view / sub / "000").symlink_to(data / sub / "000", target_is_directory=True)
+    deploy_cfg = _write_cfg(
+        work / "deploy.py", "HR_davis_LR_128x128_serving.py", data=(
+            "from pnp_vcve_torch.core.presets import flagship_data\n"
+            f"data = flagship_data(test_lq={str(view / 'crf15/png')!r}, "
+            f"test_gt={str(view / 'sharp/png')!r}, test_qp_json={str(data / 'qp.json')!r})\n"
+            f"data['test'].update(type='SRFolderMultipleGTDataset', num_input_frames={FRAMES})\n"))
+    t0 = time.perf_counter()
+    (per_clip, mean), counts = _counted(torch_deploy_test.main, [str(deploy_cfg), str(pt2)])
+    deploy_s = time.perf_counter() - t0
+    add(counts)
+    from pnp_vcve_torch.core.builder import build_dataset
+    from pnp_vcve_torch.core.config import Config
+
+    dataset = build_dataset(dict(Config.fromfile(deploy_cfg).data["test"]))
+    eager_clip, _ = torch_deploy_test.score(eager, dataset, EXPORT_T, h, w, dev, verbose=False)
+    windows = FRAMES // EXPORT_T
+    want = _launches_per_pass(windows * EXPORT_T, blocks, "pf")
+    print(f"[export18] (c) tools/torch_deploy_test.py, clip 000 of phase 4's fixture "
+          f"({windows} windows of {EXPORT_T} frames at {h}x{w}): artifact {per_clip}, eager "
+          f"{eager_clip}; mean {mean}; launches {counts} (expected {want}); {deploy_s:.1f} s")
+    if counts != want or per_clip.keys() != eager_clip.keys() or not per_clip or any(
+            abs(per_clip[c]["PSNR"] - eager_clip[c]["PSNR"]) > 0.05
+            or abs(per_clip[c]["SSIM"] - eager_clip[c]["SSIM"]) > 0.001 for c in per_clip):
+        raise AssertionError("the deploy test's metrics differ from the eager path's")
+
+    # (d) the parity gate on the kernel path
+    codes = {}
+    for tag, extra in (("fixture", []), ("tamper", ["--tamper"])):
+        try:
+            torch_parity_check.main(["--fixture", str(ROOT / "tests" / "fixtures" / "parity"),
+                                     "--device", dev.type, *extra])
+        except SystemExit as e:
+            codes[tag] = e.code
+    print(f"[export18] (d) tools/torch_parity_check.py --fixture exit {codes['fixture']}, "
+          f"--tamper exit {codes['tamper']}")
+    if codes != {"fixture": 0, "tamper": 1}:
+        raise AssertionError(f"the parity gate on the kernel path: {codes}")
+
+    # (e) parameters and FLOPs; publish
+    train_cfg = str(CONFIGS / "HR_davis_LR_128x128.py")
+    flops = {}
+    for shape in ((3, 256, 256), (3, *MAIN_HW)):
+        print(f"[export18] (e) tools/torch_get_flops.py --shape {' '.join(map(str, shape))}:")
+        flops[shape] = torch_get_flops.main([train_cfg, "--shape", *map(str, shape)])
+    from pnp_vcve_torch.train.state import TrainState, state_payload
+
+    model = torch_export_model.load_model(train_cfg, str(PARITY_WEIGHTS), dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    ckpt = work / "ckpt" / "1.pth"
+    ckpt.parent.mkdir()
+    torch.save(state_payload(TrainState(1, model, opt, torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda s: 1.0))), ckpt)
+    pub = torch_publish_model.main([str(ckpt), str(work / "published" / "flagship")])
+    held = torch.load(pub, weights_only=True)
+    same = list(held) == ["state_dict"] and all(
+        torch.equal(held["state_dict"][k].cpu(), v.cpu()) for k, v in model.state_dict().items())
+    print(f"[export18] (e) published {pub.name} ({pub.stat().st_size / 1e6:.3f} MB, from a "
+          f"{ckpt.stat().st_size / 1e6:.3f} MB training checkpoint): weights only, equal "
+          f"{same}; params {flops[(3, 256, 256)][0]}, FLOPs a frame at 256x256 "
+          f"{flops[(3, 256, 256)][1] / 3 / 1e9:.4f} G, at 720p "
+          f"{flops[(3, *MAIN_HW)][1] / 3 / 1e9:.4f} G")
+    if not same:
+        raise AssertionError("the published checkpoint lost or changed weights")
+    return total
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     # deterministic cuBLAS for the resume check of phase 7; read when cuBLAS
@@ -3093,6 +3324,7 @@ def main():
                                           smi)
     ddp_counts, kitti_counts = phase("17 data-parallel training and KITTI", phase_ddp_train,
                                      dev, smi)
+    export_counts = phase("18 export and deployment", phase_export, dev, smi)
     # K6 runs in both probe phases: one row, the forms and counts of both
     k6 = b10b_rows.pop("window_copy")
     probe_rows["window_copy"]["forms"] += k6["forms"]
@@ -3106,7 +3338,8 @@ def main():
              "handler_launches": handler_counts, "train_launches": train_counts,
              "block_forms_launches": forms_counts, "model_forms_launches": forms14_counts,
              "exact_pipeline_launches": exact_counts, "cascade_launches": cascade_counts,
-             "ddp_train_launches": ddp_counts, "kitti_launches": kitti_counts}
+             "ddp_train_launches": ddp_counts, "kitti_launches": kitti_counts,
+             "export_launches": export_counts}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),

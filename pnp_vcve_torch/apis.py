@@ -14,6 +14,9 @@
   with neutral priors (zero MVs, an I slice, mid QP): the serving handler's
   contract (tools/torch_serving_handler.py).
 - :func:`init_random_seed`, :func:`set_random_seed`.
+- :func:`single_gpu_test`, :func:`multi_gpu_test`: the dataset test loops
+  (JAX apis.py:675-689; reference apis/test.py), thin aliases of
+  ``train.eval.evaluate_dataset``.
 
 The other restorer kinds of the JAX module (center-frame, inpainting,
 matting, generation, face and interpolation helpers) are ROADMAP Queue A
@@ -41,6 +44,8 @@ __all__ = [
     "set_random_seed",
     "restoration_inference",
     "restoration_video_inference",
+    "single_gpu_test",
+    "multi_gpu_test",
 ]
 
 VIDEO_EXTENSIONS = (".mp4", ".mov")
@@ -266,3 +271,25 @@ def restoration_inference(model: InferenceModel, img, ref=None) -> np.ndarray:
     )
     out = make_eval_step(gen)(batch)
     return np.clip(out[0, 0], 0.0, 1.0).astype(np.float32)
+
+
+# ---- dataset-level test loops (reference apis/test.py:13-126) -------------------------
+
+
+def single_gpu_test(restorer, dataset, **kwargs):
+    """Whole-dataset eval on this process's device: the dataset mean of the
+    clip metrics. Thin alias of ``train.eval.evaluate_dataset``."""
+    from pnp_vcve_torch.train.eval import evaluate_dataset
+
+    return evaluate_dataset(restorer, dataset, **kwargs)
+
+
+def multi_gpu_test(restorer, dataset, **kwargs):
+    """Multi-process eval: each rank of the initialised process group takes
+    its share of the clips, and the dataset mean is the exact count-weighted
+    reduction over the ranks (the reference's pickle gathers, apis/test.py:
+    129-234). ``evaluate_dataset`` with ``distributed=True`` unless given."""
+    from pnp_vcve_torch.train.eval import evaluate_dataset
+
+    kwargs.setdefault("distributed", True)
+    return evaluate_dataset(restorer, dataset, **kwargs)

@@ -10,10 +10,15 @@
   :92; reference CheckpointHook and resume_from, mmedit/apis/
   train.py:235-238): ``<work_dir>/ckpt/<step>.pth``, each a ``torch.save``
   of ``{step, model, optimizer, scheduler}``.
+- Publishing (``publish_params`` :136; reference tools/publish_model.py:
+  18-31): :func:`publish_state_dict` keeps a checkpoint's generator weights
+  and tags the file with its content hash.
 """
 
 from __future__ import annotations
 
+import hashlib
+import io
 import os
 import re
 from pathlib import Path
@@ -27,6 +32,7 @@ from .convert import shared_aligner_to_sweeps
 
 __all__ = [
     "read_state_dict", "load_generator_weights", "CheckpointManager", "restore_train_state",
+    "publish_state_dict",
 ]
 
 _IGNORED = ("spynet.", "edvr.", "step_counter")
@@ -127,3 +133,26 @@ def restore_train_state(path: str | Path, state):
         state.scheduler.load_state_dict(payload["scheduler"])
     state.step = int(payload["step"])
     return state, state.step
+
+
+def publish_state_dict(src: str | Path, dst_prefix: str | Path) -> Path:
+    """Publish the generator weights of ``src`` (a training checkpoint of
+    tools/torch_train.py, a checkpoint holding a ``state_dict``, or a bare
+    state dict; keys with or without a ``generator.`` prefix) as
+    ``<dst_prefix>-<sha8>.pth``: ``{"state_dict": weights}`` under the
+    generator's names, each tensor as it was, without the optimizer, the
+    schedule or the step; ``sha8`` is the first 8 hex digits of the sha256
+    of the file's bytes (the reference's form; the JAX package hashes a
+    checkpoint directory). Returns the file's path."""
+    ckpt = torch.load(src, map_location="cpu", weights_only=True)
+    raw = ckpt.get("state_dict", ckpt.get("model", ckpt))
+    if any(k.startswith("generator.") for k in raw):
+        raw = {re.sub(r"^generator\.", "", k): v for k, v in raw.items()
+               if k.startswith("generator.")}
+    buf = io.BytesIO()  # a file name would enter the archive's record names
+    torch.save({"state_dict": dict(raw)}, buf)
+    blob = buf.getvalue()
+    dst = Path(f"{dst_prefix}-{hashlib.sha256(blob).hexdigest()[:8]}.pth")
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    dst.write_bytes(blob)
+    return dst

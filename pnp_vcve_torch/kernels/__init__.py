@@ -18,6 +18,12 @@ head               K4    ``csrc/head.cu``
 conv3x3            K5    ``csrc/conv3x3.cu``, per-sample 3x3 conv, bias, gain
 =================  ====  ==================================================
 
+Each kernel is also a registered op, ``torch.ops.pnp_vcve.<operation>``
+(:mod:`.ops_registry`; ``OPS`` maps the names to them): the launch on CUDA
+tensors, the plain version on CPU tensors, a fake implementation for
+``torch.export`` and a FLOP formula. Importing this package registers
+them, which loading an exported model needs.
+
 K2-K5 run on the tensor cores (``csrc/tc_conv.cuh``), K1 and K1b on the
 CUDA cores. K1-K4 take any width that is a multiple of 8
 (:func:`.launch.check_width` says which they refuse), K5 any c_in. The
@@ -39,9 +45,10 @@ from .drt_stack import (
     input_conv_plain,
 )
 from .launch import LAUNCHES, reset_launches
+from .ops_registry import OPS
 from .warp import flow_warp, flow_warp_block, flow_warp_block_plain, flow_warp_plain
 
-__all__ = ["KERNELS", "PLAIN", "LAUNCHES", "reset_launches"]
+__all__ = ["KERNELS", "PLAIN", "OPS", "LAUNCHES", "reset_launches"]
 
 KERNELS = SimpleNamespace(
     flow_warp=flow_warp, flow_warp_block=flow_warp_block, input_conv=input_conv,

@@ -26,7 +26,10 @@ not folded into the weights; so K5 also serves the DRT blocks'
 expert-mixed convs with the SE gain. :func:`conv3x3_args` holds the checks
 a launch makes and the weight repacking; it runs on any device. On CUDA
 tensors each launch runs inside :class:`Conv3x3Function`, whose gradients
-are the plain version's (``launch.plain_grads``).
+are the plain version's (``launch.plain_grads``), where a gradient is
+recorded. The launch is the CUDA implementation of the registered op
+``torch.ops.pnp_vcve.conv3x3`` (:mod:`.ops_registry`), whose CPU
+implementation is the plain version.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch.nn.functional as F
 from pnp_vcve_torch.ops.dynamic_conv import dynamic_conv2d
 from .drt_stack import tc_weights
 from .launch import check_cuda_args, launch, on_cpu, plain_grads
+from .ops_registry import flop_per_pixel, register, tracks_grad
 
 __all__ = ["conv3x3", "conv3x3_plain", "conv3x3_args", "Conv3x3Function"]
 
@@ -66,13 +70,33 @@ def conv3x3_args(x, kernels, biases, gamma):
     return tc_weights(taps, x.dtype), biases.float().contiguous(), gamma.float().contiguous()
 
 
-def _conv3x3_launch(x, kernels, biases, gamma):
+def _conv3x3_kernel(x, kernels, biases, gamma):
+    """The op's CUDA implementation: no bias reads as zeros and no gain as
+    ones; the taps repacked, K5's launch."""
+    b, c_out = x.shape[0], kernels.shape[-1]
+    if biases is None:
+        biases = torch.zeros((b, c_out), device=x.device)
+    if gamma is None:
+        gamma = torch.ones((b, c_out), device=x.device)
     operands = conv3x3_args(x, kernels, biases, gamma)
     check_cuda_args("conv3x3", (x,), operands)
     b, h, w, c_in = x.shape
     out = torch.empty((b, h, w, kernels.shape[-1]), dtype=x.dtype, device=x.device)
     return launch("conv3x3", "pnp_conv3x3", out, x, *operands, out, b, h, w, c_in,
                   out.shape[-1])
+
+
+_conv3x3_op = register(
+    "conv3x3", "(Tensor x, Tensor kernels, Tensor? biases, Tensor? gamma) -> Tensor",
+    _conv3x3_kernel, conv3x3_plain,
+    lambda x, kernels, biases, gamma: x.new_empty((*x.shape[:3], kernels.shape[-1])),
+    lambda x, kernels, biases, gamma: flop_per_pixel("conv3x3", kernels[-1], c_in=x[-1]),
+)
+
+
+def _conv3x3_launch(x, kernels, biases, gamma):
+    """The op, ``torch.ops.pnp_vcve.conv3x3``: K5 on CUDA tensors."""
+    return _conv3x3_op(x, kernels, biases, gamma)
 
 
 class Conv3x3Function(torch.autograd.Function):
@@ -95,7 +119,10 @@ def conv3x3(x, kernels, biases=None, gamma=None):
     ``kernels (b, 3, 3, c_in, c_out)`` (HWIO), ``biases (b, c_out)`` or None,
     gain ``gamma (b, c_out)`` or None. Returns ``(b, h, w, c_out)`` in x's
     type."""
-    if on_cpu(x):
+    cpu = on_cpu(x)
+    if not tracks_grad(x, kernels, biases, gamma):
+        return _conv3x3_launch(x, kernels, biases, gamma)
+    if cpu:
         return conv3x3_plain(x, kernels, biases, gamma)
     b, c_out = x.shape[0], kernels.shape[-1]
     if biases is None:

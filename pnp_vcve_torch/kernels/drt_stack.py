@@ -48,6 +48,13 @@ repacking (the taps transposed, rounded to bfloat16 or split for 3xTF32)
 runs inside the forward,
 out of autograd's sight; the gradients reach the repacked weights' sources
 (the premix, the conv weights) through the JAX-layout arguments.
+
+Each launch is the CUDA implementation of a registered op
+(``torch.ops.pnp_vcve.input_conv``, ``drt_block``, ``drt_block_select``,
+``head``; :mod:`.ops_registry`), whose CPU implementation is the plain
+version. The ops take the JAX-layout arguments, and the repacking stays
+inside the launch. Where no gradient is recorded, a wrapper calls its op
+directly, so that ``torch.export`` puts the op in the graph.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from pnp_vcve_torch.ops.dynamic_conv import (
     per_sample_conv,
 )
 from .launch import check_cuda_args, check_width, launch, launch_form, on_cpu, plain_grads
+from .ops_registry import flop_per_pixel, register, tracks_grad
 
 __all__ = [
     "tf32_split",
@@ -220,7 +228,8 @@ def input_conv_args(parts, kernels, bias):
     return [tc_weights(k, lr.dtype) for k in ks], bias.float().contiguous(), c
 
 
-def _input_conv_launch(parts, kernels, bias):
+def _input_conv_kernel(parts, kernels, bias):
+    """The op's CUDA implementation: the weights repacked, K2's launch."""
     ks, bias, c = input_conv_args(parts, kernels, bias)
     lr, wide = parts[0], list(parts[1:])
     b, h, w, _ = lr.shape
@@ -231,6 +240,20 @@ def _input_conv_launch(parts, kernels, bias):
         "input_conv", "pnp_input_conv", out, lr, *wide, *pad, ks[0], *ks[1:], *pad,
         bias, out, b, h, w, len(wide), c,
     )
+
+
+_input_conv_op = register(
+    "input_conv", "(Tensor[] parts, Tensor[] kernels, Tensor bias) -> Tensor",
+    _input_conv_kernel, input_conv_plain,
+    lambda parts, kernels, bias: parts[0].new_empty((*parts[0].shape[:3], parts[1].shape[-1])),
+    lambda parts, kernels, bias: flop_per_pixel("input_conv", parts[1][-1],
+                                                parts=[p[-1] for p in parts]),
+)
+
+
+def _input_conv_launch(parts, kernels, bias):
+    """The op, ``torch.ops.pnp_vcve.input_conv``: K2 on CUDA tensors."""
+    return _input_conv_op(list(parts), list(kernels), bias)
 
 
 class InputConvFunction(torch.autograd.Function):
@@ -257,7 +280,10 @@ def input_conv(parts, kernels, bias):
     """K2. ``parts``: the lr frame ``(b, h, w, 3)`` then 1-3 features
     ``(b, h, w, c)``; ``kernels``: per-part ``(b, 3, 3, c_p, c)`` float32
     (from :func:`part_kernels`); ``bias (c,)``. Returns ``(b, h, w, c)``."""
-    if on_cpu(parts[0]):
+    cpu = on_cpu(parts[0])
+    if not tracks_grad(*parts, *kernels, bias):
+        return _input_conv_launch(parts, kernels, bias)
+    if cpu:
         return input_conv_plain(parts, kernels, bias)
     return InputConvFunction.apply(_input_conv_launch, len(parts), *parts, *kernels, bias)
 
@@ -300,13 +326,30 @@ def drt_block_args(x, par, w2, b2, g, pk, w1, b1, name="drt_block"):
             tc_weights(w1.reshape(9, c, c), dtype), b1.float().contiguous())
 
 
-def _drt_block_launch(x, par, w2, b2, g, pk, w1, b1):
+def _drt_block_kernel(x, par, w2, b2, g, pk, w1, b1):
+    """The op's CUDA implementation: the weights repacked, K3's launch (or
+    its two launches, counted as one, above the one-launch width)."""
     weights = drt_block_args(x, par, w2, b2, g, pk, w1, b1)
     check_cuda_args("drt_block", (x, par), weights)
     out = torch.empty_like(x)
     # above the one-launch width h goes through a scratch of x's type
     hbuf = torch.empty_like(x) if launch_form("drt_block", x.shape[-1], x.dtype) == 2 else None
     return launch("drt_block", "pnp_drt_block", out, x, par, *weights, hbuf, out, *x.shape)
+
+
+_DRT_ARGS = ("Tensor x, Tensor par, Tensor w2, Tensor b2, Tensor g, Tensor pk, Tensor w1, "
+             "Tensor b1")
+
+_drt_block_op = register(
+    "drt_block", f"({_DRT_ARGS}) -> Tensor", _drt_block_kernel, drt_block_plain,
+    lambda x, *weights: x.new_empty(x.shape),
+    lambda x, *weights: flop_per_pixel("drt_block", x[-1]),
+)
+
+
+def _drt_block_launch(x, par, w2, b2, g, pk, w1, b1):
+    """The op, ``torch.ops.pnp_vcve.drt_block``: K3 on CUDA tensors."""
+    return _drt_block_op(x, par, w2, b2, g, pk, w1, b1)
 
 
 class DRTBlockFunction(torch.autograd.Function):
@@ -328,7 +371,10 @@ def drt_block(x, par, w2, b2, g, pk, w1, b1):
     """K3. ``x (b, h, w, c)``, ``par (b, h, w, 3)`` of x's type; per-sample
     ``w2 (b, 3, 3, c, c)``, ``b2 (b, c)``, ``g (b, c)``; static
     ``pk (c, 3, c)``, ``w1 (3, 3, c, c)``, ``b1 (c,)``. Out of place."""
-    if on_cpu(x):
+    cpu = on_cpu(x)
+    if not tracks_grad(x, par, w2, b2, g, pk, w1, b1):
+        return _drt_block_launch(x, par, w2, b2, g, pk, w1, b1)
+    if cpu:
         return drt_block_plain(x, par, w2, b2, g, pk, w1, b1)
     return DRTBlockFunction.apply(_drt_block_launch, x, par, w2, b2, g, pk, w1, b1)
 
@@ -353,7 +399,8 @@ def drt_block_select_args(x, par, w2, b2, g, pk, w1, b1, last_key, is_key):
     return weights
 
 
-def _drt_block_select_launch(x, par, w2, b2, g, pk, w1, b1, last_key, is_key):
+def _drt_block_select_kernel(x, par, w2, b2, g, pk, w1, b1, last_key, is_key):
+    """The op's CUDA implementation: the weights repacked, K3s's launch."""
     weights = drt_block_select_args(x, par, w2, b2, g, pk, w1, b1, last_key, is_key)
     key = is_key.to(torch.float32, copy=True)  # a fresh, aligned (b,) float32
     check_cuda_args("drt_block_select", (x, par, last_key), (*weights, key))
@@ -361,6 +408,19 @@ def _drt_block_select_launch(x, par, w2, b2, g, pk, w1, b1, last_key, is_key):
     launch("drt_block_select", "pnp_drt_block_select", out, x, par, *weights, last_key, key,
            out, new_last_key, *x.shape)
     return out, new_last_key
+
+
+_drt_block_select_op = register(
+    "drt_block_select", f"({_DRT_ARGS}, Tensor last_key, Tensor is_key) -> (Tensor, Tensor)",
+    _drt_block_select_kernel, drt_block_select_plain,
+    lambda x, *rest: (x.new_empty(x.shape), x.new_empty(x.shape)),
+    lambda x, *rest: flop_per_pixel("drt_block_select", x[-1]),
+)
+
+
+def _drt_block_select_launch(x, par, w2, b2, g, pk, w1, b1, last_key, is_key):
+    """The op, ``torch.ops.pnp_vcve.drt_block_select``: K3s on CUDA tensors."""
+    return _drt_block_select_op(x, par, w2, b2, g, pk, w1, b1, last_key, is_key)
 
 
 class DRTBlockSelectFunction(torch.autograd.Function):
@@ -384,8 +444,12 @@ def drt_block_select(x, par, w2, b2, g, pk, w1, b1, last_key, is_key):
     """K3s. :func:`drt_block`'s arguments plus ``last_key`` (x's shape and
     type) and ``is_key (b,)`` (0/1) -> ``(out, new_last_key)``, two fresh
     tensors with ``new_last_key = where(is_key[b], out, last_key)``."""
-    if on_cpu(x):
-        return drt_block_select_plain(x, par, w2, b2, g, pk, w1, b1, last_key, is_key)
+    cpu = on_cpu(x)
+    args = (x, par, w2, b2, g, pk, w1, b1, last_key, is_key)
+    if not tracks_grad(*args):
+        return _drt_block_select_launch(*args)
+    if cpu:
+        return drt_block_select_plain(*args)
     return DRTBlockSelectFunction.apply(_drt_block_select_launch, x, par, w2, b2, g, pk, w1, b1,
                                         last_key, is_key)
 
@@ -418,7 +482,9 @@ def head_args(x, hr_k, hr_b, last_k, last_b):
     return whr, hr_b.float().contiguous(), wl, last_b.float().contiguous()
 
 
-def _head_launch(x, hr_k, hr_b, last_k, last_b):
+def _head_kernel(x, hr_k, hr_b, last_k, last_b):
+    """The op's CUDA implementation: the weights repacked, K4's launch (or
+    its two launches, counted as one, above the one-launch width)."""
     weights = head_args(x, hr_k, hr_b, last_k, last_b)
     check_cuda_args("head", (x,), weights)
     b, h, w, c = x.shape
@@ -427,6 +493,19 @@ def _head_launch(x, hr_k, hr_b, last_k, last_b):
     hbuf = (torch.empty((b, h, w, c), dtype=torch.float32, device=x.device)
             if launch_form("head", c, x.dtype) == 2 else None)
     return launch("head", "pnp_head", out, x, *weights, hbuf, out, b, h, w, c)
+
+
+_head_op = register(
+    "head", "(Tensor x, Tensor hr_k, Tensor hr_b, Tensor last_k, Tensor last_b) -> Tensor",
+    _head_kernel, head_plain,
+    lambda x, *weights: x.new_empty((*x.shape[:3], 3)),
+    lambda x, *weights: flop_per_pixel("head", x[-1]),
+)
+
+
+def _head_launch(x, hr_k, hr_b, last_k, last_b):
+    """The op, ``torch.ops.pnp_vcve.head``: K4 on CUDA tensors."""
+    return _head_op(x, hr_k, hr_b, last_k, last_b)
 
 
 class HeadFunction(torch.autograd.Function):
@@ -447,6 +526,9 @@ class HeadFunction(torch.autograd.Function):
 def head(x, hr_k, hr_b, last_k, last_b):
     """K4. ``x (b, h, w, c)``; ``hr_k (3, 3, c, c)``, ``hr_b (c,)``,
     ``last_k (3, 3, c, 3)``, ``last_b (3,)``. Returns ``(b, h, w, 3)``."""
-    if on_cpu(x):
+    cpu = on_cpu(x)
+    if not tracks_grad(x, hr_k, hr_b, last_k, last_b):
+        return _head_launch(x, hr_k, hr_b, last_k, last_b)
+    if cpu:
         return head_plain(x, hr_k, hr_b, last_k, last_b)
     return HeadFunction.apply(_head_launch, x, hr_k, hr_b, last_k, last_b)

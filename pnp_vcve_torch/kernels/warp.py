@@ -23,7 +23,10 @@ has no Function: its wrapper refuses an input that requires a gradient.
 Both are bound by device memory (one read of the taps, one write); the
 source notes say how the threads map onto the channels. :func:`warp_args`
 and :func:`warp_block_args` hold the checks a launch makes of the shapes and
-the width; they run on any device.
+the width; they run on any device. Each kernel is a registered op
+(``torch.ops.pnp_vcve.flow_warp``, ``flow_warp_block``; :mod:`.ops_registry`)
+whose CUDA implementation is the launch and whose CPU implementation is the
+plain version.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from pnp_vcve_torch.ops.warp import block_flow, flow_warp as _flow_warp, warp_blocks
 from .launch import check_cuda_args, check_width, launch, on_cpu, plain_grads
+from .ops_registry import flop_per_pixel, register, tracks_grad
 
 __all__ = [
     "flow_warp", "flow_warp_plain", "WarpFunction", "flow_warp_block", "flow_warp_block_plain",
@@ -54,11 +58,23 @@ def warp_args(x: torch.Tensor, flow: torch.Tensor) -> int:
     return c
 
 
-def _launch(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def _warp_kernel(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The op's CUDA implementation: K1's launch."""
     c = warp_args(x, flow)
     check_cuda_args("warp", (x, flow))
     out = torch.empty_like(x)
     return launch("warp", "pnp_warp", out, x, flow, out, *x.shape[:3], c)
+
+
+_flow_warp_op = register(
+    "flow_warp", "(Tensor x, Tensor flow) -> Tensor", _warp_kernel, flow_warp_plain,
+    lambda x, flow: x.new_empty(x.shape), lambda x, flow: flop_per_pixel("flow_warp", x[-1]),
+)
+
+
+def _launch(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The op, ``torch.ops.pnp_vcve.flow_warp``: K1 on CUDA tensors."""
+    return _flow_warp_op(x, flow)
 
 
 class WarpFunction(torch.autograd.Function):
@@ -79,7 +95,10 @@ class WarpFunction(torch.autograd.Function):
 
 def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """K1. Warp ``x (b, h, w, c)`` by ``flow (b, h, w, 2)`` of the same type."""
-    if on_cpu(x):
+    cpu = on_cpu(x)
+    if not tracks_grad(x, flow):
+        return _launch(x, flow)
+    if cpu:
         return flow_warp_plain(x, flow)
     return WarpFunction.apply(_launch, x, flow)
 
@@ -101,12 +120,26 @@ def warp_block_args(x: torch.Tensor, flow: torch.Tensor) -> int:
     return c
 
 
-def _block_launch(x: torch.Tensor, flow: torch.Tensor, max_mv: float | None) -> torch.Tensor:
+def _warp_block_kernel(x: torch.Tensor, flow: torch.Tensor,
+                       max_mv: float | None) -> torch.Tensor:
+    """The op's CUDA implementation: the block table, then K1b's launch."""
     c = warp_block_args(x, flow)
     fb = block_flow(flow, max_mv)
     check_cuda_args("warp_block", (x,), (fb,))
     out = torch.empty_like(x)
     return launch("warp_block", "pnp_warp_block", out, x, fb, out, *x.shape[:3], c)
+
+
+_flow_warp_block_op = register(
+    "flow_warp_block", "(Tensor x, Tensor flow, float? max_mv) -> Tensor", _warp_block_kernel,
+    flow_warp_block_plain, lambda x, flow, max_mv: x.new_empty(x.shape),
+    lambda x, flow, max_mv: flop_per_pixel("flow_warp_block", x[-1]),
+)
+
+
+def _block_launch(x: torch.Tensor, flow: torch.Tensor, max_mv: float | None) -> torch.Tensor:
+    """The op, ``torch.ops.pnp_vcve.flow_warp_block``: K1b on CUDA tensors."""
+    return _flow_warp_block_op(x, flow, max_mv)
 
 
 def flow_warp_block(x: torch.Tensor, flow: torch.Tensor,
@@ -120,6 +153,5 @@ def flow_warp_block(x: torch.Tensor, flow: torch.Tensor,
             "the serving warps 'pf' and 'block8' run under torch.inference_mode() or "
             "torch.no_grad(); train with warp_impl='padgather'"
         )
-    if on_cpu(x):
-        return flow_warp_block_plain(x, flow, max_mv)
+    on_cpu(x)  # refuses a device with no kernel
     return _block_launch(x, flow, max_mv)

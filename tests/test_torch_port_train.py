@@ -315,9 +315,11 @@ def test_port_and_clis_import_no_jax(fixture_root, tmp_path):
     the exact pipeline's stream over two chunks, the cascade into
     BasicVSR++ and the MFQE joint protocol), a batched dispatch and an exact
     one, the overlapped-window eval, the serving curve, the packager, the
-    handler, the protocol tool's exact leg and the five probe tools (K6-K13's
-    plain versions at small shapes); neither jax nor any pnp_vcve_tpu module
-    gets imported."""
+    handler, the protocol tool's exact leg, the five probe tools (K6-K13's
+    plain versions at small shapes) and the five deployment tools (export
+    with --verify, the deploy test of its artifact, the parity gate's asset
+    mode, publish and the FLOP count); neither jax nor any pnp_vcve_tpu
+    module gets imported."""
     cfg = _write_cli_cfg(tmp_path, fixture_root)
     ckpt = tmp_path / "w" / "ckpt" / "1.pth"
     # the cascade into a same-size BasicVSR++, the joint protocol on MFQEv2
@@ -342,6 +344,8 @@ import torch_test, torch_train, torch_serving_curve, torch_pnp2servable, torch_s
 import torch_kernel_bounds, torch_protocol_eval, torch_test_kitti
 import torch_int8_probe, torch_warp_kernel_probe2, torch_warp_bisect
 import torch_warp_kernel_probe, torch_dma_probe
+import torch_export_model, torch_deploy_test, torch_parity_check, torch_publish_model
+import torch_get_flops
 from pnp_vcve_torch import apis, serving
 torch_train.main([{str(cfg)!r}, "--device", "cpu", "--work-dir", {str(tmp_path / 'w')!r},
                   "--total-iters", "1"])
@@ -403,6 +407,21 @@ probe_runs = [
                           "--chain", "2"]),
 ]
 assert all(r["out"] is not None for run in probe_runs for r in run.values())
+pt2 = {str(tmp_path / 'tiny.pt2')!r}
+exported = torch_export_model.main([{str(cfg)!r}, {str(ckpt)!r}, pt2, "--shape", "3", "16", "16",
+                                    "--verify", "--device", "cpu"])
+assert exported["ops"] == {{"flow_warp": 6, "input_conv": 6, "drt_block": 6, "head": 3}}
+per_clip, mean = torch_deploy_test.main([{str(cfg)!r}, pt2, "--device", "cpu"])
+assert len(per_clip) == 2 and set(mean) == {{"PSNR", "SSIM"}}
+published = torch_publish_model.main([{str(ckpt)!r}, {str(tmp_path / 'pub' / 'tiny')!r}])
+try:
+    torch_parity_check.main([{str(cfg)!r}, str(published), "--testdir_lr",
+                             {str(fixture_root / 'crf25' / 'png')!r}, "--testdir_gt",
+                             {str(fixture_root / 'sharp' / 'png')!r}, "--device", "cpu",
+                             "--num-blocks", "1"])
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert torch_get_flops.main([{str(cfg)!r}, "--shape", "2", "16", "16", "--device", "cpu"])[1] > 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pnp_vcve_tpu")]
 print("MODULES", len(mods), "BAD", bad)
 """
@@ -413,7 +432,8 @@ print("MODULES", len(mods), "BAD", bad)
     for line in ("[ok] quantize-in-kernel + int8 matmul", "[ok] int8 tap-conv",
                  "[ok] matmul-select H + dense V", "[ok] fori+dot 64-lane",
                  "[ok] dense select (35H+35V)", "[ok] per-block window DMAs",
-                 "split=2 out=1 depth=3:"):
+                 "split=2 out=1 depth=3:", "verify: max abs diff vs eager = 0.00e+00",
+                 "[deploy-test] dataset mean", "PARITY GATE PASSED", "FLOPs per frame"):
         assert line in proc.stdout
     assert "BAD []" in proc.stdout
     assert int(proc.stdout.split("MODULES ")[1].split()[0]) >= 30
