@@ -223,7 +223,29 @@ Phases (any failure raises and the script exits non-zero):
    (d) ``tools/torch_parity_check.py --fixture`` on the kernel path passes
    and ``--tamper`` fails; (e) ``tools/torch_get_flops.py`` at JAX's default
    shape and at 720p, and ``tools/torch_publish_model.py`` on a training
-   checkpoint of the flagship, the published weights equal to it.
+   checkpoint of the flagship, the published weights equal to it;
+19. the centre-frame baselines, float32, TF32 off, no kernel of the port on
+   their path: (a) STDF (radius 3, 32/3, 64 out, QE 48x6), DCNGAN's
+   generator and its discriminator (d 128), MW-GAN's PSNR generator (64/6,
+   5 frames) and SIDECVSR (64/7/4), built through the builder with seeded
+   weights: each on a 128x128 window (SIDECVSR 64x64 LR) on the card and on
+   the CPU with the same weights (max|diff| <= 1e-4), then a 720p window
+   (SIDECVSR 180x320 -> 720x1280) once untimed and twice timed: centre
+   frames/s, peak device memory and a profiled window's device time split
+   into the DCN, the convolutions, PAC and the rest; (b) STDF through
+   ``apis.init_model`` and ``restoration_video_inference(window_size=7)``
+   on clip 000 of phase 4's fixture: each frame within 1e-6 of the
+   generator on its own reflect-padded window, and frames/s; (c)
+   ``evaluate_center_frame_dataset`` (STDF, radius 1) over the non-PQF LDP
+   triples of phase 7's fixture: finite metrics, its first sample on the
+   card within 1e-4 of the CPU; (d) ``tools/torch_train.py`` on a DCNGAN
+   config (phase 7's fixture, 3-frame windows, b=5, 128x128 crops, Adam
+   1e-4 for both networks, JAX's gan_weight 0.01, 4 iterations,
+   ``--deterministic``): finite losses, both networks' weights changed, the
+   checkpoint holding ``disc``, seconds per iteration over iterations 2-4;
+   then iteration 1 at b=2 on the card and on the CPU, ``loss_g`` and
+   ``loss_d`` within 1e-4 relative; (e) the kernel counts unchanged across
+   (a)-(d).
 
 Each phase prints its wall time.
 The line before the last is a JSON object with each kernel's launches
@@ -246,7 +268,9 @@ also the bfloat16 row under ``bf16``; K1-K4: also the worst error at
 the other widths, K2-K4's 720p row at 128 channels, and K3's and K4's
 two-launch forms under ``two_launch``;
 K6-K13: the headline stage, every stage under ``forms``), phase 5's
-errors at the other widths, phase 14's per form and phase 16's; the last line is
+errors at the other widths, phase 14's per form, phase 16's and phase 19's gates
+(``center_frame_max_abs_err``; DCNGAN's first iteration as a relative
+difference); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -3290,6 +3314,321 @@ def phase_export(dev, smi):
     return total
 
 
+# phase 19: the centre-frame baselines at their published widths (seeded),
+# float32 with TF32 off: card against CPU on a small window, then a 720p
+# window timed and profiled; STDF through the video API's sliding window;
+# the dataset evaluation on LDP triples; DCNGAN's adversarial training
+CENTER_MODELS = {
+    "stdf": (dict(type="STDFNet"), 7),
+    "dcngan": (dict(type="DCNGANNet"), 3),
+    "mwgan": (dict(type="DenseMWNet_Mini_PSNR"), 5),
+    "sidecvsr": (dict(type="SIDECVSR", nf=64, nframes=7, scg_n=4), 7),
+}
+CENTER_DISC = dict(type="DCNGANDiscriminator", d=128)
+CENTER_SMALL_HW, SIDE_SMALL_HW, SIDE_LR_HW = (128, 128), (64, 64), (180, 320)
+CENTER_TOL, WINDOW_TOL, WINDOW_SIZE = 1e-4, 1e-6, 7
+GAN_B, GAN_CHECK_B, GAN_ITERS, GAN_RTOL = 5, 2, 4, 1e-4
+
+
+def _center_inputs(name, t, h, w, seed):
+    """One window's seeded inputs (numpy): frames in [0, 1]; SIDECVSR's Y
+    frames, MVs of ~1.6 px after its x32 and side maps."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if name != "sidecvsr":
+        return (rng.random((1, t, h, w, 3), np.float32),)
+    return (rng.random((1, t, h, w, 1), np.float32),
+            (rng.standard_normal((1, t, h, w, 2)) * 0.05).astype(np.float32),
+            *(rng.random((1, t, h, w, 1), np.float32) for _ in range(3)))
+
+
+def _center_out(out):
+    """The enhanced frame of a model's output (SIDECVSR also returns its
+    frame features), as float32 numpy."""
+    if isinstance(out, tuple):
+        out = out[0]
+    if isinstance(out, dict):
+        out = out["prediction"]
+    return out.float().cpu().numpy()
+
+
+def _center_profile(model, inputs):
+    """One profiled 720p window: device seconds in the DCN, the
+    convolutions (cuDNN), PAC and the rest (labels mirrored on the device
+    where the profile has them)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from pnp_vcve_torch.models.baselines import mwgan, stdf
+
+    sync = torch.cuda.synchronize
+    saved = (F.conv2d, F.conv_transpose2d, stdf.modulated_deform_conv2d, mwgan.pac_conv2d)
+    labels = ("center.model", "center.dcn", "center.conv", "center.pac")
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            F.conv2d = _labeled(saved[0], labels[2], sync)
+            F.conv_transpose2d = _labeled(saved[1], labels[2], sync)
+            stdf.modulated_deform_conv2d = _labeled(saved[2], labels[1], sync)
+            mwgan.pac_conv2d = _labeled(saved[3], labels[3], sync)
+            with torch.inference_mode():
+                _labeled(lambda: model(*inputs), labels[0], sync)()
+    finally:
+        F.conv2d, F.conv_transpose2d, stdf.modulated_deform_conv2d, mwgan.pac_conv2d = saved
+    times, by_name, mirrored = _label_times(prof, labels)
+    if not by_name:
+        return None
+    total = sum(times.values())
+    return {"device_s": total, "dcn": times[labels[1]] / total, "conv": times[labels[2]] / total,
+            "pac": times[labels[3]] / total, "rest": times[labels[0]] / total,
+            "labels_on_device": mirrored}
+
+
+def _center_alone(dev, smi, name, cfg, t, seed):
+    """(a) One model: card against CPU on the small window (a hard gate),
+    then the 720p window once untimed and twice timed, peak memory and a
+    profile. Returns the small window's max|diff|."""
+    import numpy as np
+    import torch
+
+    from pnp_vcve_torch.core.builder import build_discriminator, build_generator
+
+    build = build_discriminator if cfg["type"] == CENTER_DISC["type"] else build_generator
+    cpu = build(cfg, device="cpu", seed=seed).eval()
+    card = build(cfg, device=dev, seed=seed).eval()
+    small = SIDE_SMALL_HW if name == "sidecvsr" else CENTER_SMALL_HW
+    if name == "disc":  # the discriminator scores (b, h, w, 3) frames
+        inputs = (_center_inputs("stdf", 1, *small, seed)[0][:, 0],)
+    else:
+        inputs = _center_inputs(name, t, *small, seed)
+    with torch.inference_mode():
+        want = _center_out(cpu(*map(torch.from_numpy, inputs)))
+        got = _center_out(card(*(torch.from_numpy(a).to(dev) for a in inputs)))
+    err = float(np.abs(got - want).max())
+    print(f"[center19] (a) {name} ({sum(p.numel() for p in cpu.parameters()) / 1e6:.3f} M "
+          f"params) on {small[0]}x{small[1]}{' LR' if name == 'sidecvsr' else ''}: the card "
+          f"against the CPU max|diff| {err:.3g} (<= {CENTER_TOL}), output {got.shape}")
+    if not np.isfinite(got).all() or err > CENTER_TOL:
+        raise AssertionError(f"phase 19 (a): {name} on the card disagrees with the CPU")
+    del cpu
+    if name == "disc":
+        return err
+    hw = SIDE_LR_HW if name == "sidecvsr" else MAIN_HW
+    big = [torch.from_numpy(a).to(dev) for a in _center_inputs(name, t, *hw, seed + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        out = card(*big)  # untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            out = card(*big)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 2
+    out = _center_out(out)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = _center_profile(card, big)
+    split = ("not measured (the profiler recorded no device events)" if prof is None else
+             f"device {prof['device_s']:.4f} s: DCN {prof['dcn']:.4f}, convolutions "
+             f"{prof['conv']:.4f}, PAC {prof['pac']:.4f}, rest {prof['rest']:.4f} (labels "
+             f"{'on the device' if prof['labels_on_device'] else 'by host interval'})")
+    print(f"[center19] (a) {smi}: {name} {hw[0]}x{hw[1]} window of {t} -> {out.shape[1:3]}: "
+          f"{1.0 / wall:.3f} centre frames/s ({wall:.4f} s), peak {peak:.3f} GiB, float32; "
+          f"profiled window {split}")
+    if not np.isfinite(out).all():
+        raise AssertionError(f"phase 19 (a): {name} at 720p is not finite")
+    del card, big
+    torch.cuda.empty_cache()
+    return err
+
+
+def _gan_losses(work):
+    """``{iteration: (loss_g, loss_d)}`` of a run's scalars.json (unrounded)."""
+    out = {}
+    for ln in (work / "scalars.json").read_text().splitlines():
+        row = json.loads(ln)
+        if "loss_g" in row:
+            out[row["step"]] = (row["loss_g"], row["loss_d"])
+    return out
+
+
+def phase_center_frame(dev, smi):
+    """Phase 19: the centre-frame baselines. (a) STDF, DCNGAN and its
+    discriminator, MW-GAN and SIDECVSR built through the builder (seeded,
+    published widths): card vs CPU on a small window, then a 720p window
+    (SIDECVSR 180x320 -> 720x1280) timed and profiled; (b) STDF through
+    apis.init_model / restoration_video_inference(window_size=7) on clip 000
+    of phase 4's fixture, each frame against the generator on its own padded
+    window; (c) evaluate_center_frame_dataset over LDPNonPQFDataset on phase
+    7's fixture, its first sample card vs CPU; (d) tools/torch_train.py on
+    a DCNGAN config (phase 7's fixture, 3-frame windows, b=5, 128x128, Adam
+    1e-4 for both networks, 4 iterations, --deterministic) and its first
+    iteration at b=2 on the card against the CPU; (e) no kernel launched.
+    Float32, TF32 off. Returns the gates' errors."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pnp_vcve_torch import apis
+    from pnp_vcve_torch.core.builder import (
+        build_dataset,
+        build_discriminator,
+        build_generator,
+    )
+    from pnp_vcve_torch.kernels import LAUNCHES
+    from pnp_vcve_torch.models.restorer import CenterFrameRestorer, evaluate_center_frame_dataset
+
+    sys.path[:0] = [str(ROOT / "tools"), str(ROOT / "tools" / "data")]
+    import torch_train
+    from make_protocol_fixture import REDS4_CLIPS, write_fixture
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches_before = dict(LAUNCHES)
+    work = ROOT / "build" / "chip_smoke" / "center"
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    errs = {}
+
+    # (a) each model alone
+    for i, (name, (cfg, t)) in enumerate(CENTER_MODELS.items()):
+        errs[name] = _center_alone(dev, smi, name, cfg, t, SEED + 190 + i)
+        if name == "dcngan":
+            errs["disc"] = _center_alone(dev, smi, "disc", CENTER_DISC, 1, SEED + 199)
+
+    # (b) the video API's sliding window on clip 000 of phase 4's fixture
+    clip = ROOT / "build" / "chip_smoke" / "data" / "crf15" / "png" / REDS4_CLIPS[0]
+    if not clip.is_dir():
+        write_fixture(clip.parents[2], clips=REDS4_CLIPS[:1], frames=FRAMES, height=MAIN_HW[0],
+                      width=MAIN_HW[1], crf=15, seed=SEED, quiet=True)
+    model = apis.init_model(dict(model=dict(type="STDF", generator=dict(type="STDFNet"))),
+                            device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = apis.restoration_video_inference(model, str(clip), window_size=WINDOW_SIZE)
+    wall = time.perf_counter() - t0
+    lq = apis._read_frame_dir(str(clip), "{:08d}.png", 0)
+    pad = WINDOW_SIZE // 2
+    padded = np.concatenate([lq[1:1 + pad][::-1], lq, lq[-1 - pad:-1][::-1]])
+    err = 0.0
+    with torch.inference_mode():
+        for i in range(lq.shape[0]):
+            win = torch.from_numpy(np.ascontiguousarray(padded[None, i:i + WINDOW_SIZE]))
+            ref = model.generator(win.to(dev))[0].cpu().numpy()
+            err = max(err, float(np.abs(out[i] - ref).max()))
+    errs["window"] = err
+    print(f"[center19] (b) {smi}: apis.restoration_video_inference(window_size={WINDOW_SIZE}), "
+          f"STDF (radius 3, 32/3, 64, QE 48x6, seeded) on {lq.shape[0]} frames of "
+          f"{lq.shape[1]}x{lq.shape[2]}: {lq.shape[0] / wall:.3f} f/s ({wall:.3f} s with PNG "
+          f"loading); each frame against the generator on its padded window max|diff| "
+          f"{err:.3g} (<= {WINDOW_TOL})")
+    if out.shape != lq.shape or not np.isfinite(out).all() or err > WINDOW_TOL:
+        raise AssertionError("phase 19 (b): the sliding window disagrees with the generator")
+    del model, out
+
+    # (c) evaluate_center_frame_dataset on phase 7's fixture's non-PQF triples
+    cfg_path = _train_fixture(ROOT / "build" / "chip_smoke" / "train")
+    data = ROOT / "build" / "chip_smoke" / "train" / "data"
+    dataset = build_dataset(dict(
+        type="LDPNonPQFDataset", lq_folder=str(data / "crf15" / "png"),
+        gt_folder=str(data / "sharp" / "png"), cprs15_folder=str(data / "crf15" / "png"),
+        cprs25_folder=str(data / "crf25" / "png"), cprs35_folder=str(data / "crf35" / "png"),
+        sequence_length=TRAIN_FRAMES,
+        pipeline=[dict(type="LoadImageFromFileList_Mix_Compress_ipb", key="lq",
+                       qp_slice_file=str(data / "qp.json"))]))
+    gcfg = dict(type="STDFNet", radius=1)
+    card = build_generator(gcfg, device=dev, seed=SEED + 195).eval()
+    t0 = time.perf_counter()
+    metrics = evaluate_center_frame_dataset(CenterFrameRestorer(generator=card),
+                                            dataset.iter_test(), verbose=False)
+    wall = time.perf_counter() - t0
+    n = sum(1 for _ in dataset.iter_test())
+    first = next(dataset.iter_test())
+    cpu = build_generator(gcfg, device="cpu", seed=SEED + 195).eval()
+    with torch.inference_mode():
+        want = cpu(torch.from_numpy(first["lq"][None])).numpy()
+        got = card(torch.from_numpy(first["lq"][None]).to(dev)).cpu().numpy()
+    errs["dataset"] = float(np.abs(got - want).max())
+    print(f"[center19] (c) {smi}: evaluate_center_frame_dataset, STDF radius 1 (seeded) over "
+          f"{n} non-PQF triples of {TRAIN_HW[0]}x{TRAIN_HW[1]} at CRF 15: {metrics}, "
+          f"{n / wall:.3f} triples/s with PNG loading and host metrics; first sample the card "
+          f"against the CPU max|diff| {errs['dataset']:.3g} (<= {CENTER_TOL})")
+    if (n == 0 or not all(np.isfinite(v) for v in metrics.values())
+            or errs["dataset"] > CENTER_TOL):
+        raise AssertionError("phase 19 (c): the dataset evaluation")
+    del card, cpu
+
+    # (d) DCNGAN's adversarial training through tools/torch_train.py
+    from pnp_vcve_torch.core.presets import train_dataset
+
+    train = train_dataset("DAVISMultipleGTMixCompressDataset", str(data), "sharp",
+                          str(data / "qp.json"))
+    train["dataset"]["num_input_frames"] = 3
+    gan_cfg = work / "dcngan_train.py"
+    gan_cfg.write_text(
+        f"_base_ = [{str(CONFIGS / 'HR_davis_LR_128x128.py')!r}]\n"
+        "model = dict(type='DCNGAN', generator=dict(type='DCNGANNet'),\n"
+        f"             discriminator={CENTER_DISC!r})\n"
+        f"data = dict(train=[{train!r}], train_dataloader=dict(samples_per_gpu={GAN_B}))\n"
+        "optimizers = dict(generator=dict(type='Adam', lr=1e-4, betas=(0.9, 0.999)),\n"
+        "                  discriminator=dict(type='Adam', lr=1e-4, betas=(0.9, 0.999)))\n"
+        "lr_config = dict(policy='Fixed')\n"
+        "log_config = dict(interval=1)\n"
+        f"checkpoint_config = dict(interval={GAN_ITERS}, save_optimizer=False)\n")
+    run = work / "gan"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch_train.main([str(gan_cfg), "--device", dev.type, "--work-dir", str(run),
+                      "--total-iters", str(GAN_ITERS), "--deterministic"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = _gan_losses(run)
+    rates = [float(ln.split("(")[1].split()[0]) for ln in (run / "train.log").read_text()
+             .splitlines() if " loss_g=" in ln]
+    ckpt = torch.load(run / "ckpt" / f"{GAN_ITERS}.pth", map_location="cpu", weights_only=True)
+    g0 = build_generator(dict(type="DCNGANNet"), device="cpu", seed=0).state_dict()
+    d0 = build_discriminator(CENTER_DISC, device="cpu", seed=1).state_dict()
+    moved = {"generator": sum(not torch.equal(v, ckpt["model"][k]) for k, v in g0.items()),
+             "discriminator": sum(not torch.equal(v, ckpt["disc"]["model"][k])
+                                  for k, v in d0.items())}
+    sec = [1.0 / r for r in rates[1:]]
+    print(f"[center19] (d) {smi}: tools/torch_train.py DCNGAN (generator 32/3 + QE, "
+          f"discriminator d=128; b={GAN_B}, 3-frame windows, 128x128, Adam 1e-4 each, "
+          f"--deterministic, TF32 off) {GAN_ITERS} iterations in {wall:.2f} s: losses "
+          f"{losses}; {np.mean(sec):.4f} s an iteration over iterations 2-{GAN_ITERS} "
+          f"({[round(x, 4) for x in sec]}); tensors changed {moved}; checkpoint keys "
+          f"{sorted(ckpt)}")
+    if (len(losses) != GAN_ITERS or not np.isfinite(list(losses.values())).all()
+            or "disc" not in ckpt or not all(moved.values())):
+        raise AssertionError("phase 19 (d): DCNGAN training (losses, weights or checkpoint)")
+    del ckpt
+    first = {}
+    for d in (dev, torch.device("cpu")):
+        sub = work / f"gan_b{GAN_CHECK_B}_{d.type}"
+        torch_train.main([str(gan_cfg), "--device", d.type, "--work-dir", str(sub),
+                          "--total-iters", "1", "--deterministic", "--cfg-options",
+                          f"data.train_dataloader.samples_per_gpu={GAN_CHECK_B}"])
+        first[d.type] = _gan_losses(sub)[1]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(first[dev.type], first["cpu"]))
+    errs["gan_first_iteration_rel"] = rel
+    print(f"[center19] (d) iteration 1 at b={GAN_CHECK_B}: card (loss_g, loss_d) "
+          f"{first[dev.type]}, CPU {first['cpu']}: max relative diff {rel:.3g} (<= {GAN_RTOL})")
+    if rel > GAN_RTOL:
+        raise AssertionError("phase 19 (d): DCNGAN's first iteration on the card disagrees "
+                             "with the CPU")
+
+    # (e) the centre-frame models run no kernel of the port
+    launched = {k: v - launches_before[k] for k, v in LAUNCHES.items()}
+    print(f"[center19] (e) kernel launches across (a)-(d): {launched}")
+    if any(launched.values()):
+        raise AssertionError("phase 19 (e): a kernel of the port was launched")
+    shutil.rmtree(work)
+    return errs
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     # deterministic cuBLAS for the resume check of phase 7; read when cuBLAS
@@ -3325,6 +3664,7 @@ def main():
     ddp_counts, kitti_counts = phase("17 data-parallel training and KITTI", phase_ddp_train,
                                      dev, smi)
     export_counts = phase("18 export and deployment", phase_export, dev, smi)
+    center_errs = phase("19 centre-frame baselines", phase_center_frame, dev, smi)
     # K6 runs in both probe phases: one row, the forms and counts of both
     k6 = b10b_rows.pop("window_copy")
     probe_rows["window_copy"]["forms"] += k6["forms"]
@@ -3351,7 +3691,7 @@ def main():
          **probe_rows[name]}
         for name, (src, rep, also) in PROBE_INFO.items()
     ], "model_widths_max_abs_err": model_widths, "model_forms_max_abs_err": forms14_errs,
-        "baselines_max_abs_err": baseline_errs}))
+        "baselines_max_abs_err": baseline_errs, "center_frame_max_abs_err": center_errs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,14 +2,18 @@
 ``pnp_vcve_tpu/apis.py`` (itself the counterpart of the reference's
 ``mmedit/apis``).
 
-- :func:`init_model` builds a config's restorer generator on an explicit
-  device (``'cuda'`` by default: the kernels; ``'cpu'``: their plain
-  versions) and loads a checkpoint into it: an :class:`InferenceModel`.
+- :func:`init_model` builds a config's restorer generator (the restorer
+  kind, or the centre-frame kind: STDF, MFQEv2, DCNGAN, MW-GAN) on an
+  explicit device (``'cuda'`` by default: the kernels; ``'cpu'``: their
+  plain versions) and loads a checkpoint into it: an :class:`InferenceModel`.
 - :func:`restoration_video_inference` enhances a frame directory (or a
-  video file) with the codec priors from the dataset's sidecars: MV records
-  rasterized by ``data.mv_raster.rasterize_clip``, QP and slice types from
-  ``data.qp_slice.QpSliceLookup``; ``max_seq_len`` runs the clip as
-  independent windows (``train.eval.enhance_clip``).
+  video file). PnP-VCVE reads the codec priors from the dataset's sidecars:
+  MV records rasterized by ``data.mv_raster.rasterize_clip``, QP and slice
+  types from ``data.qp_slice.QpSliceLookup``; ``max_seq_len`` runs the
+  clip as independent windows (``train.eval.enhance_clip``). An
+  image-input model (the centre-frame baselines, vanilla BasicVSR++) runs
+  JAX's branch (:472-505): a reflect-padded sliding window with
+  ``window_size > 0``, else the whole clip or ``max_seq_len`` pieces.
 - :func:`restoration_inference` enhances one image as a clip of one frame
   with neutral priors (zero MVs, an I slice, mid QP): the serving handler's
   contract (tools/torch_serving_handler.py).
@@ -18,9 +22,9 @@
   (JAX apis.py:675-689; reference apis/test.py), thin aliases of
   ``train.eval.evaluate_dataset``.
 
-The other restorer kinds of the JAX module (center-frame, inpainting,
-matting, generation, face and interpolation helpers) are ROADMAP Queue A
-item 8: their models are not ported.
+The other kinds of the JAX module (inpainting, matting, generation, face
+and interpolation helpers, single-image and reference-based restoration)
+are ROADMAP Queue A item 8: their models are not ported.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ __all__ = [
 
 VIDEO_EXTENSIONS = (".mp4", ".mov")
 _RESTORER_TYPES = ("Restorer", "BasicVSR", "BasicRestorer")
+_CENTER_TYPES = ("CenterFrameRestorer", "STDF", "MFQEv2Restorer", "DCNGAN", "WMGAN")
 
 # the single-image contract's neutral priors (the JAX handler's
 # PnPServingHandler._clip_inputs): I slices, zero MVs and partitions
@@ -87,7 +92,7 @@ def init_model(config, checkpoint: Optional[str] = None, device="cuda") -> Infer
     else:
         cfg = config
     mtype = dict(cfg.model).get("type", "Restorer")
-    if mtype not in _RESTORER_TYPES:
+    if mtype not in _RESTORER_TYPES + _CENTER_TYPES:
         raise NotImplementedError(
             f"init_model: model type {mtype!r} is not ported to the PyTorch port yet "
             "(ROADMAP Queue A item 8)"
@@ -180,8 +185,8 @@ def _pnp_generator(model: InferenceModel):
     gen = model.generator
     if not isinstance(gen, PnPVCVE):
         raise NotImplementedError(
-            f"{type(gen).__name__}: image-input models are not ported to the PyTorch port "
-            "yet (ROADMAP Queue A item 8)"
+            f"{type(gen).__name__}: single-image restoration serves PnP-VCVE only; the SISR "
+            "models are not ported to the PyTorch port yet (ROADMAP Queue A item 8)"
         )
     return gen
 
@@ -200,30 +205,72 @@ def restoration_video_inference(
     qp_slice_file: Optional[str] = None,
     base_qp: float = 32.0,
 ) -> np.ndarray:
-    """Enhance the clip in ``img_dir`` -> (t, h, w, 3) float32.
+    """Enhance the clip in ``img_dir`` -> (t, h, w, 3) float32 (x4 for a VSR
+    model).
 
-    The codec priors come from the dataset's sidecar layout: ``mv_dir``
-    holds one ``.npy`` of MV records per frame (named by ``filename_tmpl``),
-    ``qp_slice_file`` the QP/slice JSON, read under the CRF found in
-    ``img_dir`` (``crf<N>``; else ``base_qp``). Missing priors are neutral:
-    zero MVs and partitions, and without a QP file QP 0, an I slice first and
-    P slices after. ``max_seq_len`` runs the clip as independent windows of
-    that many frames. ``window_size`` (the sliding-window protocol of
-    image-input models) does not apply to PnP-VCVE and is ignored, as in the
-    JAX package.
+    PnP-VCVE: the codec priors come from the dataset's sidecar layout:
+    ``mv_dir`` holds one ``.npy`` of MV records per frame (named by
+    ``filename_tmpl``), ``qp_slice_file`` the QP/slice JSON, read under the
+    CRF found in ``img_dir`` (``crf<N>``; else ``base_qp``). Missing priors
+    are neutral: zero MVs and partitions, and without a QP file QP 0, an I
+    slice first and P slices after. ``max_seq_len`` runs the clip as
+    independent windows of that many frames; ``window_size`` does not apply
+    and is ignored, as in the JAX package.
+
+    Image-input models (JAX :472-505) take the frames alone: with
+    ``window_size > 0`` each frame is the output of the window of that many
+    frames around it, the clip reflect-padded at both ends (reference
+    pad_sequence), taken as is when the model returns the centre frame or as
+    the window's middle frame when it returns the window; with ``window_size
+    <= 0`` the model runs on the whole clip, or on consecutive pieces of
+    ``max_seq_len`` frames.
     """
+    from pnp_vcve_torch.models.pnp_vcve import PnPVCVE
+
+    lq = _read_frame_dir(img_dir, filename_tmpl, start_idx)  # (t, h, w, 3) in [0, 1]
+    if isinstance(model.generator, PnPVCVE):
+        return _pnp_video(model.generator, lq, img_dir, start_idx, filename_tmpl, max_seq_len,
+                          mv_dir, qp_slice_file, base_qp)
+    return _image_input_video(model, lq, window_size, max_seq_len)
+
+
+def _image_input_video(model: InferenceModel, lq: np.ndarray, window_size: int,
+                       max_seq_len: Optional[int]) -> np.ndarray:
+    gen = model.generator
+
+    def fwd(frames):  # (k, h, w, 3) -> the model's output for one clip
+        x = torch.as_tensor(np.ascontiguousarray(frames[None]), device=model.device)
+        with torch.inference_mode():
+            return gen(x)[0].float().cpu().numpy()
+
+    t = lq.shape[0]
+    if window_size > 0:
+        pad = window_size // 2
+        padded = np.concatenate([lq[1:1 + pad][::-1], lq, lq[-1 - pad:-1][::-1]], axis=0)
+        outs = []
+        for i in range(t):
+            out = fwd(padded[i:i + window_size])
+            outs.append(out if out.ndim == 3 else out[out.shape[0] // 2])
+        return np.stack(outs).astype(np.float32)
+    if max_seq_len is None:
+        return fwd(lq).astype(np.float32)
+    return np.concatenate([fwd(lq[s:s + max_seq_len]) for s in range(0, t, max_seq_len)],
+                          axis=0).astype(np.float32)
+
+
+def _pnp_video(gen, lq, img_dir, start_idx, filename_tmpl, max_seq_len, mv_dir, qp_slice_file,
+               base_qp) -> np.ndarray:
     from pnp_vcve_torch.data.mv_raster import rasterize_clip
     from pnp_vcve_torch.data.pipeline import rescale_to_zero_one
     from pnp_vcve_torch.data.qp_slice import QpSliceLookup
     from pnp_vcve_torch.train.eval import enhance_clip
     from pnp_vcve_torch.train.train_step import make_eval_step
 
-    gen = _pnp_generator(model)
-    lq = _read_frame_dir(img_dir, filename_tmpl, start_idx)  # (t, h, w, 3) in [0, 1]
     t, h, w, _ = lq.shape
     clip = osp.basename(osp.normpath(img_dir))
-    m_crf = re.search(r"crf(\d+)", img_dir)
-    bq = int(m_crf.group(1)) if m_crf else int(base_qp)
+    # the last 'crf<N>' of the path, as the datasets read it (data/datasets.py: _base_qp)
+    found = re.findall(r"crf(\d+)", img_dir)
+    bq = int(found[-1]) if found else int(base_qp)
     lut = QpSliceLookup(qp_slice_file)
     pairs = [lut(bq if qp_slice_file else 0, clip, start_idx + i) for i in range(t)]
     slice_types = [p[1] for p in pairs]

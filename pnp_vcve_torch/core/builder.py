@@ -1,9 +1,10 @@
 """Builders: config dicts -> the port's objects (counterpart of the parts of
 pnp_vcve_tpu/core/builder.py that the flagship enhancement and training
 paths and the eval entry point's modes use: the generator :33-100, the
-baselines MFQEv2 and the BasicVSR++ family :112-164, the restorers
-:568-600, the train datasets :660-750, :950-1062 and :1195-1208, the eval
-datasets :1064-1192, the optimizer :1211-1261).
+baselines STDF, MFQEv2, the BasicVSR++ family, DCNGAN and SIDECVSR
+:102-179 and MW-GAN :460-467, the discriminators :470-483 and :564, the
+restorers :568-600, the train datasets :660-750, :905-1062 and :1195-1208,
+the eval datasets :1064-1192, the optimizer :1211-1261).
 
 The registries carry the reference type names, so the flagship configs load
 unchanged. Types the port does not have yet raise ``NotImplementedError``
@@ -34,9 +35,11 @@ from pnp_vcve_torch.train.schedule import cosine_restart_schedule
 
 __all__ = [
     "BACKBONES",
+    "COMPONENTS",
     "MODELS",
     "DATASETS",
     "build_generator",
+    "build_discriminator",
     "build_restorer",
     "build_dataset",
     "build_train_datasets",
@@ -44,6 +47,7 @@ __all__ = [
 ]
 
 BACKBONES = Registry("backbones")
+COMPONENTS = Registry("components")
 MODELS = Registry("models")
 DATASETS = Registry("datasets")
 
@@ -138,6 +142,47 @@ _BVPP_KEYS = ("mid_channels", "num_blocks", "max_residue_magnitude", "is_low_res
               "deform_groups")
 
 
+@BACKBONES.register(name="STDFNet")
+def _build_stdf(*, device, seed: int = 0, **kwargs):
+    from pnp_vcve_torch.models.baselines import STDFNet
+
+    with torch.device("meta"):
+        model = STDFNet(**_known(kwargs, (
+            "in_channels", "out_channels", "radius", "nf_stdf", "nb_stdf", "nf_stdf_out",
+            "deform_ks", "nf_qe", "nb_qe")))
+    return _seeded(model, device, seed)
+
+
+@BACKBONES.register(name="DCNGANNet", aliases=("DCNGAN_Net",))
+def _build_dcngan(*, device, seed: int = 0, **kwargs):
+    from pnp_vcve_torch.models.baselines import DCNGANNet
+
+    with torch.device("meta"):
+        model = DCNGANNet(**_known(kwargs, ("in_channels", "radius", "nf_fa", "nb_fa")))
+    return _seeded(model, device, seed)
+
+
+@BACKBONES.register(name="SIDECVSR")
+def _build_sidecvsr(*, device, seed: int = 0, **kwargs):
+    from pnp_vcve_torch.models.baselines import SIDECVSR
+
+    with torch.device("meta"):
+        model = SIDECVSR(**_known(kwargs, ("nf", "nframes", "scg_n")))
+    return _seeded(model, device, seed)
+
+
+@BACKBONES.register(name="DenseMWNetMiniPSNR", aliases=("DenseMWNet_Mini_PSNR",))
+def _build_mwgan(*, device, seed: int = 0, **kwargs):
+    """The reference config's keys in any case (``nf``, ``nframes``, ...)."""
+    from pnp_vcve_torch.models.baselines import DenseMWNetMiniPSNR
+
+    lower = {k.lower(): v for k, v in kwargs.items()}
+    with torch.device("meta"):
+        model = DenseMWNetMiniPSNR(**_known(lower, (
+            "in_nc", "out_nc", "nf", "nb", "nframes", "front_rbs", "gc")))
+    return _seeded(model, device, seed)
+
+
 @BACKBONES.register(name="MFQEv2")
 def _build_mfqev2(*, device, seed: int = 0, **kwargs):
     from pnp_vcve_torch.models.baselines import MFQEv2
@@ -188,6 +233,21 @@ def _build_bvpp_pqf_v2_onlyb(**kwargs):
 def build_generator(cfg: dict, *, device, seed: int = 0):
     """Generator on ``device``, randomly initialised from ``seed``."""
     return _build(BACKBONES, dict(cfg), "Queue A item 8", device=device, seed=seed)
+
+
+@COMPONENTS.register(name="DCNGANDiscriminator",
+                     aliases=("Discriminator_UNet", "NLayerDiscriminator"))
+def _build_dcngan_disc(*, device, seed: int = 0, **kwargs):
+    from pnp_vcve_torch.models.baselines import DCNGANDiscriminator
+
+    with torch.device("meta"):
+        model = DCNGANDiscriminator(**_known(kwargs, ("d",)))
+    return _seeded(model, device, seed)
+
+
+def build_discriminator(cfg: dict, *, device, seed: int = 0):
+    """Discriminator on ``device``, randomly initialised from ``seed``."""
+    return _build(COMPONENTS, dict(cfg), "Queue A item 8", device=device, seed=seed)
 
 
 @MODELS.register(name="Restorer", aliases=("BasicVSR", "BasicRestorer"))
@@ -382,6 +442,49 @@ def _build_kitti_pairs(lq_folder, gt_folder, pipeline=None, scale=1, test_mode=T
     _, p = _pipeline(pipeline)
     return KittiPairDataset(lq_folder=lq_folder, gt_folder=gt_folder,
                             qp_slice_file=p["qp_slice_file"])
+
+
+def _ldp(lq_folder, gt_folder, cprs15_folder, cprs25_folder, cprs35_folder, centers,
+         pipeline=None, scale=1, sequence_length=100):
+    """Every clip folder under ``lq_folder``, each ``sequence_length`` frames
+    long (JAX builder :905-945)."""
+    from pnp_vcve_torch.data.ldp import LDPTripleDataset
+
+    names = sorted(d.name for d in os.scandir(lq_folder) if d.is_dir())
+    _, p = _pipeline(pipeline)
+    return LDPTripleDataset(
+        lq_folder=lq_folder,
+        gt_folder=gt_folder,
+        cprs15_folder=cprs15_folder,
+        cprs25_folder=cprs25_folder,
+        cprs35_folder=cprs35_folder,
+        qp_slice_file=p["qp_slice_file"],
+        clips=[ClipIndex(n, sequence_length) for n in names],
+        centers=centers,
+        scale=scale,
+        gt_patch_size=p["gt_patch_size"],
+        filename_tmpl=p["filename_tmpl"],
+        data_ratio=p["data_ratio"],
+    )
+
+
+@DATASETS.register(name="LDPPQFDataset")
+def _build_ldp_pqf(lq_folder, gt_folder, cprs15_folder, cprs25_folder, cprs35_folder,
+                   pipeline=None, scale=1, test_mode=False, centers="pqf", sequence_length=100,
+                   **_ignored):
+    """(left PQF, PQF, right PQF) triples of the MFQE protocol (reference
+    ldp_dataset.py:11-245)."""
+    return _ldp(lq_folder, gt_folder, cprs15_folder, cprs25_folder, cprs35_folder, centers,
+                pipeline, scale, sequence_length)
+
+
+@DATASETS.register(name="LDPNonPQFDataset")
+def _build_ldp_nonpqf(lq_folder, gt_folder, cprs15_folder, cprs25_folder, cprs35_folder,
+                      pipeline=None, scale=1, test_mode=False, centers="nonpqf",
+                      sequence_length=100, **_ignored):
+    """The same triples centred on the non-PQF (B) frames."""
+    return _ldp(lq_folder, gt_folder, cprs15_folder, cprs25_folder, cprs35_folder, centers,
+                pipeline, scale, sequence_length)
 
 
 def _test_dataset(lq_folder, gt_folder, clips, num_input_frames, scale, pipeline):

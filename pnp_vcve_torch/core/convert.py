@@ -21,7 +21,15 @@ The baselines: :func:`spynet_state_dict` and :func:`bvpp_state_dict` invert
 carry the full-size input's ``feat_down{0,1}``, which that converter does
 not read, to the reference's ``feat_extract.{0,2}``);
 :func:`mfqev2_state_dict` carries MFQEv2's flax ``params`` and
-``batch_stats``.
+``batch_stats``. :func:`stdf_state_dict` inverts ``convert_stdf`` (:75-102):
+STDF under the reference's names, the transposed convs' kernels flipped
+back to ``ConvTranspose2d``'s ``(in, out, kh, kw)``. DCNGAN (generator and
+discriminator), MW-GAN and SIDECVSR follow the JAX tree in PyTorch's forms
+(:func:`dcngan_state_dict`, :func:`dcngan_disc_state_dict`,
+:func:`mwgan_state_dict`, :func:`sidecvsr_state_dict`): each flax module
+path becomes a dotted name, a conv's HWIO ``kernel`` (or a PAC's
+``weight``) an OIHW ``weight``, a Dense ``kernel`` a Linear ``weight``;
+``bias`` and the batch-statistics norms' ``scale`` stay as they are.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ import torch
 
 __all__ = [
     "from_jax_params", "block_state_dict", "aligner_state_dict", "shared_aligner_to_sweeps",
-    "spynet_state_dict", "bvpp_state_dict", "mfqev2_state_dict",
+    "spynet_state_dict", "bvpp_state_dict", "mfqev2_state_dict", "stdf_state_dict",
+    "dcngan_state_dict", "dcngan_disc_state_dict", "mwgan_state_dict", "sidecvsr_state_dict",
 ]
 
 
@@ -225,3 +234,87 @@ def mfqev2_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         i += 1
     _conv(sd, f"rec{i}", params[f"rec{i}"])
     return sd
+
+
+def _conv_transpose(out: dict, prefix: str, p: Mapping):
+    """A flax ``ConvTranspose`` ``{kernel (kh, kw, in, out), bias}`` ->
+    ``ConvTranspose2d``'s ``weight (in, out, kh, kw)``, spatially flipped."""
+    k = np.asarray(p["kernel"])[::-1, ::-1]
+    out[f"{prefix}.weight"] = _t(np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1))))
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _stdf_core(out: dict, prefix: str, tree: Mapping):
+    """JAX ``_STDF`` -> the reference's ``in_conv.0``, ``dn_conv{i}.{0,2}``,
+    ``tr_conv.{0,2,4}``, ``up_conv{i}.{0,2}``, ``out_conv.0``, ``offset_mask``
+    and ``deform_conv`` under ``prefix``."""
+    _conv(out, f"{prefix}in_conv.0", tree["in_conv"])
+    i = 1
+    while f"dn_conv{i}_0" in tree:
+        _conv(out, f"{prefix}dn_conv{i}.0", tree[f"dn_conv{i}_0"])
+        _conv(out, f"{prefix}dn_conv{i}.2", tree[f"dn_conv{i}_1"])
+        _conv(out, f"{prefix}up_conv{i}.0", tree[f"up_conv{i}_0"])
+        _conv_transpose(out, f"{prefix}up_conv{i}.2", tree[f"up_conv{i}_up"])
+        i += 1
+    _conv(out, f"{prefix}tr_conv.0", tree["tr_conv_0"])
+    _conv(out, f"{prefix}tr_conv.2", tree["tr_conv_1"])
+    _conv_transpose(out, f"{prefix}tr_conv.4", tree["tr_conv_up"])
+    _conv(out, f"{prefix}out_conv.0", tree["out_conv"])
+    _conv(out, f"{prefix}offset_mask", tree["offset_mask"])
+    out[f"{prefix}deform_conv.weight"] = _oihw(tree["deform_kernel"])
+    out[f"{prefix}deform_conv.bias"] = _t(tree["deform_bias"])
+
+
+def stdf_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``STDFNet`` params -> the port's (the reference's) state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _stdf_core(sd, "stdf.", params["stdf"])
+    qe = params["qenet"]
+    _conv(sd, "qenet.in_conv", qe["in_conv"])
+    k = 0
+    while f"hid_conv{k}" in qe:
+        _conv(sd, f"qenet.hid_conv.{2 * k + 1}", qe[f"hid_conv{k}"])
+        k += 1
+    _conv(sd, "qenet.out_conv.1", qe["out_conv"])
+    return sd
+
+
+def _tree_state_dict(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A flax param tree -> dotted names: conv ``kernel`` (HWIO) or PAC
+    ``weight`` -> OIHW ``weight``, Dense ``kernel`` -> Linear ``weight``,
+    other leaves (``bias``, ``scale``) as they are."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, v in tree.items():
+        if isinstance(v, Mapping):
+            sd.update(_tree_state_dict(v, f"{prefix}{name}."))
+        elif name in ("kernel", "weight") and np.ndim(v) == 4:
+            sd[f"{prefix}weight"] = _oihw(v)
+        elif name == "kernel":
+            sd[f"{prefix}weight"] = _t(np.asarray(v).T)
+        else:
+            sd[f"{prefix}{name}"] = _t(v)
+    return sd
+
+
+def dcngan_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``DCNGANNet`` params -> the port's state dict: ``FA.*`` under
+    STDF's names, ``QE.*`` the JAX tree."""
+    sd: Dict[str, torch.Tensor] = {}
+    _stdf_core(sd, "FA.", params["FA"])
+    sd.update(_tree_state_dict(params["QE"], "QE."))
+    return sd
+
+
+def dcngan_disc_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``DCNGANDiscriminator`` params -> the port's state dict."""
+    return _tree_state_dict(params)
+
+
+def mwgan_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``DenseMWNetMiniPSNR`` params -> the port's state dict."""
+    return _tree_state_dict(params)
+
+
+def sidecvsr_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``SIDECVSR`` params -> the port's state dict."""
+    return _tree_state_dict(params)

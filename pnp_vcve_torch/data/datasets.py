@@ -58,9 +58,27 @@ def _load_png(path: str | Path) -> np.ndarray:
         return np.asarray(im.convert("RGB"), dtype=np.uint8)
 
 
-def _mv_path(png_path: str) -> str:
-    """PNG path -> MV sidecar path (reference loading_ipb.py:144)."""
-    return png_path.replace(".png", ".npy").replace("png", "mv")
+def _base_qp(folder: str) -> int:
+    """``base_qp`` from the path ('.../crf15/...' -> 15; loading_ipb.py:238-239),
+    from the last 'crf<N>' in it, the bucket nearest the frames: the
+    reference's first match would read a root such as 'tmpcrf1...'."""
+    found = re.findall(r"crf(\d+)", folder)
+    return int(found[-1]) if found else 0
+
+
+def _mv_folder(folder: str) -> str:
+    """The MV sidecars' folder beside the frame folder ``folder``: 'png' ->
+    'mv' in its last component only. The reference (loading_ipb.py:144)
+    rewrites the whole path, so a root whose name holds 'png' (a temporary
+    directory 'tmpng...') sent it to a folder that does not exist."""
+    head, tail = os.path.split(folder.rstrip("/"))
+    return os.path.join(head, tail.replace("png", "mv"))
+
+
+def _mv_path(folder: str, rel: str) -> str:
+    """Frame ``rel`` (``<clip>/<frame>.png``) under ``folder`` -> its MV
+    sidecar, with the reference's rewrite applied below ``folder``."""
+    return os.path.join(_mv_folder(folder), rel.replace(".png", ".npy").replace("png", "mv"))
 
 
 @dataclass
@@ -73,13 +91,13 @@ def _load_frames(lq_dir: str, gt_dir: str, clip: str, lq_idxs, gt_idxs, tmpl: st
                  lut: QpSliceLookup, base_qp: int) -> Sample:
     lq_frames, gt_frames, qps, slice_types, records = [], [], [], [], []
     for i, j in zip(lq_idxs, gt_idxs):
-        lq_png = os.path.join(lq_dir, clip, tmpl.format(i))
-        lq_frames.append(_load_png(lq_png))
+        rel = os.path.join(clip, tmpl.format(i))
+        lq_frames.append(_load_png(os.path.join(lq_dir, rel)))
         gt_frames.append(_load_png(os.path.join(gt_dir, clip, tmpl.format(j))))
         qp, st = lut(base_qp, clip, i)
         qps.append(qp)
         slice_types.append(st)
-        records.append(np.load(_mv_path(lq_png)))
+        records.append(np.load(_mv_path(lq_dir, rel)))
     h, w = lq_frames[0].shape[:2]
     mvs, partitions = rasterize_clip(records, slice_types, h, w)
     return {
@@ -170,9 +188,7 @@ class CompressTestDataset:
 
     def __post_init__(self):
         self._lut = QpSliceLookup(self.qp_slice_file, self.replace_qp_with_ipb)
-        m = re.search(r"crf(\d+)", self.lq_folder)
-        # base_qp from the path (loading_ipb.py:238-239)
-        self.base_qp = int(m.group(1)) if m else 0
+        self.base_qp = _base_qp(self.lq_folder)
 
     def __len__(self):
         return len(self.clips)

@@ -19,14 +19,13 @@ A missing MV sidecar is an empty record list (zero motion), as in JAX.
 from __future__ import annotations
 
 import os
-import re
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import List, Optional, Sequence
 
 import numpy as np
 
-from .datasets import _load_png, _mv_path
+from .datasets import _base_qp, _load_png, _mv_folder, _mv_path
 from .mv_raster import rasterize_clip
 from .pipeline import Sample, flip, paired_random_crop_mv, random_transpose_hw, rescale_to_zero_one
 from .qp_slice import QpSliceLookup
@@ -36,12 +35,6 @@ __all__ = ["KittiPairDataset", "VimeoMixDataset", "VimeoTestDataset"]
 
 def _records(path: str) -> np.ndarray:
     return np.load(path) if os.path.exists(path) else np.zeros((0, 10), np.float32)
-
-
-def _base_qp(folder: str) -> int:
-    """``base_qp`` from the path ('.../crf15/...' -> 15; loading_ipb.py:238-239)."""
-    m = re.search(r"crf(\d+)", folder)
-    return int(m.group(1)) if m else 0
 
 
 def _sample(lq_frames, gt_frames, qps, slice_types, records, base_qp) -> Sample:
@@ -81,13 +74,13 @@ class KittiPairDataset:
         lq, gt, qps, slices, records = [], [], [], [], []
         for i in self.frame_ids:
             fname = self.filename_tmpl.format(i)
-            lq_png = os.path.join(self.lq_folder, clip, fname)
-            lq.append(_load_png(lq_png))
+            rel = os.path.join(clip, fname)
+            lq.append(_load_png(os.path.join(self.lq_folder, rel)))
             gt.append(_load_png(os.path.join(self.gt_folder, clip, fname)))
             qp, st = self._lut(self.base_qp, clip, i)
             qps.append(qp)
             slices.append(st)
-            records.append(_records(_mv_path(lq_png)))
+            records.append(_records(_mv_path(self.lq_folder, rel)))
         sample = _sample(lq, gt, qps, slices, records, self.base_qp)
         sample["clip_name"] = clip  # type: ignore[assignment]
         return rescale_to_zero_one(sample)
@@ -101,9 +94,9 @@ def _load_septuplet(folder: str, gt_folder: str, key: str, n: int, lut: QpSliceL
                     base_qp: int) -> Sample:
     """Frames ``im1..im{n}`` of ``<clip>/<subclip>`` from ``folder``, the GT
     beside them, the QP/slice of frame ``i - 1`` and the MV sidecars under
-    ``folder`` with 'png' -> 'mv'."""
+    ``_mv_folder(folder)``."""
     clip, subclip = key.split("/")
-    mv_dir = os.path.join(folder.replace("png", "mv"), clip, subclip)
+    mv_dir = os.path.join(_mv_folder(folder), clip, subclip)
     lq, gt, qps, slices, records = [], [], [], [], []
     for i in range(1, n + 1):
         lq.append(_load_png(os.path.join(folder, clip, subclip, f"im{i}.png")))

@@ -19,6 +19,7 @@ __all__ = [
     "kaiming_uniform_expert_",
     "scaled_kaiming_normal_",
     "torch_default_",
+    "torch_default_all_",
 ]
 
 
@@ -53,3 +54,14 @@ def torch_default_(module: nn.Module, generator: torch.Generator):
         bound = 1.0 / math.sqrt(module.weight[0].numel())
         _fill(module.bias, torch.empty(module.bias.shape).uniform_(-bound, bound,
                                                                    generator=generator))
+
+
+def torch_default_all_(module: nn.Module, generator: torch.Generator):
+    """:func:`torch_default_` on every submodule of ``module`` (itself
+    included, in module order) that holds a ``weight`` of two or more dims:
+    convs, transposed convs, Linears and the baselines' DCN and PAC weight
+    holders."""
+    for m in module.modules():
+        w = m._parameters.get("weight")
+        if w is not None and w.dim() >= 2:
+            torch_default_(m, generator)

@@ -158,6 +158,22 @@ def test_reference_fixture_through_port(tmp_path):
     assert _gate(sd, spec, meta, sample) != []
 
 
+def test_fixture_clip_is_independent_of_the_root_name(tmp_path):
+    """The MV sidecars and ``base_qp`` are read below the root whatever it is
+    called: a temporary directory such as 'tmpng_crf1...' holds 'png' and
+    'crf1', which the reference's whole-path rewrite turned into a folder that
+    does not exist and its first 'crf<N>' match into base QP 1. The clip
+    equals the one under a plain root bit for bit."""
+    spec = json.loads((FIXTURE / "spec.json").read_text())["spec"]
+    want = _fixture_clip(tmp_path / "plain", spec)
+    got = _fixture_clip(tmp_path / "tmpng_crf1x", spec)
+    assert got["clip_name"] == want["clip_name"]
+    arrays = [k for k, v in want.items() if isinstance(v, np.ndarray)]
+    assert {"mvs", "base_qps"} <= set(arrays) and np.abs(want["mvs"]).max() > 0
+    for k in arrays:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 def test_checkpoint_npz_and_pth_load_alike(tmp_path):
     """A .pth with the reference's ``generator.`` prefix and extra entries
     loads like the bare .npz; '-' draws a seeded random init."""

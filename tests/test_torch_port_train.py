@@ -316,10 +316,12 @@ def test_port_and_clis_import_no_jax(fixture_root, tmp_path):
     BasicVSR++ and the MFQE joint protocol), a batched dispatch and an exact
     one, the overlapped-window eval, the serving curve, the packager, the
     handler, the protocol tool's exact leg, the five probe tools (K6-K13's
-    plain versions at small shapes) and the five deployment tools (export
+    plain versions at small shapes), the five deployment tools (export
     with --verify, the deploy test of its artifact, the parity gate's asset
-    mode, publish and the FLOP count); neither jax nor any pnp_vcve_tpu
-    module gets imported."""
+    mode, publish and the FLOP count) and a centre-frame model (STDF)
+    through the video API's sliding window; neither jax nor any
+    pnp_vcve_tpu module gets imported (the centre-frame baselines, PAC,
+    the wavelets, the GAN step and VGG among the modules)."""
     cfg = _write_cli_cfg(tmp_path, fixture_root)
     ckpt = tmp_path / "w" / "ckpt" / "1.pth"
     # the cascade into a same-size BasicVSR++, the joint protocol on MFQEv2
@@ -339,7 +341,11 @@ for m in mods:
 assert {{"pnp_vcve_torch.models.baselines.basicvsr_pp", "pnp_vcve_torch.models.baselines.mfqev2",
          "pnp_vcve_torch.models.spynet", "pnp_vcve_torch.data.ldp",
          "pnp_vcve_torch.data.extra_datasets", "pnp_vcve_torch.utils.logging",
-         "pnp_vcve_torch.train.ema", "pnp_vcve_torch.train.visualization"}} <= set(mods)
+         "pnp_vcve_torch.train.ema", "pnp_vcve_torch.train.visualization",
+         "pnp_vcve_torch.models.baselines.stdf", "pnp_vcve_torch.models.baselines.dcngan",
+         "pnp_vcve_torch.models.baselines.mwgan", "pnp_vcve_torch.models.baselines.sidecvsr",
+         "pnp_vcve_torch.ops.pac", "pnp_vcve_torch.ops.wavelet", "pnp_vcve_torch.train.gan",
+         "pnp_vcve_torch.models.vgg"}} <= set(mods)
 import torch_test, torch_train, torch_serving_curve, torch_pnp2servable, torch_serving_handler
 import torch_kernel_bounds, torch_protocol_eval, torch_test_kitti
 import torch_int8_probe, torch_warp_kernel_probe2, torch_warp_bisect
@@ -370,6 +376,11 @@ torch_test.main([{str(cfg)!r}, {str(ckpt)!r}, "--device", "cpu", "--cascade",
                  "--cascade_config", {str(vsr_cfg)!r}])
 torch_test.main([{str(mfqe_cfg)!r}, "-", "--device", "cpu", "--joint-pqf-config",
                  {str(mfqe_cfg)!r}])
+stdf = apis.init_model(dict(model=dict(type="STDF", generator=dict(
+    type="STDFNet", radius=1, nf_stdf=4, nb_stdf=2, nf_stdf_out=4, nf_qe=4, nb_qe=1))),
+    device="cpu")
+assert apis.restoration_video_inference(stdf, {str(fixture_root / 'crf25' / 'png' / 'bear')!r},
+                                        window_size=3).shape == (20, 32, 32, 3)
 model = apis.init_model({str(cfg)!r}, {str(ckpt)!r}, device="cpu")
 run = serving.batched_forward_executor(model.generator)
 sample = dict(lq=np.zeros((2, 8, 8, 3), np.float32), qps=np.zeros(2, np.float32),
@@ -441,7 +452,8 @@ print("MODULES", len(mods), "BAD", bad)
 
 def test_train_refuses_serving_config_and_unported_models(tmp_path):
     """The serving config's warp (pf) is refused with JAX's message; model
-    types of tools/train.py's other branches name their ROADMAP item."""
+    types of tools/train.py's other branches (here the repository's
+    CycleGAN config) name their ROADMAP item."""
     from pnp_vcve_torch.core.builder import build_restorer
     from pnp_vcve_torch.core.config import Config
 
@@ -449,11 +461,10 @@ def test_train_refuses_serving_config_and_unported_models(tmp_path):
     gen = build_restorer(cfg.model, device="cpu").generator
     with pytest.raises(ValueError, match="serving-only"):
         make_train_step(gen)
-    gan = tmp_path / "gan.py"
-    gan.write_text("model = dict(type='DCNGAN', generator=dict(), discriminator=dict())\n"
-                   "total_iters = 1\n")
+    cyclegan = REPO / "configs" / "baselines" / "cyclegan_lsgan_resnet.py"
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        _cli("torch_train").main([str(gan), "--device", "cpu", "--work-dir", str(tmp_path)])
+        _cli("torch_train").main([str(cyclegan), "--device", "cpu", "--work-dir",
+                                  str(tmp_path)])
 
 
 # ---- (h) the kernels' autograd Functions ---------------------------------------------------

@@ -33,6 +33,21 @@ over the ranks every step. Rank 0 alone writes the log, the scalars, the
 visual grids and the checkpoints. ``--time-allreduce`` has rank 0 time each
 step's all-reduce (it synchronises the card before and after it) and log
 the mean with the loss.
+
+A config whose model has a ``discriminator`` (DCNGAN) trains adversarially,
+as tools/train.py's ``_train_gan`` (:45-170): the discriminator is built
+from ``model.discriminator`` with seed ``seed + 1`` and its Adam from
+``optimizers.discriminator`` (else the generator's); each iteration takes
+the loader's batch, ``gt[:, t // 2]`` (the window's centre) and
+``base_qps``, and runs ``train/gan.py: make_gan_train_step`` (pixel,
+adversarial and feature-matching terms by ``pixel_weight``, ``gan_weight``,
+``fm_weight``, ``gan_type``; the VGG perceptual term where
+``model.perceptual_loss.pretrained`` names a torchvision state dict on disk,
+else it is skipped with a message). The log line reads ``iter N/M
+loss_g=... loss_d=...``; a checkpoint holds the generator's payload and the
+discriminator's under ``disc``. A resume restores the generator's state and
+the step; the discriminator starts fresh, as in JAX. Adversarial training
+runs in one process only.
 """
 
 import argparse
@@ -43,15 +58,17 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-# model types of tools/train.py's other branches
+# model types of tools/train.py's other branches (CycleGAN and the rest)
 UNPORTED_TYPES = (
     "CycleGAN", "DIC",
     "GLInpaintor", "OneStageInpaintor", "DeepFillv1Inpaintor", "DeepFillv2Inpaintor",
     "TwoStageInpaintor", "AOTInpaintor", "PConvInpaintor",
     "DIM", "GCA", "IndexNet", "IndexNetMattor", "GCAMattor",
 )
-# the generators it trains: the flagship's names; the baselines that
-# tools/torch_test.py evaluates (BasicVSR++, MFQEv2) train in a later slice
+# the generators the restorer path trains: the flagship's names; the
+# baselines that tools/torch_test.py evaluates (BasicVSR++, MFQEv2) train in
+# a later slice. A config with a discriminator trains its generator
+# adversarially (_train_gan).
 TRAINED_GENERATORS = ("PnPVCVE", "IconVSR_restore_wo_refill_mv_ipb_fast_domain_dynamic_with_par")
 
 
@@ -198,13 +215,17 @@ def _train(args, device):
         cfg.work_dir = args.work_dir
     total_iters = args.total_iters or cfg.total_iters
 
-    if cfg.model.get("type") in UNPORTED_TYPES or cfg.model.get("discriminator") is not None:
+    if cfg.model.get("type") in UNPORTED_TYPES:
         raise NotImplementedError(
-            f"training {cfg.model.get('type')!r} (GAN, CycleGAN, inpainting, matting, DIC) "
+            f"training {cfg.model.get('type')!r} (CycleGAN, inpainting, matting, DIC) "
             "is not ported yet (ROADMAP Queue A item 8)"
         )
+    gan = cfg.model.get("discriminator") is not None
+    if gan and world > 1:
+        raise NotImplementedError("adversarial training over several ranks is not ported yet "
+                                  "(ROADMAP Queue A item 6)")
     gen_type = dict(cfg.model.get("generator") or {}).get("type")
-    if gen_type not in TRAINED_GENERATORS:
+    if not gan and gen_type not in TRAINED_GENERATORS:
         raise NotImplementedError(f"training the baseline {gen_type!r} is not ported yet "
                                   "(ROADMAP Queue A item 8)")
 
@@ -240,56 +261,66 @@ def _train(args, device):
     if world > 1:
         broadcast_module(model)
 
-    tr_cfg = cfg.get("train_cfg", {}) or {}
-    # fix_iter freezes SPyNet/EDVR-style submodules for the warm-up
-    # (reference basicvsr.py:95-103); the flagship has none of them
-    fix_iter = tr_cfg.get("fix_iter", tr_cfg.get("fix_spynet_iter", 0)) or 0
-    freeze_prefixes = tuple(tr_cfg.get("freeze_prefixes", ("spynet", "edvr")))
-    train_step = make_train_step(model, restorer.loss_fn(), fix_iter=fix_iter,
-                                 freeze_prefixes=freeze_prefixes, world=world,
-                                 time_reduce=args.time_allreduce and rank == 0)
+    ckpt_cfg = cfg.get("checkpoint_config", {}) or {}
+    save_optimizer = bool(ckpt_cfg.get("save_optimizer", True))
+    if gan:
+        def run(loader, writer):
+            _train_gan(cfg, state, loader, total_iters, args.seed, device, ckpt, log, writer,
+                       save_optimizer)
+    else:
+        tr_cfg = cfg.get("train_cfg", {}) or {}
+        # fix_iter freezes SPyNet/EDVR-style submodules for the warm-up
+        # (reference basicvsr.py:95-103); the flagship has none of them
+        fix_iter = tr_cfg.get("fix_iter", tr_cfg.get("fix_spynet_iter", 0)) or 0
+        freeze_prefixes = tuple(tr_cfg.get("freeze_prefixes", ("spynet", "edvr")))
+        train_step = make_train_step(model, restorer.loss_fn(), fix_iter=fix_iter,
+                                     freeze_prefixes=freeze_prefixes, world=world,
+                                     time_reduce=args.time_allreduce and rank == 0)
 
-    # periodic validation (reference DistEvalIterHook): every rank evaluates
-    # its share of the clips; the dataset is built at the first evaluation
-    eval_cfg = cfg.get("evaluation", {}) or {}
-    eval_interval = int(eval_cfg.get("interval", 0) or 0)
-    val_cfg = cfg.data.get("val")
-    val_dataset = []
+        # periodic validation (reference DistEvalIterHook): every rank
+        # evaluates its share of the clips; the dataset is built at the first
+        # evaluation
+        eval_cfg = cfg.get("evaluation", {}) or {}
+        eval_interval = int(eval_cfg.get("interval", 0) or 0)
+        val_cfg = cfg.data.get("val")
+        val_dataset = []
 
-    def eval_fn(_model):
-        if not val_dataset:
-            val_dataset.append(build_dataset(dict(val_cfg)))
-        save = bool(eval_cfg.get("save_image", False))
-        return evaluate_dataset(
-            restorer, val_dataset[0],
-            save_path=os.path.join(cfg.work_dir, "val") if save else None,
-            save_image=save, chunk_t=eval_cfg.get("chunk_t"), verbose=False,
-            distributed=world > 1,
-        )
+        def eval_fn(_model):
+            if not val_dataset:
+                val_dataset.append(build_dataset(dict(val_cfg)))
+            save = bool(eval_cfg.get("save_image", False))
+            return evaluate_dataset(
+                restorer, val_dataset[0],
+                save_path=os.path.join(cfg.work_dir, "val") if save else None,
+                save_image=save, chunk_t=eval_cfg.get("chunk_t"), verbose=False,
+                distributed=world > 1,
+            )
+
+        def run(loader, writer):
+            train_loop(
+                state,
+                train_step,
+                loader,
+                total_iters=total_iters,
+                log_interval=cfg.get("log_config", {}).get("interval", 100),
+                checkpoint_interval=ckpt_cfg.get("interval", 2000),
+                eval_interval=eval_interval if val_cfg is not None else 0,
+                eval_fn=eval_fn,
+                ckpt_manager=ckpt,
+                logger=log,
+                start_iter=state.step,
+                save_optimizer=save_optimizer,
+                metrics_writer=writer,
+                visual_fn=_visual_fn(cfg, model) if rank == 0 else None,
+            )
 
     loader = PrefetchLoader(source, batch_size=samples_per_gpu, seed=args.seed,
                             num_threads=cfg.data.get("workers_per_gpu", 6), device=device,
                             start_step=state.step, rank=rank, world=world)
-    ckpt_cfg = cfg.get("checkpoint_config", {}) or {}
     writer = JsonScalarWriter(os.path.join(cfg.work_dir, "scalars.json"),
                               TensorboardWriter(os.path.join(cfg.work_dir, "tb")))
     try:
-        train_loop(
-            state,
-            train_step,
-            loader,
-            total_iters=total_iters,
-            log_interval=cfg.get("log_config", {}).get("interval", 100),
-            checkpoint_interval=ckpt_cfg.get("interval", 2000),
-            eval_interval=eval_interval if val_cfg is not None else 0,
-            eval_fn=eval_fn,
-            ckpt_manager=ckpt,
-            logger=log,
-            start_iter=state.step,
-            save_optimizer=bool(ckpt_cfg.get("save_optimizer", True)),
-            metrics_writer=writer,
-            visual_fn=_visual_fn(cfg, model) if rank == 0 else None,
-        )
+        run(loader, writer)
     finally:
         loader.stop()
         writer.close()
@@ -301,6 +332,85 @@ def _train(args, device):
     else:
         log("kernel launches: " + json.dumps(launches))
     return state
+
+
+def _perceptual_loss(pcfg, device, log):
+    """The config's VGG perceptual loss, or None where its torchvision
+    weights are not on disk (tools/train.py:80-109)."""
+    if pcfg is None:
+        return None
+    import torch
+
+    from pnp_vcve_torch.models.vgg import VGGFeatures, load_torchvision_vgg
+    from pnp_vcve_torch.train.losses import make_perceptual_loss
+
+    pretrained = pcfg.get("pretrained")
+    if not (pretrained and os.path.exists(str(pretrained))):
+        log(f"[gan] perceptual_loss configured but pretrained VGG not found at {pretrained!r}; "
+            "SKIPPING the perceptual term")
+        return None
+    sd = torch.load(pretrained, map_location="cpu", weights_only=True)
+    vgg = load_torchvision_vgg(VGGFeatures(pcfg.get("vgg_type", "vgg19")),
+                               sd.get("state_dict", sd)).to(device)
+    return make_perceptual_loss(
+        vgg, dict(pcfg.get("layer_weights", {"34": 1.0})),
+        perceptual_weight=pcfg.get("perceptual_weight", 1.0),
+        style_weight=pcfg.get("style_weight", 0.0), norm_img=pcfg.get("norm_img", False),
+        criterion=pcfg.get("criterion", "l1"))
+
+
+def _train_gan(cfg, g_state, loader, total_iters, seed, device, ckpt, log, writer,
+               save_optimizer):
+    """The adversarial loop (tools/train.py:45-170): the discriminator at
+    ``seed + 1`` with its own Adam, one ``make_gan_train_step`` an
+    iteration on the window's centre frame."""
+    import time
+
+    import torch
+
+    from pnp_vcve_torch.core.builder import build_discriminator, build_optimizer
+    from pnp_vcve_torch.train.gan import make_gan_train_step
+    from pnp_vcve_torch.train.state import TrainState, state_payload
+
+    mdl = cfg.model
+    disc = build_discriminator(dict(mdl["discriminator"]), device=device, seed=seed + 1)
+    opt_cfgs = cfg.get("optimizers", {}) or {}
+    d_opt, d_sched = build_optimizer(
+        {"generator": opt_cfgs.get("discriminator", opt_cfgs.get("generator"))}, disc,
+        cfg.get("lr_config"), total_iters)
+    d_state = TrainState(step=0, model=disc, optimizer=d_opt, scheduler=d_sched)
+    step_fn = make_gan_train_step(
+        g_state.model, disc, gan_type=mdl.get("gan_type", "lsgan"),
+        pixel_weight=mdl.get("pixel_weight", 1.0), gan_weight=mdl.get("gan_weight", 0.01),
+        fm_weight=mdl.get("fm_weight", 0.0),
+        perceptual_loss=_perceptual_loss(mdl.get("perceptual_loss"), device, log))
+    log_int = cfg.get("log_config", {}).get("interval", 100)
+    ckpt_int = (cfg.get("checkpoint_config", {}) or {}).get("interval", 2000)
+    losses_g, losses_d = [], []
+    it = iter(loader)
+    t_last = time.perf_counter()
+    for step in range(g_state.step, total_iters):
+        batch = next(it)
+        t = batch["lq"].shape[1]
+        g_state, d_state, metrics = step_fn(g_state, d_state, {
+            "lq": batch["lq"], "gt": batch["gt"][:, t // 2], "base_qps": batch["base_qps"]})
+        losses_g.append(metrics["loss_g"])
+        losses_d.append(metrics["loss_d"])
+        if (step + 1) % log_int == 0:
+            lg = float(torch.stack(losses_g).mean())  # waits for the device
+            ld = float(torch.stack(losses_d).mean())
+            losses_g.clear()
+            losses_d.clear()
+            dt = time.perf_counter() - t_last
+            t_last = time.perf_counter()
+            log(f"iter {step + 1}/{total_iters} loss_g={lg:.5f} loss_d={ld:.5f} "
+                f"({log_int / dt:.2f} it/s)")
+            writer.scalars(step + 1, loss_g=lg, loss_d=ld, iters_per_sec=log_int / dt)
+        if (step + 1) % ckpt_int == 0 or step + 1 == total_iters:
+            payload = state_payload(g_state, save_optimizer)
+            payload["disc"] = state_payload(d_state, save_optimizer)
+            ckpt.save(step + 1, payload)
+    log("GAN training done")
 
 
 if __name__ == "__main__":
