@@ -245,7 +245,29 @@ Phases (any failure raises and the script exits non-zero):
    checkpoint holding ``disc``, seconds per iteration over iterations 2-4;
    then iteration 1 at b=2 on the card and on the CPU, ``loss_g`` and
    ``loss_d`` within 1e-4 relative; (e) the kernel counts unchanged across
-   (a)-(d).
+   (a)-(d);
+20. the super-resolution zoo downstream of the enhancer, float32, TF32 off,
+   mmediting's published widths (seeded; every DCN offset head non-zero):
+   (a) BasicVSR 64/30, IconVSR 64/30 (keyframe stride 5, padding 2, EDVR-M
+   inside), RealBasicVSR 64/20/20, EDVR-M (64, 5 frames, 8 groups, 5/10),
+   TDAN 64/5/10 and TOFlow, each on a small window on the card and on the
+   CPU (5 frames at 64x64, the window models' own length; max|diff| <=
+   1e-4), BasicVSR, IconVSR and RealBasicVSR also through K1 against the
+   plain warp on an 8-frame 180x320 clip (<= 3e-3) with exactly 2 (t - 1)
+   K1 launches a clip, then an 8-frame 180x320 -> 720x1280 clip (EDVR and
+   TDAN one window of it, TOFlow its 7-frame window bicubically upsampled
+   to 720x1280) once untimed, twice timed and once profiled: frames/s
+   (centre frames/s), peak memory and the device split into the DCN, the
+   convolutions, K1 and the rest, the four runs' launches gated (K1 only in
+   the recurrent three); (b) EDSR 64/16, RRDBNet 64/23/32, MSRResNet 64/16,
+   SRCNN 9-1-5 and RDN 64/16/8/64 likewise on 32x32 and one 180x320 frame;
+   (c) ``tools/torch_test.py --cascade`` from the serving config (parity
+   weights) into BasicVSR and into IconVSR on clip 000 of phase 16's
+   176x320 fixture with its x4 GT: finite metrics, the flagship's launches
+   and K1's 2 (t - 1); (d) EDVR through
+   ``apis.restoration_video_inference(window_size=5)`` on that clip's PNGs
+   and EDSR through ``apis.restoration_inference`` on its first frame, each
+   within 1e-6 of the generator on the same frames.
 
 Each phase prints its wall time.
 The line before the last is a JSON object with each kernel's launches
@@ -260,7 +282,9 @@ clips), phase 15's pipeline-driven runs (``exact_pipeline_launches``: (a),
 phase 17's ranks (``ddp_train_launches``: the two ranks' counts summed; each
 rank's equals ``train_launches``) and its KITTI CLI run (``kitti_launches``),
 phase 18's exported artifacts (``export_launches``: (a)'s window, (b)'s
-runs and (c)'s deploy-test CLI);
+runs and (c)'s deploy-test CLI), phase 20's driven runs (``sr_zoo_launches``:
+each model's four runs of (a) and (b), the two cascades of (c), the APIs
+of (d));
 the probe tools' runs of phases 12 and 13 for K6-K13),
 its error, its time beside the plain
 version's, the library call's, its yardsticks' and the bounds (K2-K5:
@@ -270,7 +294,7 @@ two-launch forms under ``two_launch``;
 K6-K13: the headline stage, every stage under ``forms``), phase 5's
 errors at the other widths, phase 14's per form, phase 16's and phase 19's gates
 (``center_frame_max_abs_err``; DCNGAN's first iteration as a relative
-difference); the last line is
+difference) and phase 20's (``sr_zoo_max_abs_err``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -3629,6 +3653,332 @@ def phase_center_frame(dev, smi):
     return errs
 
 
+# phase 20: the super-resolution zoo downstream of the enhancer at
+# mmediting's published widths (seeded; the DCN offset heads non-zero),
+# float32 with TF32 off: card against CPU on a small window, then an 8-frame
+# 180x320 -> 720x1280 clip (a 5- or 7-frame window for the window models;
+# TOFlow on the window upsampled to 720x1280, as the reference feeds it)
+# timed and profiled; the single-image models on one 180x320 frame; the
+# cascade into BasicVSR and IconVSR; EDVR and EDSR through the APIs
+ZOO_VIDEO = {  # name -> (config, frames)
+    "basicvsr": (dict(type="BasicVSRNet", mid_channels=64, num_blocks=30), 8),
+    "iconvsr": (dict(type="IconVSRNet", mid_channels=64, num_blocks=30, keyframe_stride=5,
+                     padding=2), 8),
+    "realbasicvsr": (dict(type="RealBasicVSRNet", mid_channels=64, num_propagation_blocks=20,
+                          num_cleaning_blocks=20), 8),
+    "edvr": (dict(type="EDVRNet", mid_channels=64, num_frames=5, deform_groups=8,
+                  num_blocks_extraction=5, num_blocks_reconstruction=10), 5),
+    "tdan": (dict(type="TDANNet", mid_channels=64, num_blocks_before_align=5,
+                  num_blocks_after_align=10), 5),
+    "toflow": (dict(type="TOFlow"), 7),
+}
+ZOO_SISR = {
+    "edsr": dict(type="EDSR", mid_channels=64, num_blocks=16),
+    "rrdbnet": dict(type="RRDBNet", mid_channels=64, num_blocks=23, growth_channels=32),
+    "msrresnet": dict(type="MSRResNet", mid_channels=64, num_blocks=16),
+    "srcnn": dict(type="SRCNN", channels=(3, 64, 32, 3), kernel_sizes=(9, 1, 5)),
+    "rdn": dict(type="RDN", mid_channels=64, num_blocks=16, num_layers=8, channel_growth=64),
+}
+ZOO_RECURRENT = ("basicvsr", "iconvsr", "realbasicvsr")
+ZOO_LR_HW, ZOO_SMALL_HW, ZOO_SISR_SMALL_HW, ZOO_SMALL_T = (180, 320), (64, 64), (32, 32), 5
+ZOO_TOL, ZOO_API_TOL, ZOO_OFFSET_SCALE = 1e-4, 1e-6, 0.01
+ZOO_CASCADE = ("basicvsr", "iconvsr")
+
+
+def _zoo_k1_per_clip(name, t):
+    """K1 launches of one clip of t frames: each sweep of the recurrent
+    models warps its feature from its second step."""
+    return 2 * (t - 1) if name in ZOO_RECURRENT else 0
+
+
+def _seed_dcn_offsets(model, seed):
+    """Seeded weights in every DCN's zero-initialised offset conv (EDVR's,
+    TDAN's, IconVSR's EDVR-M): offsets of about a quarter pixel."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            w = getattr(getattr(m, "conv_offset", None), "weight", None)
+            if w is not None and w.dim() == 4:
+                w.copy_(torch.randn(w.shape, generator=gen).to(w.device) * ZOO_OFFSET_SCALE)
+    return model
+
+
+def _set_ops(model, ops):
+    for m in model.modules():
+        if hasattr(m, "ops"):
+            m.ops = ops
+
+
+def _zoo_out(out):
+    """The frames of a model's output (TDAN's x4 frame of its pair)."""
+    return (out[0] if isinstance(out, tuple) else out).float()
+
+
+def _zoo_profile(model, inputs, counts_of):
+    """One profiled run: device seconds in the DCN (EDVR's, TDAN's), the
+    convolutions (cuDNN), K1 and the rest (labels mirrored on the device
+    where the profile has them). Returns the split or None."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from pnp_vcve_torch.models.baselines import edvr, tdan
+
+    sync = torch.cuda.synchronize
+    saved = (F.conv2d, edvr.modulated_deform_conv2d, tdan.modulated_deform_conv2d)
+    labels = ("zoo.model", "zoo.dcn", "zoo.conv")
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            F.conv2d = _labeled(saved[0], labels[2], sync)
+            edvr.modulated_deform_conv2d = _labeled(saved[1], labels[1], sync)
+            tdan.modulated_deform_conv2d = _labeled(saved[2], labels[1], sync)
+            with torch.inference_mode():
+                _labeled(lambda: model(inputs), labels[0], sync)()
+    finally:
+        F.conv2d, edvr.modulated_deform_conv2d, tdan.modulated_deform_conv2d = saved
+    times, by_name, mirrored = _label_times(prof, labels)
+    if not by_name:
+        return None
+    k1 = _kernel_times(by_name, counts_of(), ("warp",))["warp"]
+    total = sum(times.values())
+    return {"device_s": total, "dcn": times[labels[1]] / total,
+            "conv": times[labels[2]] / total, "k1": k1 / total,
+            "rest": (times[labels[0]] - k1) / total, "labels_on_device": mirrored}
+
+
+def _zoo_alone(dev, smi, name, cfg, t, seed):
+    """One model: card against CPU on the small window (a hard gate); for
+    BasicVSR, IconVSR and RealBasicVSR the card's kernel path against its
+    plain path on the 180x320 clip (3e-3) with K1's exact launches; then the
+    driven runs (one untimed, two timed, one profiled), their launches
+    gated. Returns (errors, the driven runs' launches)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pnp_vcve_torch.core.builder import build_generator
+    from pnp_vcve_torch.kernels import KERNELS, LAUNCHES, PLAIN, reset_launches
+    from pnp_vcve_torch.ops.resize import resize_bicubic
+
+    sisr = t == 0
+    cpu = _seed_dcn_offsets(build_generator(cfg, device="cpu", seed=seed), seed).eval()
+    card = copy.deepcopy(cpu).to(dev).eval()
+    rng = np.random.default_rng(seed)
+    if sisr:
+        small = rng.random((1, *ZOO_SISR_SMALL_HW, 3), np.float32)
+    else:
+        small = rng.random((1, t if name not in ZOO_RECURRENT else ZOO_SMALL_T,
+                            *ZOO_SMALL_HW, 3), np.float32)
+    with torch.inference_mode():
+        want = _zoo_out(cpu(torch.from_numpy(small))).numpy()
+        got = _zoo_out(card(torch.from_numpy(small).to(dev))).cpu().numpy()
+    errs = {"card_vs_cpu": float(np.abs(got - want).max())}
+    params = sum(p.numel() for p in cpu.parameters()) / 1e6
+    print(f"[zoo20] {name} ({params:.3f} M params) on {small.shape[1:-1]}: the card against "
+          f"the CPU max|diff| {errs['card_vs_cpu']:.3g} (<= {ZOO_TOL}), output {got.shape}")
+    if not np.isfinite(got).all() or errs["card_vs_cpu"] > ZOO_TOL:
+        raise AssertionError(f"phase 20 (a): {name} on the card disagrees with the CPU")
+    del cpu
+
+    lr_shape = (1, *ZOO_LR_HW, 3) if sisr else (1, t, *ZOO_LR_HW, 3)
+    big = torch.from_numpy(np.random.default_rng(seed + 1).random(lr_shape, np.float32)).to(dev)
+    if name == "toflow":  # the reference feeds TOFlow bicubically upsampled frames
+        big = resize_bicubic(big[0], (4 * ZOO_LR_HW[0], 4 * ZOO_LR_HW[1]))[None]
+    per_clip = _zoo_k1_per_clip(name, t)
+    if name in ZOO_RECURRENT:
+        with torch.inference_mode():
+            reset_launches()
+            got = card(big)
+            counts = dict(LAUNCHES)
+            _set_ops(card, PLAIN)
+            want = card(big)
+            _set_ops(card, KERNELS)
+        errs["kernel_vs_plain"] = float((got - want).abs().max())
+        expected = {k: (per_clip if k == "warp" else 0) for k in counts}
+        print(f"[zoo20] {name} {t} frames {ZOO_LR_HW[0]}x{ZOO_LR_HW[1]}: kernel path vs plain "
+              f"path max|diff| {errs['kernel_vs_plain']:.3g} (<= {TOL_MODEL}); launches "
+              f"{counts} (expected K1 {per_clip})")
+        if (not bool(torch.isfinite(got).all()) or errs["kernel_vs_plain"] > TOL_MODEL
+                or counts != expected):
+            raise AssertionError(f"phase 20 (a): {name}'s kernel path against its plain path "
+                                 "or its K1 launches")
+        del got, want
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with torch.inference_mode():
+        out = card(big)  # untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            out = card(big)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 2
+    out = _zoo_out(out)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    before = dict(LAUNCHES)
+    prof = _zoo_profile(card, big, lambda: {k: v - before[k] for k, v in LAUNCHES.items()})
+    counts = dict(LAUNCHES)
+    expected = {k: (4 * per_clip if k == "warp" else 0) for k in counts}
+    frames = 1 if sisr or name not in ZOO_RECURRENT else t
+    unit = "centre frames/s" if name in ("edvr", "tdan", "toflow") else "f/s"
+    split = ("not measured (the profiler recorded no device events)" if prof is None else
+             f"device {prof['device_s']:.4f} s: DCN {prof['dcn']:.4f}, convolutions "
+             f"{prof['conv']:.4f}, K1 {prof['k1']:.4f}, rest {prof['rest']:.4f} (labels "
+             f"{'on the device' if prof['labels_on_device'] else 'by host interval'})")
+    print(f"[zoo20] {smi}: {name} {tuple(big.shape[1:-1])} -> {tuple(out.shape[-3:-1])}: "
+          f"{frames / wall:.3f} {unit} ({wall:.4f} s a {'frame' if sisr else 'clip'}), peak "
+          f"{peak:.3f} GiB, float32; launches of the 4 driven runs {counts}; profiled run "
+          f"{split}")
+    if not bool(torch.isfinite(out).all()) or counts != expected:
+        raise AssertionError(f"phase 20 (a/b): {name}'s output is not finite or its launches "
+                             f"differ from {expected}")
+    del card, big, out
+    torch.cuda.empty_cache()
+    return errs, counts
+
+
+def phase_sr_zoo(dev, smi):
+    """Phase 20: the super-resolution zoo. (a) BasicVSR 64/30, IconVSR 64/30
+    (stride 5, padding 2, EDVR-M inside), RealBasicVSR 64/20/20, EDVR-M
+    (64, 5 frames, 8 groups, 5/10), TDAN 64/5/10 and TOFlow built through the
+    builder (seeded; DCN offset heads non-zero): card vs CPU on a small
+    window (5 frames at 64x64, the window models' own length), the
+    recurrent models' kernel path vs plain path at 180x320 with K1's exact
+    launches, then an 8-frame 180x320 clip (the window models one window)
+    timed and profiled; (b) EDSR 64/16, RRDBNet 64/23/32, MSRResNet 64/16,
+    SRCNN 9-1-5 and RDN 64/16/8/64 likewise (32x32, then one 180x320 frame);
+    (c) tools/torch_test.py --cascade from the serving config (parity
+    weights) into BasicVSR and IconVSR on clip 000 of phase 16's 176x320
+    fixture with its x4 GT: finite metrics, the flagship's and K1's
+    launches; (d) EDVR through apis.restoration_video_inference(
+    window_size=5) on that clip's PNGs and EDSR through
+    apis.restoration_inference on its first frame, each equal to the
+    generator on the same frames. Float32, TF32 off. Returns (the driven
+    runs' launches, the gates' errors)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from pnp_vcve_torch import apis
+    from pnp_vcve_torch.core.builder import build_generator
+    from pnp_vcve_torch.core.config import Config
+    from pnp_vcve_torch.kernels import LAUNCHES, reset_launches
+
+    sys.path[:0] = [str(ROOT / "tools"), str(ROOT / "tools" / "data")]
+    import torch_test
+    from make_protocol_fixture import REDS4_CLIPS, write_fixture
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = ROOT / "build" / "chip_smoke" / "zoo"
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    total = dict.fromkeys(LAUNCHES, 0)
+    errs = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # (a) and (b): each model alone
+    models = [(n, c, t) for n, (c, t) in ZOO_VIDEO.items()] + [(n, c, 0)
+                                                                for n, c in ZOO_SISR.items()]
+    for i, (name, cfg, t) in enumerate(models):
+        errs[name], counts = _zoo_alone(dev, smi, name, cfg, t, SEED + 200 + i)
+        add(counts)
+
+    # (c) the cascade into BasicVSR and IconVSR on phase 16's clip 000
+    h, w = CASCADE_HW
+    t = FRAMES
+    data = work / "data"
+    write_fixture(data, clips=REDS4_CLIPS[:1], frames=t, height=h, width=w, crf=15,
+                  seed=SEED + 16, quiet=True)
+    for f in sorted((data / "sharp" / "png").glob("*/*.png")):
+        out = data / "x4" / "png" / f.parent.name / f.name
+        out.parent.mkdir(parents=True, exist_ok=True)
+        Image.open(f).resize((4 * w, 4 * h), Image.BICUBIC).save(out)
+    cfg = _fixture_cfg(work / "serving.py", CONFIGS / "HR_davis_LR_128x128_serving.py", data,
+                       "x4/png", t)
+    parity = str(ROOT / "tests/fixtures/parity/state_dict.npz")
+    nb = Config.fromfile(cfg).model["generator"]["num_blocks"]
+    for i, name in enumerate(ZOO_CASCADE):
+        gen_cfg = ZOO_VIDEO[name][0]
+        vsr_cfg = work / f"{name}.py"
+        vsr_cfg.write_text(f"model = dict(type='BasicVSR', generator={gen_cfg!r})\n"
+                           "test_cfg = dict(metrics=['PSNR', 'SSIM'], crop_border=0)\n")
+        ckpt = work / f"{name}.pth"
+        torch.save(_seed_dcn_offsets(build_generator(gen_cfg, device="cpu", seed=SEED + 220 + i),
+                                     SEED + 220 + i).state_dict(), ckpt)
+        expected = _launches_per_pass(t, nb, "pf")
+        expected["warp"] = _zoo_k1_per_clip(name, t)
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = torch_test.main([str(cfg), parity, "--device", dev.type, "--cascade",
+                                   "--cascade_config", str(vsr_cfg), "--cascade_ckpt",
+                                   str(ckpt)])
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        add(counts)
+        print(f"[zoo20] (c) {smi}: tools/torch_test.py --cascade into {name} on {t} frames of "
+              f"{h}x{w} -> {4 * h}x{4 * w}: {metrics} against the x4 GT, {wall:.2f} s with "
+              f"loading and host metrics; launches {counts} (expected {expected})")
+        if (counts != expected or set(metrics) != {"PSNR", "SSIM"}
+                or not all(np.isfinite(v) for v in metrics.values())):
+            raise AssertionError(f"phase 20 (c): the cascade into {name}: launches or metrics")
+
+    # (d) the APIs on the clip's PNGs: EDVR's sliding window, EDSR on one frame
+    clip = data / "crf15" / "png" / REDS4_CLIPS[0]
+    model = apis.init_model(dict(model=dict(type="BasicVSR", generator=ZOO_VIDEO["edvr"][0])),
+                            device=dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = apis.restoration_video_inference(model, str(clip), window_size=5)
+    wall = time.perf_counter() - t0
+    lq = apis._read_frame_dir(str(clip), "{:08d}.png", 0)
+    padded = np.concatenate([lq[1:3][::-1], lq, lq[-3:-1][::-1]])
+    err = 0.0
+    with torch.inference_mode():
+        for i in range(lq.shape[0]):
+            win = torch.from_numpy(np.ascontiguousarray(padded[None, i:i + 5])).to(dev)
+            err = max(err, float(np.abs(out[i] - model.generator(win)[0].cpu().numpy()).max()))
+    errs["edvr_video_api"] = err
+    print(f"[zoo20] (d) {smi}: apis.restoration_video_inference(window_size=5), EDVR-M "
+          f"(init_model's seed-0 weights) on {lq.shape[0]} frames of {h}x{w}: "
+          f"{lq.shape[0] / wall:.3f} f/s ({wall:.3f} s with PNG loading); each frame against "
+          f"the generator on its padded window max|diff| {err:.3g} (<= {ZOO_API_TOL})")
+    if out.shape != (t, 4 * h, 4 * w, 3) or not np.isfinite(out).all() or err > ZOO_API_TOL:
+        raise AssertionError("phase 20 (d): EDVR's sliding window disagrees with the generator")
+    model = apis.init_model(dict(model=dict(type="BasicRestorer", generator=ZOO_SISR["edsr"])),
+                            device=dev)
+    png = clip / "00000000.png"
+    t0 = time.perf_counter()
+    out = apis.restoration_inference(model, str(png))
+    wall = time.perf_counter() - t0
+    with torch.inference_mode():
+        ref = model.generator(torch.from_numpy(lq[None, 0]).to(dev))[0].clamp(0, 1)
+    errs["edsr_image_api"] = float(np.abs(out - ref.cpu().numpy()).max())
+    counts = dict(LAUNCHES)
+    add(counts)
+    print(f"[zoo20] (d) apis.restoration_inference, EDSR (init_model's seed-0 weights) on one "
+          f"{h}x{w} PNG: {wall:.4f} s with PNG loading; against the generator on the same "
+          f"frame max|diff| {errs['edsr_image_api']:.3g} (<= {ZOO_API_TOL}); launches {counts}")
+    if (out.shape != (4 * h, 4 * w, 3) or errs["edsr_image_api"] > ZOO_API_TOL
+            or any(counts.values())):
+        raise AssertionError("phase 20 (d): EDSR's image API disagrees with the generator")
+    print(f"[zoo20] the driven runs' launches: {total}")
+    shutil.rmtree(work)
+    return total, errs
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     # deterministic cuBLAS for the resume check of phase 7; read when cuBLAS
@@ -3665,6 +4015,7 @@ def main():
                                      dev, smi)
     export_counts = phase("18 export and deployment", phase_export, dev, smi)
     center_errs = phase("19 centre-frame baselines", phase_center_frame, dev, smi)
+    zoo_counts, zoo_errs = phase("20 SR zoo", phase_sr_zoo, dev, smi)
     # K6 runs in both probe phases: one row, the forms and counts of both
     k6 = b10b_rows.pop("window_copy")
     probe_rows["window_copy"]["forms"] += k6["forms"]
@@ -3679,7 +4030,7 @@ def main():
              "block_forms_launches": forms_counts, "model_forms_launches": forms14_counts,
              "exact_pipeline_launches": exact_counts, "cascade_launches": cascade_counts,
              "ddp_train_launches": ddp_counts, "kitti_launches": kitti_counts,
-             "export_launches": export_counts}
+             "export_launches": export_counts, "sr_zoo_launches": zoo_counts}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
@@ -3691,7 +4042,8 @@ def main():
          **probe_rows[name]}
         for name, (src, rep, also) in PROBE_INFO.items()
     ], "model_widths_max_abs_err": model_widths, "model_forms_max_abs_err": forms14_errs,
-        "baselines_max_abs_err": baseline_errs, "center_frame_max_abs_err": center_errs}))
+        "baselines_max_abs_err": baseline_errs, "center_frame_max_abs_err": center_errs,
+        "sr_zoo_max_abs_err": zoo_errs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

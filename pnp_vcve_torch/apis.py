@@ -11,20 +11,27 @@
   MV records rasterized by ``data.mv_raster.rasterize_clip``, QP and slice
   types from ``data.qp_slice.QpSliceLookup``; ``max_seq_len`` runs the
   clip as independent windows (``train.eval.enhance_clip``). An
-  image-input model (the centre-frame baselines, vanilla BasicVSR++) runs
-  JAX's branch (:472-505): a reflect-padded sliding window with
-  ``window_size > 0``, else the whole clip or ``max_seq_len`` pieces.
-- :func:`restoration_inference` enhances one image as a clip of one frame
-  with neutral priors (zero MVs, an I slice, mid QP): the serving handler's
-  contract (tools/torch_serving_handler.py).
+  image-input model (the centre-frame baselines, vanilla BasicVSR++, the
+  SR zoo: BasicVSR, IconVSR, RealBasicVSR, EDVR, TOFlow) runs JAX's branch
+  (:472-505): a reflect-padded sliding window with ``window_size > 0``,
+  else the whole clip or ``max_seq_len`` pieces. A model that returns a
+  pair (TDAN's ``(hr, aligned_lrs)``) is refused with a message: JAX's
+  branch fails on it too.
+- :func:`restoration_inference` restores one image: a single-image SR
+  model (EDSR, RRDBNet, MSRResNet, SRCNN, RDN) on the ``(1, h, w, 3)``
+  image, as JAX's function does (:313-339); PnP-VCVE as a clip of one frame
+  with neutral priors (zero MVs, an I slice, mid QP), the serving handler's
+  contract (tools/torch_serving_handler.py; in the JAX package its
+  handler, tools/deployment/serving_handler.py:93-106, not its
+  ``restoration_inference``).
 - :func:`init_random_seed`, :func:`set_random_seed`.
 - :func:`single_gpu_test`, :func:`multi_gpu_test`: the dataset test loops
   (JAX apis.py:675-689; reference apis/test.py), thin aliases of
   ``train.eval.evaluate_dataset``.
 
 The other kinds of the JAX module (inpainting, matting, generation, face
-and interpolation helpers, single-image and reference-based restoration)
-are ROADMAP Queue A item 8: their models are not ported.
+and interpolation helpers, reference-based restoration) are ROADMAP Queue
+A item 8: their models are not ported.
 """
 
 from __future__ import annotations
@@ -179,16 +186,23 @@ def _read_frame_dir(img_dir: str, filename_tmpl: str, start_idx: int) -> np.ndar
     return np.stack([_load_image(p) for p in paths])
 
 
-def _pnp_generator(model: InferenceModel):
+def _single_image_kind(model: InferenceModel) -> str:
+    """``'pnp'`` (the t=1 clip with neutral priors) or ``'sisr'`` (the
+    generator on the image); any other generator takes a clip, on which
+    JAX's ``restoration_inference`` fails too."""
+    from pnp_vcve_torch.models.baselines import sisr
     from pnp_vcve_torch.models.pnp_vcve import PnPVCVE
 
     gen = model.generator
-    if not isinstance(gen, PnPVCVE):
-        raise NotImplementedError(
-            f"{type(gen).__name__}: single-image restoration serves PnP-VCVE only; the SISR "
-            "models are not ported to the PyTorch port yet (ROADMAP Queue A item 8)"
-        )
-    return gen
+    if isinstance(gen, PnPVCVE):
+        return "pnp"
+    if isinstance(gen, (sisr.EDSR, sisr.RRDBNet, sisr.MSRResNet, sisr.SRCNN, sisr.RDN)):
+        return "sisr"
+    raise ValueError(
+        f"restoration_inference: {type(gen).__name__} takes a clip, not one image; use "
+        "restoration_video_inference (single-image models: EDSR, RRDBNet, MSRResNet, SRCNN, "
+        "RDN, and PnP-VCVE)"
+    )
 
 
 # ---- inference ------------------------------------------------------------------------
@@ -241,7 +255,13 @@ def _image_input_video(model: InferenceModel, lq: np.ndarray, window_size: int,
     def fwd(frames):  # (k, h, w, 3) -> the model's output for one clip
         x = torch.as_tensor(np.ascontiguousarray(frames[None]), device=model.device)
         with torch.inference_mode():
-            return gen(x)[0].float().cpu().numpy()
+            out = gen(x)
+        if isinstance(out, (tuple, list)):
+            raise ValueError(
+                f"restoration_video_inference: {type(gen).__name__} returns {len(out)} outputs "
+                "(TDAN: the HR frame and the aligned LR frames); this function takes a model "
+                "that returns frames, as JAX's does")
+        return out[0].float().cpu().numpy()
 
     t = lq.shape[0]
     if window_size > 0:
@@ -296,17 +316,29 @@ def _pnp_video(gen, lq, img_dir, start_idx, filename_tmpl, max_seq_len, mv_dir, 
 
 
 def restoration_inference(model: InferenceModel, img, ref=None) -> np.ndarray:
-    """Enhance one image (a path or an array) -> (h, w, 3) float32 in
-    [0, 1]: a clip of one frame with neutral priors (an I slice, QP 30/51,
-    base QP 15/255, zero MVs and partitions). Reference-based restoration
-    (``ref``) is ROADMAP Queue A item 8."""
+    """Restore one image (a path or an array) -> (H, W, 3) float32 in [0, 1].
+
+    A single-image SR model runs on the ``(1, h, w, 3)`` image (its last
+    output when it returns several), as JAX's ``restoration_inference``
+    (:330-338). PnP-VCVE runs it as a clip of one frame with neutral priors
+    (an I slice, QP 30/51, base QP 15/255, zero MVs and partitions), the
+    serving handler's contract. Any other generator is refused with a
+    message, as JAX fails on it. Reference-based restoration (``ref``) is
+    ROADMAP Queue A item 8."""
     from pnp_vcve_torch.train.train_step import make_eval_step
 
     if ref is not None:
         raise NotImplementedError("reference-based restoration is not ported to the PyTorch "
                                   "port yet (ROADMAP Queue A item 8)")
-    gen = _pnp_generator(model)
+    kind = _single_image_kind(model)
+    gen = model.generator
     lq = _load_image(img)
+    if kind == "sisr":
+        x = torch.as_tensor(np.ascontiguousarray(lq[None]), device=model.device)
+        with torch.inference_mode():
+            out = gen(x)
+        out = out[-1] if isinstance(out, (list, tuple)) else out
+        return np.clip(out[0].float().cpu().numpy(), 0.0, 1.0).astype(np.float32)
     h, w, _ = lq.shape
     batch = dict(
         lq=lq[None, None],

@@ -2,7 +2,9 @@
 pnp_vcve_tpu/core/builder.py that the flagship enhancement and training
 paths and the eval entry point's modes use: the generator :33-100, the
 baselines STDF, MFQEv2, the BasicVSR++ family, DCNGAN and SIDECVSR
-:102-179 and MW-GAN :460-467, the discriminators :470-483 and :564, the
+:102-179, MW-GAN :460-467 and the super-resolution zoo :182-283 and
+:620-627 (BasicVSR, IconVSR, TDAN, the SISR models, TOFlow, RealBasicVSR,
+EDVR), the discriminators :470-483 and :564, the
 restorers :568-600, the train datasets :660-750, :905-1062 and :1195-1208,
 the eval datasets :1064-1192, the optimizer :1211-1261).
 
@@ -228,6 +230,86 @@ def _build_bvpp_pqf_v2_withb(**kwargs):
                     aliases=("BasicVSRPlusPlus_PQF_v2_onlyB_skip",))
 def _build_bvpp_pqf_v2_onlyb(**kwargs):
     return _build_bvpp_pqf(**{**kwargs, "variant": "v2_onlyB_skip"})
+
+
+# ---- the super-resolution zoo (JAX builder :182-283, :620-627) ----------------------
+
+
+def _zoo(cls_name: str, keys, kwargs, device, seed):
+    """``cls_name`` of models/baselines built with JAX's accepted keys."""
+    from pnp_vcve_torch.models import baselines
+
+    with torch.device("meta"):
+        model = getattr(baselines, cls_name)(**_known(kwargs, keys))
+    return _seeded(model, device, seed)
+
+
+@BACKBONES.register(name="BasicVSRNet")
+def _build_basicvsr(*, device, seed: int = 0, **kwargs):
+    return _zoo("BasicVSRNet", ("mid_channels", "num_blocks"), kwargs, device, seed)
+
+
+@BACKBONES.register(name="IconVSRNet", aliases=("IconVSR",))
+def _build_iconvsr(*, device, seed: int = 0, **kwargs):
+    return _zoo("IconVSRNet", ("mid_channels", "num_blocks", "keyframe_stride", "padding"),
+                kwargs, device, seed)
+
+
+@BACKBONES.register(name="EDVRNet")
+def _build_edvr(*, device, seed: int = 0, **kwargs):
+    return _zoo("EDVRNet", ("mid_channels", "num_frames", "deform_groups",
+                            "num_blocks_extraction", "num_blocks_reconstruction"),
+                kwargs, device, seed)
+
+
+@BACKBONES.register(name="TDANNet")
+def _build_tdan(*, device, seed: int = 0, **kwargs):
+    return _zoo("TDANNet", ("in_channels", "mid_channels", "out_channels",
+                            "num_blocks_before_align", "num_blocks_after_align"),
+                kwargs, device, seed)
+
+
+@BACKBONES.register(name="TOFlow", aliases=("TOF",))
+def _build_toflow(*, device, seed: int = 0, **kwargs):
+    return _zoo("TOFlow", ("adapt_official_weights",), kwargs, device, seed)
+
+
+@BACKBONES.register(name="RealBasicVSRNet")
+def _build_real_basicvsr(*, device, seed: int = 0, **kwargs):
+    return _zoo("RealBasicVSRNet", ("mid_channels", "num_propagation_blocks",
+                                    "num_cleaning_blocks", "dynamic_refine_thres",
+                                    "is_fix_cleaning", "is_sequential_cleaning"),
+                kwargs, device, seed)
+
+
+@BACKBONES.register(name="EDSR")
+def _build_edsr(*, device, seed: int = 0, **kwargs):
+    return _zoo("EDSR", ("in_channels", "out_channels", "mid_channels", "num_blocks",
+                         "upscale_factor", "res_scale", "rgb_mean", "rgb_std"),
+                kwargs, device, seed)
+
+
+@BACKBONES.register(name="RRDBNet", aliases=("RRDBNetESRGAN",))
+def _build_rrdb(*, device, seed: int = 0, **kwargs):
+    return _zoo("RRDBNet", ("in_channels", "out_channels", "mid_channels", "num_blocks",
+                            "growth_channels", "upscale_factor"), kwargs, device, seed)
+
+
+@BACKBONES.register(name="MSRResNet", aliases=("ModifiedSRResNet",))
+def _build_msrresnet(*, device, seed: int = 0, **kwargs):
+    return _zoo("MSRResNet", ("in_channels", "out_channels", "mid_channels", "num_blocks",
+                              "upscale_factor"), kwargs, device, seed)
+
+
+@BACKBONES.register(name="SRCNN")
+def _build_srcnn(*, device, seed: int = 0, **kwargs):
+    return _zoo("SRCNN", ("channels", "kernel_sizes", "upscale_factor"), kwargs, device, seed)
+
+
+@BACKBONES.register(name="RDN")
+def _build_rdn(*, device, seed: int = 0, **kwargs):
+    return _zoo("RDN", ("in_channels", "out_channels", "mid_channels", "num_blocks",
+                        "num_layers", "channel_growth", "upscale_factor"), kwargs, device, seed)
 
 
 def build_generator(cfg: dict, *, device, seed: int = 0):

@@ -30,6 +30,20 @@ discriminator), MW-GAN and SIDECVSR follow the JAX tree in PyTorch's forms
 path becomes a dotted name, a conv's HWIO ``kernel`` (or a PAC's
 ``weight``) an OIHW ``weight``, a Dense ``kernel`` a Linear ``weight``;
 ``bias`` and the batch-statistics norms' ``scale`` stay as they are.
+
+The super-resolution zoo follows the JAX tree the same way
+(:func:`basicvsr_state_dict`, :func:`iconvsr_state_dict`,
+:func:`edvr_state_dict`, :func:`tdan_state_dict`, :func:`toflow_state_dict`,
+:func:`realbasicvsr_state_dict`, :func:`sisr_state_dict`), with three
+conventions: a ``ResidualBlocksWithInputConv`` subtree (``input_conv``,
+``block{i}_conv{1,2}``) becomes the reference's ``main.{0, 2.<i>.conv{1,2}}``;
+a ``spynet`` subtree the reference's SPyNet names; a module's own
+``upsample{i}_kernel`` / ``_bias`` a ``PixelShufflePack``'s
+``upsample{i}.upsample_conv.*``. Each sweep's scan level is collapsed
+(``backward_resblocks/resblocks`` -> ``backward_resblocks``; IconVSR's
+``backward/{fusion, resblocks}`` -> ``backward_{fusion, resblocks}``). No
+reference state dict of these models, nor a converter from one, is in the
+repository.
 """
 
 from __future__ import annotations
@@ -43,6 +57,8 @@ __all__ = [
     "from_jax_params", "block_state_dict", "aligner_state_dict", "shared_aligner_to_sweeps",
     "spynet_state_dict", "bvpp_state_dict", "mfqev2_state_dict", "stdf_state_dict",
     "dcngan_state_dict", "dcngan_disc_state_dict", "mwgan_state_dict", "sidecvsr_state_dict",
+    "basicvsr_state_dict", "iconvsr_state_dict", "edvr_state_dict", "tdan_state_dict",
+    "toflow_state_dict", "realbasicvsr_state_dict", "sisr_state_dict",
 ]
 
 
@@ -318,3 +334,69 @@ def mwgan_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
 def sidecvsr_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX ``SIDECVSR`` params -> the port's state dict."""
     return _tree_state_dict(params)
+
+
+def _zoo_tree(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A flax param tree of the SR zoo -> dotted names (the module
+    docstring's conventions on top of :func:`_tree_state_dict`'s)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, v in tree.items():
+        if name == "spynet":
+            sd.update(spynet_state_dict(v, f"{prefix}spynet."))
+        elif isinstance(v, Mapping) and "input_conv" in v:
+            _res_blocks(sd, f"{prefix}{name}", v)
+        elif isinstance(v, Mapping):
+            sd.update(_zoo_tree(v, f"{prefix}{name}."))
+        elif name.endswith("_kernel"):
+            sd[f"{prefix}{name[:-len('_kernel')]}.upsample_conv.weight"] = _oihw(v)
+        elif name.endswith("_bias"):
+            sd[f"{prefix}{name[:-len('_bias')]}.upsample_conv.bias"] = _t(v)
+        else:
+            sd.update(_tree_state_dict({name: v}, prefix))
+    return sd
+
+
+def basicvsr_state_dict(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``BasicVSRNet`` params -> the port's state dict."""
+    tree = dict(params)
+    for side in ("backward", "forward"):
+        tree[f"{side}_resblocks"] = params[f"{side}_resblocks"]["resblocks"]
+    return _zoo_tree(tree, prefix)
+
+
+def iconvsr_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``IconVSRNet`` params -> the port's state dict."""
+    tree = {k: v for k, v in params.items() if k not in ("backward", "forward")}
+    for side in ("backward", "forward"):
+        tree[f"{side}_fusion"] = params[side]["fusion"]
+        tree[f"{side}_resblocks"] = params[side]["resblocks"]
+    return _zoo_tree(tree)
+
+
+def edvr_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``EDVRNet`` (or ``EDVRFeatureExtractor``) params -> the port's
+    state dict."""
+    return _zoo_tree(params)
+
+
+def tdan_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``TDANNet`` params -> the port's state dict."""
+    return _zoo_tree(params)
+
+
+def toflow_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``TOFlow`` params -> the port's state dict."""
+    return _zoo_tree(params)
+
+
+def realbasicvsr_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``RealBasicVSRNet`` params -> the port's state dict."""
+    sd = _zoo_tree({k: v for k, v in params.items() if k != "basicvsr"})
+    sd.update(basicvsr_state_dict(params["basicvsr"], "basicvsr."))
+    return sd
+
+
+def sisr_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``EDSR``, ``RRDBNet``, ``MSRResNet``, ``SRCNN`` or ``RDN`` params ->
+    the port's state dict."""
+    return _zoo_tree(params)

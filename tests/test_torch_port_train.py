@@ -318,10 +318,12 @@ def test_port_and_clis_import_no_jax(fixture_root, tmp_path):
     handler, the protocol tool's exact leg, the five probe tools (K6-K13's
     plain versions at small shapes), the five deployment tools (export
     with --verify, the deploy test of its artifact, the parity gate's asset
-    mode, publish and the FLOP count) and a centre-frame model (STDF)
-    through the video API's sliding window; neither jax nor any
-    pnp_vcve_tpu module gets imported (the centre-frame baselines, PAC,
-    the wavelets, the GAN step and VGG among the modules)."""
+    mode, publish and the FLOP count), a centre-frame model (STDF)
+    through the video API's sliding window, BasicVSR through its
+    ``max_seq_len`` pieces and EDSR through ``restoration_inference``;
+    neither jax nor any pnp_vcve_tpu module gets imported (the centre-frame
+    baselines, PAC, the wavelets, the GAN step, VGG and the SR zoo's
+    modules among the modules)."""
     cfg = _write_cli_cfg(tmp_path, fixture_root)
     ckpt = tmp_path / "w" / "ckpt" / "1.pth"
     # the cascade into a same-size BasicVSR++, the joint protocol on MFQEv2
@@ -345,7 +347,9 @@ assert {{"pnp_vcve_torch.models.baselines.basicvsr_pp", "pnp_vcve_torch.models.b
          "pnp_vcve_torch.models.baselines.stdf", "pnp_vcve_torch.models.baselines.dcngan",
          "pnp_vcve_torch.models.baselines.mwgan", "pnp_vcve_torch.models.baselines.sidecvsr",
          "pnp_vcve_torch.ops.pac", "pnp_vcve_torch.ops.wavelet", "pnp_vcve_torch.train.gan",
-         "pnp_vcve_torch.models.vgg"}} <= set(mods)
+         "pnp_vcve_torch.models.vgg", "pnp_vcve_torch.models.baselines.basicvsr",
+         "pnp_vcve_torch.models.baselines.edvr", "pnp_vcve_torch.models.baselines.tdan",
+         "pnp_vcve_torch.models.baselines.tof", "pnp_vcve_torch.models.baselines.sisr"}} <= set(mods)
 import torch_test, torch_train, torch_serving_curve, torch_pnp2servable, torch_serving_handler
 import torch_kernel_bounds, torch_protocol_eval, torch_test_kitti
 import torch_int8_probe, torch_warp_kernel_probe2, torch_warp_bisect
@@ -381,6 +385,13 @@ stdf = apis.init_model(dict(model=dict(type="STDF", generator=dict(
     device="cpu")
 assert apis.restoration_video_inference(stdf, {str(fixture_root / 'crf25' / 'png' / 'bear')!r},
                                         window_size=3).shape == (20, 32, 32, 3)
+bvsr = apis.init_model(dict(model=dict(type="BasicVSR", generator=dict(
+    type="BasicVSRNet", mid_channels=8, num_blocks=1))), device="cpu")
+assert apis.restoration_video_inference(bvsr, {str(fixture_root / 'crf25' / 'png' / 'bear')!r},
+                                        max_seq_len=10).shape == (20, 128, 128, 3)
+edsr = apis.init_model(dict(model=dict(type="BasicRestorer", generator=dict(
+    type="EDSR", mid_channels=4, num_blocks=1))), device="cpu")
+assert apis.restoration_inference(edsr, np.zeros((8, 8, 3), np.float32)).shape == (32, 32, 3)
 model = apis.init_model({str(cfg)!r}, {str(ckpt)!r}, device="cpu")
 run = serving.batched_forward_executor(model.generator)
 sample = dict(lq=np.zeros((2, 8, 8, 3), np.float32), qps=np.zeros(2, np.float32),

@@ -31,7 +31,11 @@ reduction over the ranks (gloo); rank 0 writes ``--out``.
 ``--cascade`` feeds each enhanced clip to a downstream model, built from
 ``--cascade_config`` (default: CONFIG) with the weights of
 ``--cascade_ckpt`` (default ``-``), and scores its output, for example
-vanilla BasicVSR++ at x4 against ``--testdir_gt`` pointed at the x4 frames.
+vanilla BasicVSR++, BasicVSR, IconVSR or RealBasicVSR at x4 against
+``--testdir_gt`` pointed at the x4 frames. The downstream model takes the
+whole clip and returns every frame; the window models (EDVR, TDAN, TOFlow)
+return one centre frame a window, so they do not fit the cascade, in the
+JAX package's tools/test.py as here.
 ``--joint-pqf-config`` runs the MFQE two-model joint protocol: CONFIG and
 CHECKPOINT are the non-PQF model, ``--joint-pqf-config`` and
 ``--joint-pqf-ckpt`` (default ``-``) the PQF model; PQFs are enhanced first
@@ -83,7 +87,9 @@ def parse_args(argv=None):
     p.add_argument("--joint-pqf-ckpt", default=None,
                    help="PQF model state dict (.pth/.npz) or '-' (the default) for random init")
     p.add_argument("--cascade", action="store_true",
-                   help="feed the enhanced clips to a downstream model and score its output")
+                   help="feed the enhanced clips to a downstream clip model (BasicVSR++, "
+                   "BasicVSR, IconVSR, RealBasicVSR) and score its output; the window "
+                   "models (EDVR, TDAN, TOFlow) return a centre frame and do not fit")
     p.add_argument("--cascade_config", default=None,
                    help="config of the downstream (VSR) model; default: CONFIG")
     p.add_argument("--cascade_ckpt", default=None,
