@@ -12,7 +12,11 @@ Phases (any failure raises and the script exits non-zero):
    one-launch widths of K3 and K4, and, where the toolkit has cuobjdump,
    the count of tensor-core instructions (HMMA/HGMMA) in each device
    function of the tensor-core kernels K2-K5 (a function with none, or a
-   name found nowhere, fails the run);
+   name found nowhere, fails the run); K3's and K3s's wgmma design at 64
+   channels (``drt_block_wg``) must hold HGMMA in each of its four device
+   functions and spill nothing: their registers, stack and spills are
+   printed, and a spill, or no such function in the compiler's report,
+   fails the run;
 3. each kernel against its plain PyTorch version at the main path's shapes
    (b=1, 720x1280, 64 channels), at b=4 on a smaller frame (256x448) and at
    ragged sizes (36x52; 40x56 for K1b, which needs multiples of 8), in
@@ -39,7 +43,12 @@ Phases (any failure raises and the script exits non-zero):
    one (``F.grid_sample`` for the warps, one channels-last ``F.conv2d``
    over the concatenated parts in the same type for the input conv, one
    ``F.conv2d`` with ``groups=b`` for K5), its yardsticks (K1b: K1 on the
-   same flow; K3s: K3 plus ``torch.where``) and the card's bounds for the
+   same flow; K3s: K3 plus ``torch.where``; K3 and K3s at 64 channels: the
+   mma.sync design they replaced, ``mma_sync_ms``, through the C entry
+   ``pnp_drt_block_mma_sync`` that no model path calls, held to the plain
+   version under the same bounds; each yardstick timed between the
+   kernel's two timings, kernel, yardstick, yardstick, kernel) and the
+   card's bounds for the
    work: bytes over 3.35 TB/s, and operations over 67 TFLOP/s (float32
    CUDA cores), three TF32 products each over 495 TFLOP/s (3xTF32, the
    route of the float32 K2-K5) and 989 TFLOP/s (bf16 tensor
@@ -433,12 +442,18 @@ JOINT_CROP, TOL_JOINT = 128, 1e-4
 # (K4's two-launch form: head_hidden_tc, then head_last_kernel on the CUDA
 # cores)
 TC_KERNELS = ("input_conv", "drt_block", "drt_block_select", "head", "conv3x3")
-TC_SASS_NAMES = ("input_conv_tc", "drt_block_tc", "head_tc", "head_hidden_tc", "conv3x3_tc")
+TC_SASS_NAMES = ("input_conv_tc", "drt_block_tc", "drt_block_wg", "head_tc", "head_hidden_tc",
+                 "conv3x3_tc")
+# K3 / K3s's wgmma design at 64 channels (csrc/drt_block.cu): its device
+# functions must hold HGMMA and spill nothing
+WG_SASS_NAME = "drt_block_wg"
 # each model kernel's device functions as the profiler names them (K3 and
-# K3s are one function, drt_block_tc, with other template arguments)
+# K3s are one kernel with other template arguments: drt_block_wg at 64
+# channels, drt_block_tc at the other widths)
 DEVICE_FUNCS = {
     "warp": ("pnp::warp_kernel",), "warp_block": ("pnp::warp_block_kernel",),
-    "input_conv": ("pnp::tc::input_conv_tc",), "drt_block": ("pnp::tc::drt_block_tc",),
+    "input_conv": ("pnp::tc::input_conv_tc",),
+    "drt_block": ("pnp::tc::drt_block_wg", "pnp::tc::drt_block_tc"),
     "head": ("pnp::tc::head_tc", "pnp::tc::head_hidden_tc", "pnp::tc::head_last_kernel"),
     "conv3x3": ("pnp::tc::conv3x3_tc",),
 }
@@ -468,7 +483,7 @@ def _smem(lib, name, c, dtype_code):
 
 
 def _tensor_core_sass(lib):
-    """{kernel: count of HMMA/HGMMA instructions} of the tensor-core K2-K5
+    """{device function: {"HMMA": n, "HGMMA": n}} of the tensor-core K2-K5
     kernels in the built library, from cuobjdump where the toolkit has it
     (None where it does not)."""
     from pnp_vcve_torch.kernels.build import nvcc_path
@@ -486,10 +501,40 @@ def _tensor_core_sass(lib):
             if not any(k in cur for k in TC_SASS_NAMES):
                 cur = None
             else:
-                counts.setdefault(cur, 0)
-        elif cur and ("HMMA" in line or "HGMMA" in line):
-            counts[cur] += 1
+                counts.setdefault(cur, {"HMMA": 0, "HGMMA": 0})
+        elif cur and "HGMMA" in line:
+            counts[cur]["HGMMA"] += 1
+        elif cur and "HMMA" in line:
+            counts[cur]["HMMA"] += 1
     return counts
+
+
+def _ptxas_report(log, name):
+    """{device function: {"registers": n, "stack": bytes, "spill_stores":
+    bytes, "spill_loads": bytes}} from the compiler's -v report, for the
+    entry functions whose mangled name holds ``name``."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1) if name in m.group(1) else None
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            out[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            cur = None
+    return out
 
 
 def phase_build():
@@ -516,11 +561,28 @@ def phase_build():
         print("[build] cuobjdump not found: no HMMA/HGMMA count")
     else:
         for fn, count in sass.items():
-            print(f"[build] tensor-core instructions (HMMA/HGMMA) in {fn}: {count}")
+            print(f"[build] tensor-core instructions in {fn}: HMMA {count['HMMA']}, "
+                  f"HGMMA {count['HGMMA']}")
         missing = [n for n in TC_SASS_NAMES if not any(n in fn for fn in sass)]
-        if missing or not all(sass.values()):
+        if missing or not all(sum(c.values()) for c in sass.values()):
             raise AssertionError(f"K2-K5 kernels without tensor-core instructions: {sass}; "
                                  f"no device function named {missing}")
+        no_wgmma = [fn for fn, c in sass.items() if WG_SASS_NAME in fn and not c["HGMMA"]]
+        if no_wgmma:
+            raise AssertionError(f"K3's wgmma design without HGMMA: {no_wgmma}")
+    # the wgmma design: its registers, shared memory and spills; none may spill
+    wg = _ptxas_report(lib.log, WG_SASS_NAME)
+    for fn, r in wg.items():
+        dtype = 1 if "bfloat16" in fn else 0
+        print(f"[build] {fn}: {r.get('registers')} registers at launch (setmaxnreg: consumers "
+              f"232, producer 40), {_smem(lib, 'drt_block', 64, dtype)} bytes of dynamic shared "
+              f"memory, stack {r.get('stack')} B, spill stores {r.get('spill_stores')} B, spill "
+              f"loads {r.get('spill_loads')} B")
+    spills = {fn: r for fn, r in wg.items() if r.get("spill_stores") or r.get("spill_loads")}
+    if len(wg) != 4 or spills:
+        raise AssertionError(f"K3's wgmma design: {len(wg)} device functions in the compiler's "
+                             f"report (want 4: two types, with and without the select); "
+                             f"spilling: {spills}")
 
     # the wrappers' width limits are the widest blocks the sources' formulas fit
     def fits(n, c, code=0):
@@ -571,6 +633,25 @@ def _compare(name, got, ref, dtype, bounds):
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return mx
+
+
+def _mma_sync(x, par, blk, last_key=None, is_key=None):
+    """K3 (K3s with last_key and is_key) through the mma.sync design at any
+    width, the one the wgmma design replaced at 64 channels: the yardstick
+    of phase 3. Its launches count nowhere."""
+    import torch
+
+    from pnp_vcve_torch.kernels import drt_stack as kd
+    from pnp_vcve_torch.kernels.launch import call
+
+    weights = kd.drt_block_args(x, par, *blk)
+    out = torch.empty_like(x)
+    nlk = None if last_key is None else torch.empty_like(x)
+    key = None if is_key is None else is_key.to(torch.float32, copy=True)
+    call("drt_block", "pnp_drt_block_mma_sync", x.device, int(last_key is not None),
+         0 if x.dtype == torch.float32 else 1, x, par, *weights, last_key, key, out, nlk,
+         *x.shape, counts={"drt_block": 0})
+    return out if last_key is None else (out, nlk)
 
 
 def _grid(flow, h, w, dtype):
@@ -660,11 +741,21 @@ def _cases(dev, dtype, b, h, w, gen, c=64):
     blk = (wt((b, 3, 3, c, c), 0.03 * sc), wt((b, c), 0.1),
            torch.rand((b, c), generator=gen).to(dev),
            wt((c, 3, c), 0.03 * sc), wt((3, 3, c, c), 0.03 * sc), wt((c,), 0.1))
+    # K3 and K3s at 64 channels run the wgmma design; the mma.sync design
+    # they replaced is their yardstick, held to the same plain version
+    mma_sync = {} if c != 64 else {"mma_sync_ms": lambda: _mma_sync(x, par, blk)}
+
+    def mma_sync_check():
+        _compare(f"drt_block (mma.sync yardstick) {str(dtype)[6:]} b={b} {h}x{w}",
+                 _mma_sync(x, par, blk), PLAIN.drt_block(x.float(), par.float(), *blk), dtype,
+                 BF16_BOUNDS["drt_block"])
+        return "the mma.sync yardstick agrees with the plain version"
+
     cases.append(dict(
         label="drt_block", name="drt_block", kern=lambda: KERNELS.drt_block(x, par, *blk),
         ref32=lambda: PLAIN.drt_block(x.float(), par.float(), *blk),
-        plain=lambda: PLAIN.drt_block(x, par, *blk), library=None, yardsticks={},
-        check=None, reps=5, bytes=nbytes(x, par, *blk, x)))
+        plain=lambda: PLAIN.drt_block(x, par, *blk), library=None, yardsticks=mma_sync,
+        check=mma_sync_check if c == 64 else None, reps=5, bytes=nbytes(x, par, *blk, x)))
     if c == 64:  # K3s runs at the pf path's width only
         last_key = feat(c)
         is_key = (torch.arange(b, device=dev) % 2 == 0).float()  # keyframes and not
@@ -689,7 +780,8 @@ def _cases(dev, dtype, b, h, w, gen, c=64):
             plain=lambda: PLAIN.drt_block_select(x, par, *blk, last_key, is_key),
             library=None,
             yardsticks={"k3_where_ms": lambda: torch.where(
-                is_key.reshape(-1, 1, 1, 1) > 0.5, KERNELS.drt_block(x, par, *blk), last_key)},
+                is_key.reshape(-1, 1, 1, 1) > 0.5, KERNELS.drt_block(x, par, *blk), last_key),
+                "mma_sync_ms": lambda: _mma_sync(x, par, blk, last_key, is_key)},
             check=select_check, reps=5, bytes=nbytes(x, par, *blk, last_key, is_key, x, x)))
     if (h, w) in (MAIN_HW, RAGGED_HW) and c == 64:
         # K3 called with drt_block_pallas's / drt_block_packed's argument order
@@ -748,14 +840,19 @@ def _cases(dev, dtype, b, h, w, gen, c=64):
 
 
 def _time_case(c, tag, b, h, w, width=64):
-    """Time case c in turns (plain, kernel, kernel, plain), its library call
-    and yardsticks; print the line with its bounds (float32 on the CUDA
+    """Time case c in turns (plain, kernel, its yardsticks, its yardsticks
+    again in reverse, kernel, plain) and its library call; print the line with its bounds (float32 on the CUDA
     cores, 3xTF32 and bf16 on the tensor cores, bytes) and return the row."""
     import torch_kernel_bounds as kb  # tools/, on sys.path from phase_kernels
 
-    p1, k1, k2, p2 = (_timed(f, c["reps"]) for f in (c["plain"], c["kern"], c["kern"], c["plain"]))
+    # in turns: plain, kernel, each yardstick, each yardstick again, kernel, plain
+    p1, k1 = _timed(c["plain"], c["reps"]), _timed(c["kern"], c["reps"])
+    yards = list(c["yardsticks"].items())
+    y1 = {k: _timed(f, c["reps"]) for k, f in yards}
+    y2 = {k: _timed(f, c["reps"]) for k, f in yards[::-1]}
+    k2, p2 = _timed(c["kern"], c["reps"]), _timed(c["plain"], c["reps"])
     lib = _timed(c["library"], c["reps"]) if c["library"] else None
-    yard = {k: _timed(f, c["reps"]) for k, f in c["yardsticks"].items()}
+    yard = {k: (y1[k] + y2[k]) / 2 for k, _ in yards}
     flop = kb.model_flop_per_pixel(c["label"], width) * b * h * w
     bd = kb.conv_bounds(flop, c["bytes"])
     t_bytes, t_ops, t_tf32x3, t_bf16 = bd["bytes_ms"], bd["f32_ms"], bd["tf32x3_ms"], bd["bf16_ms"]
@@ -1239,15 +1336,23 @@ def _grad_check(tag, model, gen_cfg, per_pass, seed, dev):
 
 def _train_fixture(work):
     """Phase 7's DAVIS-layout fixture under ``work/data`` (2 clips x
-    TRAIN_FRAMES frames at TRAIN_HW, CRF 15/25/35 and sharp; written where it
-    is missing) and the port's flagship training config with data.train
-    pointed at it through the DAVIS type, every other setting as published.
-    Returns the config's path."""
+    TRAIN_FRAMES frames at TRAIN_HW, CRF 15/25/35 and sharp) and the port's
+    flagship training config with data.train pointed at it through the
+    DAVIS type, every other setting as published. Returns the config's
+    path. The fixture is rewritten unless ``data/fixture.json`` records
+    these same parameters: a fixture left by a run at other sizes (a CPU
+    rehearsal shrinks TRAIN_HW) would otherwise be trained on as it is."""
+    import shutil
+
     sys.path.insert(0, str(ROOT / "tools" / "data"))
     from make_protocol_fixture import write_fixture
 
     data = work / "data"
-    if not (data / "qp.json").exists():
+    stamp = json.dumps({"clips": ["bear", "boat"], "frames": TRAIN_FRAMES, "hw": list(TRAIN_HW),
+                        "crf": [15, 25, 35], "seed": SEED})
+    if not (data / "fixture.json").exists() or (data / "fixture.json").read_text() != stamp:
+        if data.exists():
+            shutil.rmtree(data)
         t0 = time.perf_counter()
         qp = {}
         # one CRF per call; each call rewrites qp.json, so the three are merged
@@ -1256,6 +1361,7 @@ def _train_fixture(work):
                           width=TRAIN_HW[1], crf=crf, seed=SEED, quiet=True)
             qp.update(json.loads((data / "qp.json").read_text()))
         (data / "qp.json").write_text(json.dumps(qp))
+        (data / "fixture.json").write_text(stamp)
         print(f"[train] fixture: 2 clips x {TRAIN_FRAMES} frames at {TRAIN_HW[0]}x"
               f"{TRAIN_HW[1]}, CRF 15/25/35 + sharp, in {time.perf_counter() - t0:.1f} s")
     cfg_path = work / "train_davis.py"
@@ -1266,6 +1372,31 @@ def _train_fixture(work):
         f"'sharp', {str(data / 'qp.json')!r})])\n"
     )
     return cfg_path
+
+
+def _fixture_digest(data):
+    """sha256 of every file under ``data`` (relative path and bytes, sorted),
+    its first 16 hex digits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in sorted(p for p in data.rglob("*") if p.is_file()):
+        h.update(str(f.relative_to(data)).encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _backend_flags():
+    """The process-wide settings a float32 training run's numbers depend on."""
+    import torch
+
+    return {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision(),
+            "cudnn.benchmark": torch.backends.cudnn.benchmark,
+            "cudnn.deterministic": torch.backends.cudnn.deterministic,
+            "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+            "CUBLAS_WORKSPACE_CONFIG": os.environ.get("CUBLAS_WORKSPACE_CONFIG")}
 
 
 def phase_train(dev, smi):
@@ -3003,7 +3134,18 @@ def phase_ddp_train(dev, smi):
     work = ROOT / "build" / "chip_smoke" / "ddp"
     if work.exists():
         shutil.rmtree(work)
+    # what this phase's numbers depend on is pinned here, whatever ran
+    # before it in the process: the backend flags (phase 7 leaves cuDNN's
+    # TF32 on), cuBLAS's workspace (main() sets it; a script that calls
+    # this phase alone may not; the ranks inherit it) and the fixture
+    # (rewritten unless stamped with phase 7's parameters)
+    entry = _backend_flags()
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = False
+    torch.use_deterministic_algorithms(False)
     cfg_path = _train_fixture(ROOT / "build" / "chip_smoke" / "train")
+    digest = _fixture_digest(ROOT / "build" / "chip_smoke" / "train" / "data")
     cfg = Config.fromfile(cfg_path)
     gen_cfg = cfg.model["generator"]
     t = cfg.data["train"][0]["dataset"]["num_input_frames"]
@@ -3053,6 +3195,9 @@ def phase_ddp_train(dev, smi):
                     for ln in (work / tag / "scalars.json").read_text().splitlines()]
               for tag in runs}
     dloss = max((abs(a - c) for a, c in zip(losses["ranks"], losses["one"])), default=np.inf)
+    print(f"[ddp17] entry flags {entry}, pinned to {_backend_flags()}; fixture sha256 "
+          f"{digest}; first loss {losses['one'][0]!r} (one process), {losses['ranks'][0]!r} "
+          f"(ranks)")
     print(f"[ddp17] (a) {backend}; {n} ranks x {b} samples against one process x "
           f"{n * b}, {t} frames, 128x128 crops, {TRAIN_ITERS} iterations, "
           f"deterministic, TF32 off: max|dw| {diff:.4g} (<= {DDP_TOL}; largest weight "

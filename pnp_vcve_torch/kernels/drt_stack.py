@@ -22,7 +22,12 @@ over: the kernels take the NHWC tensors as they are, for any h and w and any
 width c that is a multiple of 8, in float32 or bfloat16 with float32 sums.
 K2, K3 and K4 run on the tensor cores (``csrc/tc_conv.cuh``): bfloat16
 features with bfloat16 weights, float32 features in 3xTF32
-(:func:`tf32_split`). K4's W_hr goes to the kernel as two terms in both
+(:func:`tf32_split`). K3 and K3s at 64 channels, the width of every model
+path, run the wgmma design instead (``csrc/drt_block.cu: drt_block_wg``;
+``launch.drt_block_design`` says which width takes which), whose weights
+the wrapper packs into the shared-memory image its bulk copies move
+(:func:`wg_image`) and whose persistent blocks walk 14 x 30 output tiles
+(:func:`wg_tile_walk`). K4's W_hr goes to the kernel as two terms in both
 types (:func:`bf16_split` in bfloat16), its hidden map stays float32, and
 its c -> 3 stage runs on the CUDA cores. K3 and K4 keep their hidden map on
 the chip up to ``launch.ONE_LAUNCH_WIDTH`` and run as two launches through
@@ -59,6 +64,7 @@ directly, so that ``torch.export`` puts the op in the graph.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -70,7 +76,15 @@ from pnp_vcve_torch.ops.dynamic_conv import (
     dynamic_conv2d,
     per_sample_conv,
 )
-from .launch import check_cuda_args, check_width, launch, launch_form, on_cpu, plain_grads
+from .launch import (
+    check_cuda_args,
+    check_width,
+    drt_block_design,
+    launch,
+    launch_form,
+    on_cpu,
+    plain_grads,
+)
 from .ops_registry import flop_per_pixel, register, tracks_grad
 
 __all__ = [
@@ -95,6 +109,9 @@ __all__ = [
     "drt_block_args",
     "drt_block_select_args",
     "head_args",
+    "WG_TILE",
+    "wg_image",
+    "wg_tile_walk",
 ]
 
 
@@ -326,10 +343,80 @@ def drt_block_args(x, par, w2, b2, g, pk, w1, b1, name="drt_block"):
             tc_weights(w1.reshape(9, c, c), dtype), b1.float().contiguous())
 
 
+# K3's wgmma design (launch.WG_WIDTH; csrc/drt_block.cu: drt_block_wg): its
+# output tile and stage 1's region around it, and the bytes of a weight
+# tile's row (one 128-byte swizzle row: 64 bfloat16 or 32 float32 input
+# channels, a "k-block")
+WG_TILE = (14, 30)
+WG_REGION = (16, 32)
+_WG_ROW = 128
+
+
+def wg_image(stack):
+    """The wgmma design's weights: :func:`tc_weights`' ``(NW, ..., 64, c_in)``
+    taps (``c_in`` 64) as the shared-memory image the kernel's bulk copies
+    move and its wgmma descriptors read, ``(..., KB, NW, 64, 128 bytes)``:
+    each tap split into ``KB`` k-blocks of 128 bytes of input channels (1
+    in bfloat16, 2 in float32), each k-block's ``NW`` terms (the TF32 head
+    and tail) one ring stage of ``NW`` 64-row tiles, K-major (output channel
+    n's row holds its input channels) and 128-byte swizzled: the 16-byte
+    chunk j of row n sits at chunk ``j ^ (n % 8)``. One gather through a
+    permutation cached per shape, type and device (the wrapper packs the
+    weights at every launch)."""
+    nw, *lead, n, k = stack.shape
+    per_row = _WG_ROW // stack.element_size()
+    perm = _wg_perm(tuple(stack.shape), stack.element_size(), stack.device)
+    return stack.reshape(-1)[perm].reshape(*lead, k // per_row, nw, n, per_row)
+
+
+_WG_PERMS: dict = {}
+
+
+def _wg_perm(shape, elt, device):
+    """The flat source index of each element of :func:`wg_image`'s output
+    for a ``shape`` stack of ``elt``-byte values: the image's layout
+    applied to ``arange``."""
+    key = (shape, elt, str(device))
+    if key not in _WG_PERMS:
+        nw, *_, n, k = shape
+        per_row, vec = _WG_ROW // elt, 16 // elt  # channels of a k-block, of a 16-byte chunk
+        t = torch.arange(math.prod(shape))
+        t = t.reshape(nw, -1, n, k // per_row, per_row // vec, vec)
+        rows = torch.arange(n).reshape(1, 1, n, 1, 1, 1)
+        chunks = torch.arange(per_row // vec).reshape(1, 1, 1, 1, -1, 1)
+        t = torch.gather(t, 4, (chunks ^ (rows % 8)).expand(t.shape))
+        _WG_PERMS[key] = t.permute(1, 3, 0, 2, 4, 5).reshape(-1).to(device)
+    return _WG_PERMS[key]
+
+
+def wg_tile_walk(b: int, h: int, w: int, sms: int):
+    """The wgmma design's persistent walk over ``b`` samples of ``h x w``:
+    ``(grid, [[(sample, y0, x0) of each tile block k runs] for k in
+    range(grid)])``, grid = min(tiles, sms); block k takes tiles k, k +
+    grid, ... in (sample, tile row, tile column) order, each the output
+    pixels ``[y0, y0 + 14) x [x0, x0 + 30)`` inside the image
+    (``drt_block_wg``'s loop, in the same order)."""
+    th, tw = WG_TILE
+    nty, ntx = -(-h // th), -(-w // tw)
+    tiles = [(s, ty * th, tx * tw) for s in range(b) for ty in range(nty) for tx in range(ntx)]
+    grid = min(len(tiles), sms)
+    return grid, [tiles[k::grid] for k in range(grid)]
+
+
+def _kernel_weights(x, weights):
+    """The weights as the design at x's width takes them: the wgmma
+    design's images (:func:`wg_image`) at ``launch.WG_WIDTH``, else
+    :func:`drt_block_args`' operands as they are."""
+    if drt_block_design("drt_block", x.shape[-1], x.dtype)[0] != "wgmma":
+        return weights
+    w2, b2, g, pk, w1, b1 = weights
+    return wg_image(w2), b2, g, wg_image(pk), wg_image(w1), b1
+
+
 def _drt_block_kernel(x, par, w2, b2, g, pk, w1, b1):
     """The op's CUDA implementation: the weights repacked, K3's launch (or
     its two launches, counted as one, above the one-launch width)."""
-    weights = drt_block_args(x, par, w2, b2, g, pk, w1, b1)
+    weights = _kernel_weights(x, drt_block_args(x, par, w2, b2, g, pk, w1, b1))
     check_cuda_args("drt_block", (x, par), weights)
     out = torch.empty_like(x)
     # above the one-launch width h goes through a scratch of x's type
@@ -401,7 +488,8 @@ def drt_block_select_args(x, par, w2, b2, g, pk, w1, b1, last_key, is_key):
 
 def _drt_block_select_kernel(x, par, w2, b2, g, pk, w1, b1, last_key, is_key):
     """The op's CUDA implementation: the weights repacked, K3s's launch."""
-    weights = drt_block_select_args(x, par, w2, b2, g, pk, w1, b1, last_key, is_key)
+    weights = _kernel_weights(
+        x, drt_block_select_args(x, par, w2, b2, g, pk, w1, b1, last_key, is_key))
     key = is_key.to(torch.float32, copy=True)  # a fresh, aligned (b,) float32
     check_cuda_args("drt_block_select", (x, par, last_key), (*weights, key))
     out, new_last_key = torch.empty_like(x), torch.empty_like(x)

@@ -24,7 +24,8 @@ from .build import library
 
 __all__ = [
     "LAUNCHES", "reset_launches", "on_cpu", "check_cuda_args", "launch", "call", "plain_grads",
-    "SMEM_MAX", "MAX_WIDTH", "ONE_LAUNCH_WIDTH", "check_width", "launch_form",
+    "SMEM_MAX", "MAX_WIDTH", "ONE_LAUNCH_WIDTH", "check_width", "launch_form", "WG_WIDTH",
+    "drt_block_design",
 ]
 
 LAUNCHES = {"warp": 0, "warp_block": 0, "input_conv": 0, "drt_block": 0,
@@ -69,6 +70,20 @@ def launch_form(name: str, c: int, dtype: torch.dtype) -> int:
     check_width(name, c)
     top = ONE_LAUNCH_WIDTH.get(("drt_block" if name == "drt_block_select" else name, dtype))
     return 2 if top is not None and c > top else 1
+
+
+# K3 and K3s run the wgmma design (csrc/drt_block.cu: drt_block_wg) at this
+# width, the width of every model path, and the mma.sync design at any other;
+# the C entry picks it by the same rule and refuses what neither takes
+WG_WIDTH = 64
+
+
+def drt_block_design(name: str, c: int, dtype: torch.dtype) -> tuple[str, int]:
+    """Which code K3 (or K3s) runs at width ``c`` in ``dtype``, and its
+    launches: ``("wgmma", 1)`` at ``WG_WIDTH``, else ``("mma.sync",``
+    :func:`launch_form` ``)``. A dispatch by shape, the same in both types."""
+    form = launch_form(name, c, dtype)
+    return ("wgmma", 1) if c == WG_WIDTH else ("mma.sync", form)
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
