@@ -12,11 +12,11 @@ Phases (any failure raises and the script exits non-zero):
    one-launch widths of K3 and K4, and, where the toolkit has cuobjdump,
    the count of tensor-core instructions (HMMA/HGMMA) in each device
    function of the tensor-core kernels K2-K5 (a function with none, or a
-   name found nowhere, fails the run); K3's and K3s's wgmma design at 64
-   channels (``drt_block_wg``) must hold HGMMA in each of its four device
-   functions and spill nothing: their registers, stack and spills are
-   printed, and a spill, or no such function in the compiler's report,
-   fails the run;
+   name found nowhere, fails the run); the wgmma designs at 64 channels
+   (K2 ``input_conv_wg``, K3 and K3s ``drt_block_wg``, K4 ``head_wg``)
+   must hold HGMMA in each of their device functions (2, 4 and 2) and
+   spill nothing: their registers, stack and spills are printed, and a
+   spill, or fewer such functions in the compiler's report, fails the run;
 3. each kernel against its plain PyTorch version at the main path's shapes
    (b=1, 720x1280, 64 channels), at b=4 on a smaller frame (256x448) and at
    ragged sizes (36x52; 40x56 for K1b, which needs multiples of 8), in
@@ -43,11 +43,13 @@ Phases (any failure raises and the script exits non-zero):
    one (``F.grid_sample`` for the warps, one channels-last ``F.conv2d``
    over the concatenated parts in the same type for the input conv, one
    ``F.conv2d`` with ``groups=b`` for K5), its yardsticks (K1b: K1 on the
-   same flow; K3s: K3 plus ``torch.where``; K3 and K3s at 64 channels: the
-   mma.sync design they replaced, ``mma_sync_ms``, through the C entry
-   ``pnp_drt_block_mma_sync`` that no model path calls, held to the plain
-   version under the same bounds; each yardstick timed between the
-   kernel's two timings, kernel, yardstick, yardstick, kernel) and the
+   same flow; K3s: K3 plus ``torch.where``; K2 (both part counts), K3, K3s
+   and K4 at 64 channels: the mma.sync design their wgmma design replaced,
+   ``mma_sync_ms``, through the C entries ``pnp_input_conv_mma_sync``,
+   ``pnp_drt_block_mma_sync`` and ``pnp_head_mma_sync`` that no model path
+   calls, held to the plain version under the same bounds; each yardstick
+   timed between the kernel's two timings, kernel, yardstick, yardstick,
+   kernel) and the
    card's bounds for the
    work: bytes over 3.35 TB/s, and operations over 67 TFLOP/s (float32
    CUDA cores), three TF32 products each over 495 TFLOP/s (3xTF32, the
@@ -442,19 +444,22 @@ JOINT_CROP, TOL_JOINT = 128, 1e-4
 # (K4's two-launch form: head_hidden_tc, then head_last_kernel on the CUDA
 # cores)
 TC_KERNELS = ("input_conv", "drt_block", "drt_block_select", "head", "conv3x3")
-TC_SASS_NAMES = ("input_conv_tc", "drt_block_tc", "drt_block_wg", "head_tc", "head_hidden_tc",
-                 "conv3x3_tc")
-# K3 / K3s's wgmma design at 64 channels (csrc/drt_block.cu): its device
-# functions must hold HGMMA and spill nothing
-WG_SASS_NAME = "drt_block_wg"
+TC_SASS_NAMES = ("input_conv_tc", "input_conv_wg", "drt_block_tc", "drt_block_wg", "head_tc",
+                 "head_wg", "head_hidden_tc", "conv3x3_tc")
+# the wgmma designs at 64 channels (K2 csrc/input_conv.cu, K3 / K3s
+# csrc/drt_block.cu, K4 csrc/head.cu) and how many device functions each
+# has (two types; K3 with and without the select): each must hold HGMMA and
+# spill nothing
+WG_SASS_NAMES = {"input_conv_wg": 2, "drt_block_wg": 4, "head_wg": 2}
 # each model kernel's device functions as the profiler names them (K3 and
-# K3s are one kernel with other template arguments: drt_block_wg at 64
-# channels, drt_block_tc at the other widths)
+# K3s are one kernel with other template arguments; K2-K4 run their *_wg
+# function at 64 channels, their *_tc ones at the other widths)
 DEVICE_FUNCS = {
     "warp": ("pnp::warp_kernel",), "warp_block": ("pnp::warp_block_kernel",),
-    "input_conv": ("pnp::tc::input_conv_tc",),
+    "input_conv": ("pnp::tc::input_conv_wg", "pnp::tc::input_conv_tc"),
     "drt_block": ("pnp::tc::drt_block_wg", "pnp::tc::drt_block_tc"),
-    "head": ("pnp::tc::head_tc", "pnp::tc::head_hidden_tc", "pnp::tc::head_last_kernel"),
+    "head": ("pnp::tc::head_wg", "pnp::tc::head_tc", "pnp::tc::head_hidden_tc",
+             "pnp::tc::head_last_kernel"),
     "conv3x3": ("pnp::tc::conv3x3_tc",),
 }
 
@@ -567,22 +572,24 @@ def phase_build():
         if missing or not all(sum(c.values()) for c in sass.values()):
             raise AssertionError(f"K2-K5 kernels without tensor-core instructions: {sass}; "
                                  f"no device function named {missing}")
-        no_wgmma = [fn for fn, c in sass.items() if WG_SASS_NAME in fn and not c["HGMMA"]]
+        no_wgmma = [fn for fn, c in sass.items()
+                    if any(n in fn for n in WG_SASS_NAMES) and not c["HGMMA"]]
         if no_wgmma:
-            raise AssertionError(f"K3's wgmma design without HGMMA: {no_wgmma}")
-    # the wgmma design: its registers, shared memory and spills; none may spill
-    wg = _ptxas_report(lib.log, WG_SASS_NAME)
-    for fn, r in wg.items():
-        dtype = 1 if "bfloat16" in fn else 0
-        print(f"[build] {fn}: {r.get('registers')} registers at launch (setmaxnreg: consumers "
-              f"232, producer 40), {_smem(lib, 'drt_block', 64, dtype)} bytes of dynamic shared "
-              f"memory, stack {r.get('stack')} B, spill stores {r.get('spill_stores')} B, spill "
-              f"loads {r.get('spill_loads')} B")
-    spills = {fn: r for fn, r in wg.items() if r.get("spill_stores") or r.get("spill_loads")}
-    if len(wg) != 4 or spills:
-        raise AssertionError(f"K3's wgmma design: {len(wg)} device functions in the compiler's "
-                             f"report (want 4: two types, with and without the select); "
-                             f"spilling: {spills}")
+            raise AssertionError(f"wgmma designs without HGMMA: {no_wgmma}")
+    # the wgmma designs: their registers, shared memory and spills; none may spill
+    smem_of = {"input_conv_wg": "input_conv", "drt_block_wg": "drt_block", "head_wg": "head"}
+    for name, want in WG_SASS_NAMES.items():
+        wg = _ptxas_report(lib.log, name)
+        for fn, r in wg.items():
+            dtype = 1 if "bfloat16" in fn else 0
+            print(f"[build] {fn}: {r.get('registers')} registers at launch (setmaxnreg: "
+                  f"consumers 232, producer 40), {_smem(lib, smem_of[name], 64, dtype)} bytes of "
+                  f"dynamic shared memory, stack {r.get('stack')} B, spill stores "
+                  f"{r.get('spill_stores')} B, spill loads {r.get('spill_loads')} B")
+        spills = {fn: r for fn, r in wg.items() if r.get("spill_stores") or r.get("spill_loads")}
+        if len(wg) != want or spills:
+            raise AssertionError(f"{name}: {len(wg)} device functions in the compiler's report "
+                                 f"(want {want}); spilling: {spills}")
 
     # the wrappers' width limits are the widest blocks the sources' formulas fit
     def fits(n, c, code=0):
@@ -652,6 +659,41 @@ def _mma_sync(x, par, blk, last_key=None, is_key=None):
          0 if x.dtype == torch.float32 else 1, x, par, *weights, last_key, key, out, nlk,
          *x.shape, counts={"drt_block": 0})
     return out if last_key is None else (out, nlk)
+
+
+def _mma_sync_input_conv(parts, ks, bias):
+    """K2 through its mma.sync design (conv_tc) at any width, the one the
+    wgmma design replaced at 64 channels: phase 3's yardstick. Its launches
+    count nowhere."""
+    import torch
+
+    from pnp_vcve_torch.kernels import drt_stack as kd
+    from pnp_vcve_torch.kernels.launch import call
+
+    ops, bias_f, c = kd.input_conv_args(parts, ks, bias)
+    lr, wide = parts[0], list(parts[1:])
+    out = torch.empty((*lr.shape[:3], c), dtype=lr.dtype, device=lr.device)
+    pad = [None] * (3 - len(wide))
+    call("input_conv", "pnp_input_conv_mma_sync", lr.device,
+         0 if lr.dtype == torch.float32 else 1, lr, *wide, *pad, *ops, *pad, bias_f, out,
+         *lr.shape[:3], len(wide), c, counts={"input_conv": 0})
+    return out
+
+
+def _mma_sync_head(x, hd):
+    """K4 through its mma.sync design (head_tc, stage 2 on the CUDA cores)
+    at any width: phase 3's yardstick at 64 channels. Its launches count
+    nowhere."""
+    import torch
+
+    from pnp_vcve_torch.kernels import drt_stack as kd
+    from pnp_vcve_torch.kernels.launch import call
+
+    weights = kd.head_args(x, *hd)
+    out = torch.empty((*x.shape[:3], 3), dtype=x.dtype, device=x.device)
+    call("head", "pnp_head_mma_sync", x.device, 0 if x.dtype == torch.float32 else 1, x,
+         *weights, None, out, *x.shape, counts={"head": 0})
+    return out
 
 
 def _grid(flow, h, w, dtype):
@@ -730,13 +772,25 @@ def _cases(dev, dtype, b, h, w, gen, c=64):
             memory_format=torch.channels_last)
         w_oihw = kernel.permute(3, 2, 0, 1).to(dtype).contiguous(
             memory_format=torch.channels_last)
+        label = f"input_conv ({tag}, {n_parts} parts)"
+
+        # at 64 channels the wgmma design runs; the mma.sync design it
+        # replaced is its yardstick, held to the same plain version
+        def ic_check(p=parts, k=ks, bb=bias, label=label):
+            _compare(f"{label} (mma.sync yardstick) {str(dtype)[6:]} b={b} {h}x{w}",
+                     _mma_sync_input_conv(p, k, bb), PLAIN.input_conv(f32(p), k, bb), dtype,
+                     BF16_BOUNDS["input_conv"])
+            return "the mma.sync yardstick agrees with the plain version"
+
         cases.append(dict(
-            label=f"input_conv ({tag}, {n_parts} parts)", name="input_conv",
+            label=label, name="input_conv",
             kern=lambda p=parts, k=ks, bb=bias: KERNELS.input_conv(p, k, bb),
             ref32=lambda p=parts, k=ks, bb=bias: PLAIN.input_conv(f32(p), k, bb),
             plain=lambda p=parts, k=ks, bb=bias: PLAIN.input_conv(p, k, bb),
             library=lambda c=cat, k=w_oihw, bb=bias.to(dtype): F.conv2d(c, k, bb, padding=1),
-            yardsticks={}, check=None, reps=5, bytes=nbytes(*parts, *ks, bias, x)))
+            yardsticks={} if c != 64 else {
+                "mma_sync_ms": lambda p=parts, k=ks, bb=bias: _mma_sync_input_conv(p, k, bb)},
+            check=ic_check if c == 64 else None, reps=5, bytes=nbytes(*parts, *ks, bias, x)))
     par = (torch.rand((b, h, w, 3), generator=gen) > 0.5).to(dev, dtype)
     blk = (wt((b, 3, 3, c, c), 0.03 * sc), wt((b, c), 0.1),
            torch.rand((b, c), generator=gen).to(dev),
@@ -798,10 +852,17 @@ def _cases(dev, dtype, b, h, w, gen, c=64):
             plain=lambda: pallas_order(PLAIN.drt_block)(x, par, *jargs), library=None,
             yardsticks={}, check=None, reps=5, time=False, bytes=nbytes(x, par, *blk, x)))
     hd = (wt((3, 3, c, c), 0.03 * sc), wt((c,), 0.1), wt((3, 3, c, 3), 0.06 * sc), wt((3,), 0.1))
+
+    def head_check():
+        _compare(f"head (mma.sync yardstick) {str(dtype)[6:]} b={b} {h}x{w}",
+                 _mma_sync_head(x, hd), PLAIN.head(x.float(), *hd), dtype, BF16_BOUNDS["head"])
+        return "the mma.sync yardstick agrees with the plain version"
+
     cases.append(dict(
         label="head", name="head", kern=lambda: KERNELS.head(x, *hd),
         ref32=lambda: PLAIN.head(x.float(), *hd), plain=lambda: PLAIN.head(x, *hd),
-        library=None, yardsticks={}, check=None, reps=5,
+        library=None, yardsticks={} if c != 64 else {"mma_sync_ms": lambda: _mma_sync_head(x, hd)},
+        check=head_check if c == 64 else None, reps=5,
         bytes=nbytes(x, *hd) + b * h * w * 3 * x.element_size()))
 
     def conv_case(bb, c_in, c_out, timed):
@@ -990,9 +1051,28 @@ def _summary(rs, name, bf16=False):
         **{k: v for k, v in extra.items() if k not in ("ms", "plain_ms")})
 
 
-def phase_main_path(dev):
-    """tools/torch_test.py on a REDS4-layout 720p fixture (PNG frames, MV
-    sidecars, qp.json) written by tools/data/make_protocol_fixture.py."""
+def write_main_fixture():
+    """Phase 4's REDS4-layout 720p fixture (PNG frames, MV sidecars,
+    qp.json), written by tools/data/make_protocol_fixture.py under
+    build/chip_smoke/data."""
+    sys.path[:0] = [str(ROOT / "tools" / "data")]
+    from make_protocol_fixture import REDS4_CLIPS, write_fixture
+
+    h, w = MAIN_HW
+    write_fixture(ROOT / "build" / "chip_smoke" / "data", clips=REDS4_CLIPS[:CLIPS],
+                  frames=FRAMES, height=h, width=w, crf=15, seed=SEED, quiet=True)
+
+
+def start_main_fixture():
+    """write_main_fixture in a child process (PNG encoding on one host core),
+    so that it runs beside phases 2-3; phase 4 waits for it."""
+    return subprocess.Popen([sys.executable, "-c",
+                             "import chip_smoke; chip_smoke.write_main_fixture()"], cwd=ROOT)
+
+
+def phase_main_path(dev, fixture=None):
+    """tools/torch_test.py on phase 4's fixture: written here, or by the
+    child process ``fixture`` (start_main_fixture), which this waits for."""
     import numpy as np
     import torch
 
@@ -1000,15 +1080,16 @@ def phase_main_path(dev):
     from pnp_vcve_torch.kernels import LAUNCHES, reset_launches
     from pnp_vcve_torch.models.pnp_vcve import PnPVCVE
 
-    sys.path[:0] = [str(ROOT / "tools"), str(ROOT / "tools" / "data")]
+    sys.path[:0] = [str(ROOT / "tools")]
     import torch_test
-    from make_protocol_fixture import REDS4_CLIPS, write_fixture
 
     work = ROOT / "build" / "chip_smoke"
     h, w = MAIN_HW
     t0 = time.perf_counter()
-    write_fixture(work / "data", clips=REDS4_CLIPS[:CLIPS], frames=FRAMES, height=h,
-                  width=w, crf=15, seed=SEED, quiet=True)
+    if fixture is None:
+        write_main_fixture()
+    elif fixture.wait() != 0:
+        raise AssertionError(f"phase 4's fixture writer exited {fixture.returncode}")
     cfg = work / "serving_720p.py"
     # the flagship serving config, pointed at the fixture (its qp.json sits
     # inside the test pipeline, which --testdir_* do not reach)
@@ -1021,7 +1102,7 @@ def phase_main_path(dev):
         f"data['test']['num_input_frames'] = {FRAMES}\n"
     )
     print(f"[main] fixture: {CLIPS} clips x {FRAMES} frames at {h}x{w} "
-          f"in {time.perf_counter() - t0:.1f} s")
+          f"{'written in' if fixture is None else 'waited for'} {time.perf_counter() - t0:.1f} s")
 
     fwd_s = []  # generator forward time per clip, device-synchronised
 
@@ -4132,6 +4213,18 @@ def main():
     dev, smi = phase_device()
     import torch
 
+    fixture = start_main_fixture()
+    try:
+        _phases(dev, smi, fixture)
+    finally:
+        if fixture.poll() is None:
+            fixture.kill()
+        fixture.wait()
+
+
+def _phases(dev, smi, fixture):
+    import torch
+
     def phase(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
@@ -4142,7 +4235,7 @@ def main():
 
     phase("2 build", phase_build)
     kern = phase("3 kernels", phase_kernels, dev)
-    counts = phase("4 serving path", phase_main_path, dev)
+    counts = phase("4 serving path", phase_main_path, dev, fixture)
     model_widths = phase("5 model vs plain", phase_model_vs_plain, dev)
     phase("6 gradients", phase_grads, dev)
     train_counts = phase("7 training", phase_train, dev, smi)

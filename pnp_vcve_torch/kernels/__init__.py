@@ -24,8 +24,9 @@ tensors, the plain version on CPU tensors, a fake implementation for
 ``torch.export`` and a FLOP formula. Importing this package registers
 them, which loading an exported model needs.
 
-K2-K5 run on the tensor cores (``csrc/tc_conv.cuh``), K1 and K1b on the
-CUDA cores. K1-K4 take any width that is a multiple of 8
+K2-K5 run on the tensor cores: K2-K4 at 64 channels on ``wgmma``
+(``csrc/wg_conv.cuh``, ``csrc/drt_block.cu``), at any other width, and K5,
+on ``mma.sync`` (``csrc/tc_conv.cuh``); K1 and K1b on the CUDA cores. K1-K4 take any width that is a multiple of 8
 (:func:`.launch.check_width` says which they refuse), K5 any c_in. The
 probe kernels K6-K13 (the TPU micro-benchmarks of ``tools/``), which no
 model runs, live in :mod:`.probes`.

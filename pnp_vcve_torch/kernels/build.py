@@ -41,12 +41,16 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "pnp_warp": [_I, _P, _P, _P] + [_I] * 4 + [_P],
     "pnp_input_conv": [_I] + [_P] * 10 + [_I] * 5 + [_P],
+    # K2's mma.sync design at any width (chip_smoke.py's yardstick)
+    "pnp_input_conv_mma_sync": [_I] + [_P] * 10 + [_I] * 5 + [_P],
     "pnp_drt_block": [_I] + [_P] * 10 + [_I] * 4 + [_P],
     "pnp_drt_block_select": [_I] + [_P] * 12 + [_I] * 4 + [_P],
     # K3 / K3s's mma.sync design at any width (chip_smoke.py's yardstick)
     "pnp_drt_block_mma_sync": [_I, _I] + [_P] * 12 + [_I] * 4 + [_P],
     "pnp_warp_block": [_I, _P, _P, _P] + [_I] * 4 + [_P],
     "pnp_head": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+    # K4's mma.sync design at any width (chip_smoke.py's yardstick)
+    "pnp_head_mma_sync": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "pnp_conv3x3": [_I] + [_P] * 5 + [_I] * 5 + [_P],
     # the probe kernels (probes.py)
     "pnp_window_copy": [_P, _P] + [_I] * 9 + [_P],

@@ -33,7 +33,8 @@
 //     region padded to 192 rows was 1.5x), the staged x tile 18 x 34.
 //     Stage 2's 420 rows run as 7 M-tiles of 64 (448 rows): 4 in warpgroup
 //     0, 3 in warpgroup 1.
-//   - Warps: two consumer warpgroups and one producer warpgroup, 384
+//   - Warps (wg_conv.cuh's roles, weight ring and A fragments, shared with
+//     K2 and K4): two consumer warpgroups and one producer warpgroup, 384
 //     threads, one block an SM. setmaxnreg gives the consumers 232
 //     registers (128 float32 sums, two fragment buffers) and the producer
 //     40. Persistent: grid = min(tiles, SMs), and block k walks tiles k,
@@ -99,7 +100,7 @@
 // stages h's chunks back like x's and runs stage 2. Each block of either
 // does one output group (grid z = samples x groups).
 #include "tc_conv.cuh"
-#include "wgmma.cuh"
+#include "wg_conv.cuh"
 
 
 namespace pnp {
@@ -357,30 +358,20 @@ __global__ void __launch_bounds__(NTHR, sizeof(T) == 2 || NARROW ? 2 : 1)
 
 // ---- the wgmma design (c = 64) ----------------------------------------------------
 
+// the tile; the block's roles (consumer and producer warpgroups, their
+// registers) are wg_conv.cuh's
 struct WGeo {
-  static constexpr int C = 64;                                   // the one width it takes
-  static constexpr int RH = 16, RW = 32, NR = RH * RW;           // stage-1 region: 512 rows
+  static constexpr int C = wgc::C;                               // the one width it takes
+  static constexpr int RH = 16, RW = wgc::RW, NR = RH * RW;      // stage-1 region: 512 rows
   static constexpr int TH = RH - 2, TW = RW - 2, NO = TH * TW;   // output tile: 420 rows
-  static constexpr int XH = RH + 2, XW = RW + 2, NX = XH * XW;   // staged x tile: 612 pixels
-  static constexpr int NCW = 2;                                  // consumer warpgroups
-  static constexpr int MT = NR / 64 / NCW;                       // a warpgroup's M-tiles: 4
+  static constexpr int XH = RH + 2, XW = wgc::XW, NX = XH * XW;  // staged x tile: 612 pixels
+  static constexpr int MT = NR / 64 / wgc::NCW;                  // a warpgroup's M-tiles: 4
   static constexpr int MO = cdiv(NO, 64);                        // stage 2's M-tiles: 7
-  static constexpr int NCONS = NCW * 128;                        // consumer threads
-  static constexpr int NTHR = NCONS + 128;                       // + the producer warpgroup
-  static constexpr int REG_CONS = 232, REG_PROD = 40;            // setmaxnreg per role
-  static constexpr int NXLOAD = 96;                              // producer threads on x
-  static constexpr int BTILE = 64 * 128;                         // a 64 x 128-byte weight tile
   static constexpr int KSTEPS = 128 / KSTEP_BYTES;               // wgmma k-steps a k-block: 4
 };
-static_assert(WGeo::NR == 64 * WGeo::NCW * WGeo::MT, "stage 1's rows are whole M-tiles");
-static_assert(WGeo::MO > WGeo::MT && WGeo::MO <= WGeo::NCW * WGeo::MT,
+static_assert(WGeo::NR == 64 * wgc::NCW * WGeo::MT, "stage 1's rows are whole M-tiles");
+static_assert(WGeo::MO > WGeo::MT && WGeo::MO <= wgc::NCW * WGeo::MT,
               "stage 2's M-tiles: MT to warpgroup 0, the rest to warpgroup 1");
-// setmaxnreg moves registers within the block's allocation at launch (the
-// 64K split evenly over its threads, a multiple of 8 each): what the
-// producer gives back is what the consumers take
-static_assert((65536 / WGeo::NTHR / 8 * 8 - WGeo::REG_PROD) * 128 ==
-                  (WGeo::REG_CONS - 65536 / WGeo::NTHR / 8 * 8) * WGeo::NCONS,
-              "the roles' register counts balance");
 
 // per feature type: bytes of a pixel's 64 channels, 128-byte k-blocks a tap,
 // weight terms (float32: the TF32 head and tail), ring stages, and whether h
@@ -400,46 +391,13 @@ template <> struct WGType<float> {
 template <typename T>
 __host__ __device__ constexpr size_t wg_smem() {
   using P = WGType<T>;
-  return 1024 + (size_t)P::NS * P::NW * WGeo::BTILE + (size_t)WGeo::NX * P::PIXB +
+  return 1024 + (size_t)P::NS * P::NW * wgc::BTILE + (size_t)WGeo::NX * P::PIXB +
          (P::H_OVER_X ? 0 : (size_t)WGeo::NR * P::PIXB) + sizeof(float) * 3 * WGeo::NR +
          sizeof(uint64_t) * (2 * P::NS + 2);
 }
 static_assert(wg_smem<float>() <= SMEM_MAX && wg_smem<__nv_bfloat16>() <= SMEM_MAX,
               "a wgmma block fits an SM's shared memory");
 static_assert(WGeo::NR <= WGeo::NX, "h fits over the x tile");
-
-// this lane's ldmatrix address of pixel q (16-byte chunk ch of it) in a
-// tile of PIXB-byte pixels whose chunks are XOR-swizzled by the pixel
-template <int PIXB>
-__device__ __forceinline__ const uint8_t* swz(const uint8_t* buf, int q, int ch) {
-  return buf + q * PIXB + ((ch ^ (q & 7)) << 4);
-}
-
-// A fragments of one k-step for MG M-tiles: bf16 the rows as they are,
-// float32 their TF32 head and tail
-template <typename T, int MG> struct AFrag;
-template <int MG> struct AFrag<__nv_bfloat16, MG> {
-  uint32_t a[MG][4];
-  __device__ __forceinline__ void hold() {
-#pragma unroll
-    for (int m = 0; m < MG; ++m) wg::hold(a[m]);
-  }
-};
-template <int MG> struct AFrag<float, MG> {
-  uint32_t hi[MG][4], lo[MG][4];
-  __device__ __forceinline__ void hold() {
-#pragma unroll
-    for (int m = 0; m < MG; ++m) {
-      wg::hold(hi[m]);
-      wg::hold(lo[m]);
-    }
-  }
-};
-// M-tiles a commit group multiplies: bf16 4 (16 fragment registers),
-// float32 2 (head and tail, 16 registers), so that two groups' fragments
-// and the 128 sums fit a consumer's 232 registers
-template <typename T> struct WGGroup { static constexpr int MG = 4; };
-template <> struct WGGroup<float> { static constexpr int MG = 2; };
 
 // The pixel that A row-tile m of this lane reads at tap offset 0. Stage 1
 // (OUT false): base is the lane's x-tile pixel in M-tile 0 (two region rows
@@ -462,7 +420,7 @@ __device__ __forceinline__ int row_pixel(int base, int m) {
 // (OUT: stage 2's rows, else stage 1's), B the stage's weight tiles (the
 // TF32 tail BTILE after the head). GATED: each A fragment scaled by its
 // rows' gates (the partition taps). The stage runs as a stream of commit
-// groups, one a k-step and M-tile group (WGGroup), through two fragment
+// groups, one a k-step and M-tile group (wgc::WGGroup), through two fragment
 // buffers: each group loads its A while the one before multiplies and
 // waits (wait<1>) only until the group two back, which read the buffer it
 // overwrites, is done; the stage ends with every group complete, so its
@@ -472,17 +430,17 @@ __device__ __forceinline__ void wg_stage(float (&acc)[WGeo::MT][32], const uint8
                                          int base, int off, int kb, const uint8_t* stage,
                                          const float (&gate)[WGeo::MT][2]) {
   using P = WGType<T>;
-  constexpr int MG = WGGroup<T>::MG, NG = cdiv(NM, MG);
+  constexpr int MG = wgc::WGGroup<T>::MG, NG = cdiv(NM, MG);
   const int half = (threadIdx.x % 32) / 16;
   int q[NM];
 #pragma unroll
   for (int m = 0; m < NM; ++m) q[m] = row_pixel<OUT>(base, m) + off;
   const uint64_t dh = wg::desc_sw128(stage);
-  AFrag<T, MG> f[2];
+  wgc::AFrag<T, MG> f[2];
 #pragma unroll
   for (int u = 0; u < WGeo::KSTEPS * NG; ++u) {
     const int ks = u / NG, m0 = (u % NG) * MG;
-    AFrag<T, MG>& cur = f[u % 2];
+    wgc::AFrag<T, MG>& cur = f[u % 2];
     if (u >= 2) {  // the group two back has read this buffer
       wg::wait<1>();
       cur.hold();
@@ -494,7 +452,7 @@ __device__ __forceinline__ void wg_stage(float (&acc)[WGeo::MT][32], const uint8
       const int m = m0 + k;
       if (m >= NM) break;
       uint32_t af[4];
-      ldmatrix_x4(af, swz<P::PIXB>(buf, q[m], ch));
+      ldmatrix_x4(af, wgc::xpiece<P::PIXB>(buf, q[m], ch));
       if constexpr (GATED) gate_frag(af, gate[m], T());
       if constexpr (std::is_same<T, __nv_bfloat16>::value) {
 #pragma unroll
@@ -515,7 +473,7 @@ __device__ __forceinline__ void wg_stage(float (&acc)[WGeo::MT][32], const uint8
       if constexpr (std::is_same<T, __nv_bfloat16>::value) {
         wg::mma_bf16(acc[m], cur.a[k], d0);
       } else {
-        const uint64_t d1 = wg::desc_add(d0, WGeo::BTILE);  // the weights' TF32 tail
+        const uint64_t d1 = wg::desc_add(d0, wgc::BTILE);  // the weights' TF32 tail
         wg::mma_tf32(acc[m], cur.lo[k], d0);  // the small terms first, as mma.sync's kstep
         wg::mma_tf32(acc[m], cur.hi[k], d1);
         wg::mma_tf32(acc[m], cur.hi[k], d0);
@@ -534,7 +492,7 @@ __device__ __forceinline__ void wg_stage(float (&acc)[WGeo::MT][32], const uint8
 // 128 bytes), pk (3, KB, NW, 64, 128 bytes), w1 (9, KB, NW, 64, 128 bytes),
 // each (KB, NW) group one ring stage; b2, g (b, 64) and b1 (64,) float32.
 template <typename T, bool SELECT>
-__global__ void __launch_bounds__(WGeo::NTHR, 1)
+__global__ void __launch_bounds__(wgc::NTHR, 1)
     drt_block_wg(const T* __restrict__ x, const T* __restrict__ par, const T* __restrict__ w2,
                  const float* __restrict__ b2, const float* __restrict__ gain,
                  const T* __restrict__ pk, const T* __restrict__ w1, const float* __restrict__ b1,
@@ -542,12 +500,14 @@ __global__ void __launch_bounds__(WGeo::NTHR, 1)
                  T* __restrict__ out, T* __restrict__ new_last_key, int bsz, int h, int w) {
   using G = WGeo;
   using P = WGType<T>;
-  constexpr int ELT = sizeof(T), STAGE = P::NW * G::BTILE;
+  using wgc::NCONS;
+  using wgc::NXLOAD;
+  constexpr int ELT = sizeof(T), STAGE = P::NW * wgc::BTILE;
   constexpr int NST = 21 * P::KB;    // ring stages a tile: W2 9, PK 3, W1 9 taps
   constexpr int NCH = P::PIXB / 16;  // 16-byte chunks of a pixel
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* xs = ring + P::NS * STAGE;
+  uint8_t* ringb = wgc::align1024(smem_raw);
+  uint8_t* xs = ringb + P::NS * STAGE;
   uint8_t* hs = P::H_OVER_X ? xs : xs + G::NX * P::PIXB;
   float* gs = reinterpret_cast<float*>(P::H_OVER_X ? xs + G::NX * P::PIXB : hs + G::NR * P::PIXB);
   uint64_t* full = reinterpret_cast<uint64_t*>(gs + 3 * G::NR);
@@ -557,10 +517,10 @@ __global__ void __launch_bounds__(WGeo::NTHR, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < P::NS; ++s) {
       wg::mbar_init(&full[s], 1);                // the producer's arrive with its bytes
-      wg::mbar_init(&empty[s], G::NCONS / 32);   // each consumer warp
+      wg::mbar_init(&empty[s], NCONS / 32);   // each consumer warp
     }
-    wg::mbar_init(xfull, 2 * G::NXLOAD);  // each x thread: its cp.async, then its gates
-    wg::mbar_init(xempty, G::NCONS / 32);
+    wg::mbar_init(xfull, 2 * NXLOAD);  // each x thread: its cp.async, then its gates
+    wg::mbar_init(xempty, NCONS / 32);
     wg::fence_mbar_init();
   }
   __syncthreads();
@@ -570,40 +530,25 @@ __global__ void __launch_bounds__(WGeo::NTHR, 1)
   // the warpgroup, warp-uniform as the compiler sees it (wgmma must not sit
   // in a path it takes as divergent)
   const int wgi = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  wgc::WRing<P::NS, STAGE> ring{ringb, full, empty};
 
-  if (wgi == G::NCW) {
+  if (wgi == wgc::NCW) {
     // ---- the producer warpgroup: warp 0 the weight ring (one thread),
     // warps 1-3 the x tiles and the gates
-    wg::setmaxnreg_dec<G::REG_PROD>();
-    const int ptid = threadIdx.x - G::NCONS;
+    wg::setmaxnreg_dec<wgc::REG_PROD>();
+    const int ptid = threadIdx.x - NCONS;
     if (ptid < 32) {
       if (ptid == 0) {
         const size_t selems = STAGE / ELT;
-        int slot = 0;
-        uint32_t ph = 0;
         for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
           const int b = t / per;
-          for (int s = 0; s < NST; ++s) {
-            wg::mbar_wait(&empty[slot], ph ^ 1);
-            const T* src = s < 9 * P::KB    ? w2 + ((size_t)b * 9 * P::KB + s) * selems
-                           : s < 12 * P::KB ? pk + (size_t)(s - 9 * P::KB) * selems
-                                            : w1 + (size_t)(s - 12 * P::KB) * selems;
-            wg::mbar_arrive_tx(&full[slot], STAGE);
-            wg::bulk_g2s(ring + slot * STAGE, src, STAGE, &full[slot]);
-            if (++slot == P::NS) {
-              slot = 0;
-              ph ^= 1;
-            }
-          }
+          for (int s = 0; s < NST; ++s)
+            ring.put(s < 9 * P::KB    ? w2 + ((size_t)b * 9 * P::KB + s) * selems
+                     : s < 12 * P::KB ? pk + (size_t)(s - 9 * P::KB) * selems
+                                      : w1 + (size_t)(s - 12 * P::KB) * selems,
+                     STAGE);
         }
-        // stay until every stage has been read: the last copies have landed
-        for (int k = 0; k < P::NS; ++k) {
-          wg::mbar_wait(&empty[slot], ph ^ 1);
-          if (++slot == P::NS) {
-            slot = 0;
-            ph ^= 1;
-          }
-        }
+        ring.drain();
       }
       return;
     }
@@ -616,16 +561,16 @@ __global__ void __launch_bounds__(WGeo::NTHR, 1)
       const int xt = wg::opaque(ptid - 32);
       const int b = t / per, y0 = (t % per) / ntx * G::TH, x0 = t % ntx * G::TW;
       const T* xb = x + (size_t)b * h * w * G::C;
-      for (int k = xt; k < G::NX * NCH; k += G::NXLOAD) {
+      for (int k = xt; k < G::NX * NCH; k += NXLOAD) {
         const int q = k / NCH, ch = k % NCH, qy = q / G::XW;
         const int y = y0 - 2 + qy, xx = x0 - 2 + (q - qy * G::XW);
         const bool ok = (unsigned)y < (unsigned)h && (unsigned)xx < (unsigned)w;
-        cp_async16(xs + q * P::PIXB + ((ch ^ (q & 7)) << 4),
+        cp_async16(wgc::xpiece<P::PIXB>(xs, q, ch),
                    xb + (ok ? (y * w + xx) * G::C + ch * (16 / ELT) : 0), ok);
       }
       wg::cp_async_mbar_arrive(xfull);
       const T* pb = par + (size_t)b * h * w * 3;
-      for (int p = xt; p < G::NR; p += G::NXLOAD) {
+      for (int p = xt; p < G::NR; p += NXLOAD) {
         const int y = y0 - 1 + p / G::RW, xx = x0 - 1 + p % G::RW;
         const bool in = (unsigned)y < (unsigned)h && (unsigned)xx < (unsigned)w;
         const T* pp = pb + (in ? y * w + xx : 0) * 3;
@@ -642,39 +587,21 @@ __global__ void __launch_bounds__(WGeo::NTHR, 1)
   // are recomputed where needed from opaque copies (wg::opaque), so the
   // compiler keeps no per-tile constants live across the k-loops, whose
   // sums and A fragments take most of the registers.
-  wg::setmaxnreg_inc<G::REG_CONS>();
+  wg::setmaxnreg_inc<wgc::REG_CONS>();
   const int warp = __shfl_sync(0xffffffffu, (int)(threadIdx.x / 32) % 4, 0);
   float acc[G::MT][32];
-  int slot = 0, i = 0;
-  uint32_t ph = 0;
-  auto zero = [&]() {
-#pragma unroll
-    for (int m = 0; m < G::MT; ++m)
-#pragma unroll
-      for (int k = 0; k < 32; ++k) acc[m][k] = 0.f;
-  };
-  // one ring stage: wait for it, run it, release it
-  auto stage = [&](auto&& run) {
-    wg::mbar_wait(&full[slot], ph);
-    run(ring + slot * STAGE);
-    __syncwarp();
-    if (lane == 0) wg::mbar_arrive(&empty[slot]);
-    if (++slot == P::NS) {
-      slot = 0;
-      ph ^= 1;
-    }
-  };
+  int i = 0;
   const float nogate[G::MT][2] = {};
   int t_cur = blockIdx.x;  // the tile
   // stage 2 and its epilogue for this warpgroup's NM M-tiles from mt2
   auto stage2 = [&](auto nm_c, int mt2) {
     constexpr int NM = decltype(nm_c)::value;
-    zero();
+    wgc::zero(acc);
     const int base = 64 * mt2 + 16 * warp + lane % 16;  // row_pixel<true>'s
     for (int tap = 0; tap < 9; ++tap)
 #pragma unroll 1
       for (int kb = 0; kb < P::KB; ++kb)
-        stage([&](const uint8_t* st) {
+        ring.take([&](const uint8_t* st) {
           wg_stage<T, NM, false, true>(acc, hs, base, (tap / 3) * G::RW + tap % 3, kb, st,
                                        nogate);
         });
@@ -718,12 +645,12 @@ __global__ void __launch_bounds__(WGeo::NTHR, 1)
     {
       const int p0 = 64 * mt1 + 16 * warp + lane % 16;
       const int base = (p0 / G::RW) * G::XW + p0 % G::RW;  // row_pixel<false>'s
-      zero();
+      wgc::zero(acc);
       wg::mbar_wait(xfull, i & 1);
       for (int tap = 0; tap < 9; ++tap)
 #pragma unroll 1
         for (int kb = 0; kb < P::KB; ++kb)
-          stage([&](const uint8_t* st) {
+          ring.take([&](const uint8_t* st) {
             wg_stage<T, G::MT, false, false>(acc, xs, base, (tap / 3) * G::XW + tap % 3, kb, st,
                                              nogate);
           });
@@ -752,7 +679,7 @@ __global__ void __launch_bounds__(WGeo::NTHR, 1)
           for (int hf = 0; hf < 2; ++hf) gate[m][hf] = gs[r * G::NR + gr + 64 * m + 8 * hf];
 #pragma unroll 1
         for (int kb = 0; kb < P::KB; ++kb)
-          stage([&](const uint8_t* st) {
+          ring.take([&](const uint8_t* st) {
             wg_stage<T, G::MT, true, false>(acc, xs, wg::opaque(base), G::XW + 1, kb, st, gate);
           });
       }
@@ -762,7 +689,7 @@ __global__ void __launch_bounds__(WGeo::NTHR, 1)
       if (lane == 0) wg::mbar_arrive(xempty);
     }
     // every consumer is done with x and (bf16) with the last tile's h
-    wg::named_sync(1, G::NCONS);
+    wg::named_sync(1, NCONS);
     // h: relu, zero outside the image, as T
     {
       const int tt = wg::opaque(t_cur), ln = wg::opaque(lane);
@@ -783,7 +710,7 @@ __global__ void __launch_bounds__(WGeo::NTHR, 1)
                    in ? fmaxf(acc[m][4 * j + 2 * hf + 1], 0.f) : 0.f);
           }
     }
-    wg::named_sync(1, G::NCONS);  // h is whole
+    wg::named_sync(1, NCONS);  // h is whole
     // ---- stage 2: M-tiles [0, MT) in warpgroup 0, [MT, MO) in warpgroup 1
     if (wgi == 0)
       stage2(std::integral_constant<int, G::MT>(), 0);
@@ -810,12 +737,10 @@ cudaError_t launch_drt_block_wg(const T* x, const T* par, const T* w2, const flo
   const size_t smem = wg_smem<T>();
   cudaError_t e = allow_smem(k, smem);
   if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
+  int sms = 0;
+  if ((e = wgc::sm_count(sms)) != cudaSuccess) return e;
   const int grid = imin(wg_tiles(b, h, w), sms);
-  k<<<grid, WGeo::NTHR, smem, stream>>>(x, par, w2, b2, g, pk, w1, b1, last_key, is_key, out,
+  k<<<grid, wgc::NTHR, smem, stream>>>(x, par, w2, b2, g, pk, w1, b1, last_key, is_key, out,
                                         new_last_key, b, h, w);
   return cudaGetLastError();
 }

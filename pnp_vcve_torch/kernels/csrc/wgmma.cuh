@@ -1,7 +1,8 @@
-// Hopper's asynchronous pieces for K3's wgmma design (drt_block.cu): the
-// mbarriers of a producer / consumer ring, bulk and cp.async copies that
-// complete on them, shared-memory matrix descriptors and warpgroup matrix
-// multiplies (wgmma) with A from registers and B from shared memory.
+// Hopper's asynchronous pieces for the wgmma designs of K2, K3 and K4
+// (input_conv.cu, drt_block.cu, head.cu): the mbarriers of a producer /
+// consumer ring, bulk and cp.async copies that complete on them,
+// shared-memory matrix descriptors and warpgroup matrix multiplies (wgmma)
+// with A from registers and B from shared memory.
 //
 // wgmma (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply-Accumulate"):
 // the four warps of a warpgroup multiply a 64-row A by a B of N columns. With
@@ -98,6 +99,14 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
+// descriptor of a K-major, 32-byte swizzled operand at p: rows of 32 bytes
+// (one k-step) in atoms of 8 rows (256 bytes, 256-aligned) whose 16-byte
+// chunk j of row r sits at chunk j ^ ((r / 4) % 2); stride 256 bytes between
+// 8-row groups (K2's 3-channel lr part, one k-step deep)
+__device__ __forceinline__ uint64_t desc_sw32(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
+}
 // the descriptor `bytes` further along K (a multiple of 16, inside the atom)
 __device__ __forceinline__ uint64_t desc_add(uint64_t d, int bytes) { return d + (bytes >> 4); }
 
@@ -166,6 +175,23 @@ __device__ __forceinline__ void mma_tf32(float (&d)[32], const uint32_t (&a)[4],
 }
 #undef PNP_WG_D32
 #undef PNP_WG_DREGS
+
+// d (64 x 32, float32) += a (64 x 8 tf32, registers) * B (8 x 32 tf32 at desc)
+__device__ __forceinline__ void mma_tf32_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
 
 }  // namespace wg
 }  // namespace pnp

@@ -20,18 +20,20 @@ They replace, in ``pnp_vcve_tpu/kernels/drt_stack.py``:
 The TPU kernels' pixel-pair packed layout and band DMAs are not carried
 over: the kernels take the NHWC tensors as they are, for any h and w and any
 width c that is a multiple of 8, in float32 or bfloat16 with float32 sums.
-K2, K3 and K4 run on the tensor cores (``csrc/tc_conv.cuh``): bfloat16
-features with bfloat16 weights, float32 features in 3xTF32
-(:func:`tf32_split`). K3 and K3s at 64 channels, the width of every model
-path, run the wgmma design instead (``csrc/drt_block.cu: drt_block_wg``;
-``launch.drt_block_design`` says which width takes which), whose weights
-the wrapper packs into the shared-memory image its bulk copies move
-(:func:`wg_image`) and whose persistent blocks walk 14 x 30 output tiles
-(:func:`wg_tile_walk`). K4's W_hr goes to the kernel as two terms in both
-types (:func:`bf16_split` in bfloat16), its hidden map stays float32, and
-its c -> 3 stage runs on the CUDA cores. K3 and K4 keep their hidden map on
-the chip up to ``launch.ONE_LAUNCH_WIDTH`` and run as two launches through
-a scratch tensor above it (:func:`.launch.launch_form`). The source notes
+K2, K3 and K4 run on the tensor cores: bfloat16 features with bfloat16
+weights, float32 features in 3xTF32 (:func:`tf32_split`). At 64 channels,
+the width of every model path, each runs a wgmma design
+(``csrc/input_conv.cu: input_conv_wg``, ``drt_block.cu: drt_block_wg``,
+``head.cu: head_wg``; ``launch.kernel_design`` says which width takes
+which), whose weights the wrapper packs into the shared-memory images its
+bulk copies move (:func:`wg_image`; K4's c -> 3 stage as
+:func:`head_last_image`) and whose persistent blocks walk the output tiles
+(:func:`wg_tile_walk`: 14 x 30 for K3 and K4, ``IC_TILE`` for K2); at any
+other width an implicit GEMM on ``mma.sync`` (``csrc/tc_conv.cuh``). K4's
+W_hr goes to the kernel as two terms in both types (:func:`bf16_split` in
+bfloat16) and its hidden map stays float32. K3 and K4 keep their hidden map
+on the chip up to ``launch.ONE_LAUNCH_WIDTH`` and run as two launches
+through a scratch tensor above it (:func:`.launch.launch_form`). The source notes
 in ``csrc/`` say how each tiles its work.
 :func:`input_conv_args`, :func:`drt_block_args` and :func:`head_args` hold
 the checks a launch makes of the shapes and the width, and the weight
@@ -79,7 +81,7 @@ from pnp_vcve_torch.ops.dynamic_conv import (
 from .launch import (
     check_cuda_args,
     check_width,
-    drt_block_design,
+    kernel_design,
     launch,
     launch_form,
     on_cpu,
@@ -110,7 +112,9 @@ __all__ = [
     "drt_block_select_args",
     "head_args",
     "WG_TILE",
+    "IC_TILE",
     "wg_image",
+    "head_last_image",
     "wg_tile_walk",
 ]
 
@@ -208,6 +212,76 @@ def tc_weights(taps, dtype, two_terms=False):
     return torch.stack(tf32_split(t))
 
 
+# ---- the wgmma designs at 64 channels (K2, K3, K4) -------------------------
+
+# Their output tiles (launch.WG_WIDTH; csrc/drt_block.cu: drt_block_wg,
+# head.cu: head_wg) and the stage-1 region around them; K2's tile by
+# feature type (csrc/input_conv.cu: input_conv_wg, no second stage); the
+# bytes of a weight tile's row (one 128-byte swizzle row: 64 bfloat16 or
+# 32 float32 input channels, a "k-block")
+WG_TILE = (14, 30)
+WG_REGION = (16, 32)
+IC_TILE = {torch.bfloat16: (16, 32), torch.float32: (8, 32)}
+_WG_ROW = 128
+
+
+def wg_image(stack, row_bytes=_WG_ROW):
+    """A wgmma design's weights: :func:`tc_weights`' ``(NW, ..., n, c_in)``
+    taps as the shared-memory image the kernel's bulk copies move and its
+    wgmma descriptors read, ``(..., KB, NW, n, row_bytes bytes)``: each tap
+    split into ``KB`` k-blocks of ``row_bytes`` bytes of input channels
+    (128: 1 in bfloat16 and 2 in float32 at 64 channels; 32, one k-step, for
+    K2's lr part padded to 16 bfloat16 or 8 float32 channels), each
+    k-block's ``NW`` terms (the TF32 head and tail) one ring stage of ``NW``
+    ``n``-row tiles, K-major (output n's row holds its input channels) and
+    swizzled as wgmma's ``row_bytes``-byte mode: the 16-byte chunk j of row
+    n sits at chunk ``j ^ (n * row_bytes // 128 % (row_bytes // 16))`` (128
+    bytes: ``j ^ (n % 8)``; 32 bytes: ``j ^ (n // 4 % 2)``). One gather
+    through a permutation cached per shape, type, row and device (the
+    wrapper packs the weights at every launch)."""
+    nw, *lead, n, k = stack.shape
+    per_row = row_bytes // stack.element_size()
+    perm = _wg_perm(tuple(stack.shape), stack.element_size(), row_bytes, stack.device)
+    return stack.reshape(-1)[perm].reshape(*lead, k // per_row, nw, n, per_row)
+
+
+_WG_PERMS: dict = {}
+
+
+def _wg_perm(shape, elt, row_bytes, device):
+    """The flat source index of each element of :func:`wg_image`'s output
+    for a ``shape`` stack of ``elt``-byte values: the image's layout
+    applied to ``arange``."""
+    key = (shape, elt, row_bytes, str(device))
+    if key not in _WG_PERMS:
+        nw, *_, n, k = shape
+        per_row, vec = row_bytes // elt, 16 // elt  # channels of a k-block, of a 16-byte chunk
+        nchunk = row_bytes // 16
+        t = torch.arange(math.prod(shape))
+        t = t.reshape(nw, -1, n, k // per_row, nchunk, vec)
+        rows = torch.arange(n).reshape(1, 1, n, 1, 1, 1)
+        chunks = torch.arange(nchunk).reshape(1, 1, 1, 1, -1, 1)
+        swz = rows * row_bytes // 128 % nchunk
+        t = torch.gather(t, 4, (chunks ^ swz).expand(t.shape))
+        _WG_PERMS[key] = t.permute(1, 3, 0, 2, 4, 5).reshape(-1).to(device)
+    return _WG_PERMS[key]
+
+
+def wg_tile_walk(b: int, h: int, w: int, sms: int, tile=WG_TILE):
+    """A wgmma design's persistent walk over ``b`` samples of ``h x w``:
+    ``(grid, [[(sample, y0, x0) of each tile block k runs] for k in
+    range(grid)])``, grid = min(tiles, sms); block k takes tiles k, k +
+    grid, ... in (sample, tile row, tile column) order, each the output
+    pixels ``[y0, y0 + th) x [x0, x0 + tw)`` inside the image, ``(th, tw) =
+    tile`` (``WG_TILE``: ``drt_block_wg``'s and ``head_wg``'s loop;
+    ``IC_TILE[dtype]``: ``input_conv_wg``'s), in the same order."""
+    th, tw = tile
+    nty, ntx = -(-h // th), -(-w // tw)
+    tiles = [(s, ty * th, tx * tw) for s in range(b) for ty in range(nty) for tx in range(ntx)]
+    grid = min(len(tiles), sms)
+    return grid, [tiles[k::grid] for k in range(grid)]
+
+
 # ---- K2: input conv ---------------------------------------------------------
 
 
@@ -245,9 +319,20 @@ def input_conv_args(parts, kernels, bias):
     return [tc_weights(k, lr.dtype) for k in ks], bias.float().contiguous(), c
 
 
+def _input_conv_weights(ks, c, dtype):
+    """K2's weights as the design at width ``c`` takes them: at
+    ``launch.WG_WIDTH`` the wgmma design's images (:func:`wg_image`, the lr
+    part's one k-step as a 32-byte row), else :func:`input_conv_args`'
+    operands as they are."""
+    if kernel_design("input_conv", c, dtype)[0] != "wgmma":
+        return ks
+    return [wg_image(ks[0], row_bytes=32)] + [wg_image(k) for k in ks[1:]]
+
+
 def _input_conv_kernel(parts, kernels, bias):
     """The op's CUDA implementation: the weights repacked, K2's launch."""
     ks, bias, c = input_conv_args(parts, kernels, bias)
+    ks = _input_conv_weights(ks, c, parts[0].dtype)
     lr, wide = parts[0], list(parts[1:])
     b, h, w, _ = lr.shape
     check_cuda_args("input_conv", parts, (*ks, bias))
@@ -343,71 +428,11 @@ def drt_block_args(x, par, w2, b2, g, pk, w1, b1, name="drt_block"):
             tc_weights(w1.reshape(9, c, c), dtype), b1.float().contiguous())
 
 
-# K3's wgmma design (launch.WG_WIDTH; csrc/drt_block.cu: drt_block_wg): its
-# output tile and stage 1's region around it, and the bytes of a weight
-# tile's row (one 128-byte swizzle row: 64 bfloat16 or 32 float32 input
-# channels, a "k-block")
-WG_TILE = (14, 30)
-WG_REGION = (16, 32)
-_WG_ROW = 128
-
-
-def wg_image(stack):
-    """The wgmma design's weights: :func:`tc_weights`' ``(NW, ..., 64, c_in)``
-    taps (``c_in`` 64) as the shared-memory image the kernel's bulk copies
-    move and its wgmma descriptors read, ``(..., KB, NW, 64, 128 bytes)``:
-    each tap split into ``KB`` k-blocks of 128 bytes of input channels (1
-    in bfloat16, 2 in float32), each k-block's ``NW`` terms (the TF32 head
-    and tail) one ring stage of ``NW`` 64-row tiles, K-major (output channel
-    n's row holds its input channels) and 128-byte swizzled: the 16-byte
-    chunk j of row n sits at chunk ``j ^ (n % 8)``. One gather through a
-    permutation cached per shape, type and device (the wrapper packs the
-    weights at every launch)."""
-    nw, *lead, n, k = stack.shape
-    per_row = _WG_ROW // stack.element_size()
-    perm = _wg_perm(tuple(stack.shape), stack.element_size(), stack.device)
-    return stack.reshape(-1)[perm].reshape(*lead, k // per_row, nw, n, per_row)
-
-
-_WG_PERMS: dict = {}
-
-
-def _wg_perm(shape, elt, device):
-    """The flat source index of each element of :func:`wg_image`'s output
-    for a ``shape`` stack of ``elt``-byte values: the image's layout
-    applied to ``arange``."""
-    key = (shape, elt, str(device))
-    if key not in _WG_PERMS:
-        nw, *_, n, k = shape
-        per_row, vec = _WG_ROW // elt, 16 // elt  # channels of a k-block, of a 16-byte chunk
-        t = torch.arange(math.prod(shape))
-        t = t.reshape(nw, -1, n, k // per_row, per_row // vec, vec)
-        rows = torch.arange(n).reshape(1, 1, n, 1, 1, 1)
-        chunks = torch.arange(per_row // vec).reshape(1, 1, 1, 1, -1, 1)
-        t = torch.gather(t, 4, (chunks ^ (rows % 8)).expand(t.shape))
-        _WG_PERMS[key] = t.permute(1, 3, 0, 2, 4, 5).reshape(-1).to(device)
-    return _WG_PERMS[key]
-
-
-def wg_tile_walk(b: int, h: int, w: int, sms: int):
-    """The wgmma design's persistent walk over ``b`` samples of ``h x w``:
-    ``(grid, [[(sample, y0, x0) of each tile block k runs] for k in
-    range(grid)])``, grid = min(tiles, sms); block k takes tiles k, k +
-    grid, ... in (sample, tile row, tile column) order, each the output
-    pixels ``[y0, y0 + 14) x [x0, x0 + 30)`` inside the image
-    (``drt_block_wg``'s loop, in the same order)."""
-    th, tw = WG_TILE
-    nty, ntx = -(-h // th), -(-w // tw)
-    tiles = [(s, ty * th, tx * tw) for s in range(b) for ty in range(nty) for tx in range(ntx)]
-    grid = min(len(tiles), sms)
-    return grid, [tiles[k::grid] for k in range(grid)]
-
-
 def _kernel_weights(x, weights):
     """The weights as the design at x's width takes them: the wgmma
     design's images (:func:`wg_image`) at ``launch.WG_WIDTH``, else
     :func:`drt_block_args`' operands as they are."""
-    if drt_block_design("drt_block", x.shape[-1], x.dtype)[0] != "wgmma":
+    if kernel_design("drt_block", x.shape[-1], x.dtype)[0] != "wgmma":
         return weights
     w2, b2, g, pk, w1, b1 = weights
     return wg_image(w2), b2, g, wg_image(pk), wg_image(w1), b1
@@ -570,10 +595,63 @@ def head_args(x, hr_k, hr_b, last_k, last_b):
     return whr, hr_b.float().contiguous(), wl, last_b.float().contiguous()
 
 
+# the channel order of a k-step of 8 in which head_wg's stage 2 takes its A
+# fragment straight from its sum registers: lane t holds channels 2 t and
+# 2 t + 1, the fragment's k-slots t and t + 4
+_HEAD_K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def head_last_image(last_k):
+    """The wgmma head's c -> 3 stage as one GEMM's B operand: ``W'`` with a
+    column ``n = 3 tap + o`` for each tap and output channel (27, zero
+    columns to 32) and a row for each hidden channel, ``W'[c, n] =
+    last_k[tap // 3, tap % 3, c, o]``, its channels taken in
+    ``_HEAD_K_ORDER`` within each group of 8, split for 3xTF32
+    (:func:`tf32_split`) and laid out by :func:`wg_image`: ``(2 k-blocks, 2
+    terms, 32, 32)`` float32. One gather from the split weights through a
+    permutation cached per shape and device."""
+    src = F.pad(torch.stack(tf32_split(last_k)).reshape(2, -1), (0, 1))  # a zero at the end
+    perm = _head_last_perm(tuple(last_k.shape), last_k.device)
+    return src.reshape(-1)[perm]
+
+
+_HEAD_PERMS: dict = {}
+
+
+def _head_last_perm(shape, device):
+    """The flat index into the two split terms of a ``shape`` W_last, each
+    followed by one zero, of each element of :func:`head_last_image`'s
+    output: ``W'``'s layout built on indices, then :func:`wg_image`'s."""
+    key = (shape, str(device))
+    if key not in _HEAD_PERMS:
+        kh, kw, c, co = shape
+        size = kh * kw * c * co + 1  # a term and its zero
+        n = torch.arange(32)
+        tap, o = n // co, n % co
+        chan = (torch.arange(c // 8)[:, None] * 8 + torch.tensor(_HEAD_K_ORDER)).reshape(-1)
+        idx = (tap[:, None] * c + chan[None, :]) * co + o[:, None]  # (32, c)
+        idx = torch.where(n[:, None] < kh * kw * co, idx, size - 1)
+        logical = torch.stack([idx, idx + size])  # (2 terms, 32, c)
+        _HEAD_PERMS[key] = wg_image(logical.to(torch.int32)).long().to(device)
+    return _HEAD_PERMS[key]
+
+
+def _head_weights(weights, last_k, c, dtype):
+    """K4's weights as the design at width ``c`` takes them: at
+    ``launch.WG_WIDTH`` the wgmma design's images (:func:`wg_image` of W_hr's
+    two terms, :func:`head_last_image`), else :func:`head_args`' operands as
+    they are."""
+    if kernel_design("head", c, dtype)[0] != "wgmma":
+        return weights
+    whr, bhr, _, bl = weights
+    return wg_image(whr), bhr, head_last_image(last_k), bl
+
+
 def _head_kernel(x, hr_k, hr_b, last_k, last_b):
     """The op's CUDA implementation: the weights repacked, K4's launch (or
     its two launches, counted as one, above the one-launch width)."""
-    weights = head_args(x, hr_k, hr_b, last_k, last_b)
+    weights = _head_weights(head_args(x, hr_k, hr_b, last_k, last_b), last_k, x.shape[-1],
+                            x.dtype)
     check_cuda_args("head", (x,), weights)
     b, h, w, c = x.shape
     out = torch.empty((b, h, w, 3), dtype=x.dtype, device=x.device)

@@ -25,7 +25,7 @@ from .build import library
 __all__ = [
     "LAUNCHES", "reset_launches", "on_cpu", "check_cuda_args", "launch", "call", "plain_grads",
     "SMEM_MAX", "MAX_WIDTH", "ONE_LAUNCH_WIDTH", "check_width", "launch_form", "WG_WIDTH",
-    "drt_block_design",
+    "WG_KERNELS", "kernel_design",
 ]
 
 LAUNCHES = {"warp": 0, "warp_block": 0, "input_conv": 0, "drt_block": 0,
@@ -72,16 +72,21 @@ def launch_form(name: str, c: int, dtype: torch.dtype) -> int:
     return 2 if top is not None and c > top else 1
 
 
-# K3 and K3s run the wgmma design (csrc/drt_block.cu: drt_block_wg) at this
-# width, the width of every model path, and the mma.sync design at any other;
-# the C entry picks it by the same rule and refuses what neither takes
+# K2, K3 (and K3s) and K4 run their wgmma designs (csrc/input_conv.cu:
+# input_conv_wg, drt_block.cu: drt_block_wg, head.cu: head_wg) at this
+# width, the width of every model path, and their mma.sync designs at any
+# other; each C entry picks by the same rule and refuses what neither takes
 WG_WIDTH = 64
+WG_KERNELS = ("input_conv", "drt_block", "drt_block_select", "head")
 
 
-def drt_block_design(name: str, c: int, dtype: torch.dtype) -> tuple[str, int]:
-    """Which code K3 (or K3s) runs at width ``c`` in ``dtype``, and its
-    launches: ``("wgmma", 1)`` at ``WG_WIDTH``, else ``("mma.sync",``
-    :func:`launch_form` ``)``. A dispatch by shape, the same in both types."""
+def kernel_design(name: str, c: int, dtype: torch.dtype) -> tuple[str, int]:
+    """Which code K2, K3, K3s or K4 (``name``) runs at width ``c`` in
+    ``dtype``, and its launches: ``("wgmma", 1)`` at ``WG_WIDTH``, else
+    ``("mma.sync",`` :func:`launch_form` ``)``. A dispatch by shape, the
+    same in both types."""
+    if name not in WG_KERNELS:
+        raise ValueError(f"{name}: not a kernel with a wgmma design ({WG_KERNELS})")
     form = launch_form(name, c, dtype)
     return ("wgmma", 1) if c == WG_WIDTH else ("mma.sync", form)
 

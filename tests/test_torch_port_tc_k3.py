@@ -10,7 +10,7 @@ those read-back operands (its 14 x 30 output tiles, 16 x 32 stage-1
 regions, zero padding and partition gates) against ``drt_block_plain``
 within 1e-5; the persistent tile walk covering every output pixel exactly
 once (``drt_stack.wg_tile_walk``, the kernel's loop); the width dispatch
-(``launch.drt_block_design``); and the arguments the wrappers hand the C
+(``launch.kernel_design``); and the arguments the wrappers hand the C
 entry: the images at 64 channels, ``tc_weights``' operands at any other
 width.
 
@@ -190,11 +190,11 @@ def test_width_dispatch():
             64: (("wgmma", 1), ("wgmma", 1)), 128: (("mma.sync", 1), ("mma.sync", 1)),
             216: (("mma.sync", 2), ("mma.sync", 1)), 392: (("mma.sync", 2), ("mma.sync", 2))}
     for c, (f32, bf16) in want.items():
-        assert kl.drt_block_design("drt_block", c, F32) == f32, c
-        assert kl.drt_block_design("drt_block", c, BF16) == bf16, c
-    assert kl.drt_block_design("drt_block_select", 64, BF16) == ("wgmma", 1)
+        assert kl.kernel_design("drt_block", c, F32) == f32, c
+        assert kl.kernel_design("drt_block", c, BF16) == bf16, c
+    assert kl.kernel_design("drt_block_select", 64, BF16) == ("wgmma", 1)
     with pytest.raises(ValueError, match="K3s takes 64 channels only"):
-        kl.drt_block_design("drt_block_select", 128, F32)
+        kl.kernel_design("drt_block_select", 128, F32)
 
 
 @pytest.mark.parametrize("c,select", [(64, False), (64, True), (128, False)])
