@@ -17,6 +17,11 @@ Phases (any failure raises and the script exits non-zero):
    must hold HGMMA in each of their device functions (2, 4 and 2) and
    spill nothing: their registers, stack and spills are printed, and a
    spill, or fewer such functions in the compiler's report, fails the run;
+   the copy probes K13 (``ring_copy_kernel``, ``stream_copy_kernel``) and
+   K6 (``window_copy_kernel``) spill nothing, K13's bulk-copy design
+   (``ring_copy_kernel``) holds the bulk copy's SASS (``UBLKCP``), and
+   ``ring_copy``'s shared memory at depths 0..9 is its wrapper's mirror's
+   (``probes.ring_schedule``) and fits;
 3. each kernel against its plain PyTorch version at the main path's shapes
    (b=1, 720x1280, 64 channels), at b=4 on a smaller frame (256x448) and at
    ragged sizes (36x52; 40x56 for K1b, which needs multiples of 8), in
@@ -136,8 +141,9 @@ Phases (any failure raises and the script exits non-zero):
    (k5, bf16 out) or ``torch.mul`` on the strided window (K6 without a
    period) and beside its bound (``tools/torch_kernel_bounds.py``'s work
    functions on this run's shapes and, for K7, the non-zeros of its S and
-   vm); and K10 in bf16 and int8 at K5's geometry (720x1280, 64 -> 64)
-   beside K5 and one cuDNN conv, a measurement only;
+   vm), each stage three ways (PROBE TIMING below); and K10 in bf16 and
+   int8 at K5's geometry (720x1280, 64 -> 64) beside K5 and one cuDNN
+   conv, a measurement only;
 13. the probes that move data (B10b): ``tools/torch_warp_kernel_probe.py``
    and ``tools/torch_dma_probe.py`` (manual, then pipelined) at their JAX
    files' shapes on the card, the probe counts zeroed before and read
@@ -146,7 +152,25 @@ Phases (any failure raises and the script exits non-zero):
    on the same inputs, timed in turns beside it, beside ``torch.mul`` on
    the strided window (probe_floor) or ``z.clone()`` (the copies that
    write the array out), and beside its bound (K11's and K12's input bytes
-   the distinct pixels this run's tables pick);
+   the distinct pixels this run's tables pick), each stage three ways
+   (PROBE TIMING below); ``ring_copy`` also at depths 0 and 9 (split 4,
+   both outputs).
+
+   PROBE TIMING (phases 12 and 13). (i) ``ms``: the old method, CUDA
+   events over the JAX file's n back-to-back calls on one input after a
+   warm-up: what the host enqueues as much as what the card does, and the
+   input warm in the 50 MB L2 where it fits or half fits. (ii)
+   ``cold_ms``, for a stage whose inputs pass the L2 (50 MB): the same
+   events over calls that rotate over copies of the inputs (and so of the
+   outputs) totalling at least 150 MB, at least three, so that every call
+   finds its input and output cold, kernel, plain version and library call
+   in turns. (iii) ``device_ms``, for a stage whose kernel reads under 0.1
+   ms by (i): the kernel's calls over the rotated copies captured in one
+   CUDA graph (at least n, at least one round of the copies) after a
+   warm-up and replayed, and the library call's likewise: the device's
+   time without the host's. A kernel reading above 105% of its bound by
+   (ii) or (iii), or by (i) where neither applies, fails the phase (the
+   plain versions are exempt: without ``write_out`` K13's reads 2 KB);
 14. the generator's other forms, built through ``build_generator`` from the
    training config at full width (64 channels, 8 blocks, 6 experts,
    deform_groups 16) with seeded weights, each DCN aligner's offset head
@@ -451,6 +475,11 @@ TC_SASS_NAMES = ("input_conv_tc", "input_conv_wg", "drt_block_tc", "drt_block_wg
 # has (two types; K3 with and without the select): each must hold HGMMA and
 # spill nothing
 WG_SASS_NAMES = {"input_conv_wg": 2, "drt_block_wg": 4, "head_wg": 2}
+# the probe kernels that only move data (K13's two, K6); K13's ring_copy
+# moves them with the bulk-copy engine
+COPY_NAMES = ("ring_copy_kernel", "stream_copy_kernel", "window_copy_kernel")
+BULK_SASS_NAMES = ("ring_copy_kernel",)
+BULK_SASS_OP = "UBLKCP"  # cp.async.bulk, both ways, on sm_90a
 # each model kernel's device functions as the profiler names them (K3 and
 # K3s are one kernel with other template arguments; K2-K4 run their *_wg
 # function at 64 channels, their *_tc ones at the other widths)
@@ -487,9 +516,8 @@ def _smem(lib, name, c, dtype_code):
     return fn(c, dtype_code) if SMEM_REPORT[name] else fn(c)
 
 
-def _tensor_core_sass(lib):
-    """{device function: {"HMMA": n, "HGMMA": n}} of the tensor-core K2-K5
-    kernels in the built library, from cuobjdump where the toolkit has it
+def _sass(lib):
+    """The built library's SASS from cuobjdump, where the toolkit has it
     (None where it does not)."""
     from pnp_vcve_torch.kernels.build import nvcc_path
 
@@ -497,21 +525,27 @@ def _tensor_core_sass(lib):
     tool = Path(nvcc).parent / "cuobjdump" if nvcc else None
     if tool is None or not tool.exists():
         return None
-    sass = subprocess.run([str(tool), "-sass", str(lib.path)], capture_output=True, text=True,
+    return subprocess.run([str(tool), "-sass", str(lib.path)], capture_output=True, text=True,
                           check=True).stdout
-    counts, cur = {}, None
+
+
+def _sass_ops(sass, names):
+    """{device function: {opcode: count}} of the functions whose name holds
+    one of ``names`` (an opcode without its predicate and modifiers)."""
+    import re
+
+    ops, cur = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             cur = line.split("Function :")[1].strip()
-            if not any(k in cur for k in TC_SASS_NAMES):
-                cur = None
-            else:
-                counts.setdefault(cur, {"HMMA": 0, "HGMMA": 0})
-        elif cur and "HGMMA" in line:
-            counts[cur]["HGMMA"] += 1
-        elif cur and "HMMA" in line:
-            counts[cur]["HMMA"] += 1
-    return counts
+            cur = cur if any(k in cur for k in names) else None
+            if cur:
+                ops.setdefault(cur, {})
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if cur and m:
+            ops[cur][m.group(1)] = ops[cur].get(m.group(1), 0) + 1
+    return ops
 
 
 def _ptxas_report(log, name):
@@ -561,7 +595,10 @@ def phase_build():
           f"unless named): {smem}")
     print(f"[build] one-launch widths (K3, K4; two launches above): "
           f"{ {f'{n} {str(d)[6:]}': c for (n, d), c in ONE_LAUNCH_WIDTH.items()} }")
-    sass = _tensor_core_sass(lib)
+    text = _sass(lib)
+    sass = None if text is None else {
+        fn: {"HMMA": o.get("HMMA", 0), "HGMMA": o.get("HGMMA", 0)}
+        for fn, o in _sass_ops(text, TC_SASS_NAMES).items()}
     if sass is None:
         print("[build] cuobjdump not found: no HMMA/HGMMA count")
     else:
@@ -590,6 +627,35 @@ def phase_build():
         if len(wg) != want or spills:
             raise AssertionError(f"{name}: {len(wg)} device functions in the compiler's report "
                                  f"(want {want}); spilling: {spills}")
+
+    # the copy kernels K13 and K6: none may spill; ring_copy must hold the
+    # bulk copy's SASS (UBLKCP), and its shared memory is the wrapper's
+    # mirror's (kernels/probes.py: ring_schedule)
+    from pnp_vcve_torch.kernels import probes
+
+    copy = {fn: r for name in COPY_NAMES for fn, r in _ptxas_report(lib.log, name).items()}
+    for fn, r in copy.items():
+        print(f"[build] {fn}: {r.get('registers')} registers, stack {r.get('stack')} B, spill "
+              f"stores {r.get('spill_stores')} B, spill loads {r.get('spill_loads')} B")
+    spills = {fn: r for fn, r in copy.items() if r.get("spill_stores") or r.get("spill_loads")}
+    if len(copy) != len(COPY_NAMES) or spills:
+        raise AssertionError(f"copy kernels: {sorted(copy)} in the compiler's report (want one "
+                             f"each of {COPY_NAMES}); spilling: {spills}")
+    if text is not None:
+        ops = _sass_ops(text, BULK_SASS_NAMES)
+        for fn, o in ops.items():
+            print(f"[build] {fn}: {BULK_SASS_OP} {o.get(BULK_SASS_OP, 0)}, SYNCS "
+                  f"{o.get('SYNCS', 0)}, LDG {o.get('LDG', 0)}, STG {o.get('STG', 0)}")
+        if len(ops) != len(BULK_SASS_NAMES) or not all(o.get(BULK_SASS_OP) for o in ops.values()):
+            raise AssertionError(f"bulk-copy design without {BULK_SASS_OP}: "
+                                 f"{ {fn: o.get(BULK_SASS_OP, 0) for fn, o in ops.items()} }")
+    ring_smem = [lib.lib.pnp_ring_copy_smem(128, d, 4) for d in range(probes.RING_MAX_DEPTH + 1)]
+    mirror = [probes.ring_schedule((1, 8, 8, 128), 4, d, 1)["smem"]
+              for d in range(probes.RING_MAX_DEPTH + 1)]
+    print(f"[build] ring_copy shared memory by depth 0..9: {ring_smem}")
+    if ring_smem != mirror or max(ring_smem) > SMEM_MAX:
+        raise AssertionError(f"ring_copy's shared memory {ring_smem} is not its mirror's {mirror} "
+                             f"or passes {SMEM_MAX}")
 
     # the wrappers' width limits are the widest blocks the sources' formulas fit
     def fits(n, c, code=0):
@@ -1975,12 +2041,13 @@ def _probe_check(tag, got, ref, rule):
 
 def _probe_cases(int8, warp2, bisect):
     """One dict per stage of the three probe tools: the kernel it times, its
-    TPU function, the timed call and its plain version on the same inputs,
-    the comparison rule, one PyTorch call computing the same function (or
-    None) and, where it gives the kernel's dtype, the part of the kernel's
-    output it gives (held to it by the same rule), the reps the JAX file
-    times over, and the work (bytes, operations by type) of this run's
-    inputs (tools/torch_kernel_bounds.py)."""
+    TPU function, the timed call and its inputs, its plain version, the
+    comparison rule, one PyTorch call computing the same function (or None)
+    and, where it gives the kernel's dtype, the part of the kernel's output
+    it gives (held to it by the same rule), the reps the JAX file times
+    over, and the work (bytes, operations by type) of this run's inputs
+    (tools/torch_kernel_bounds.py). The plain version and the library call
+    take the inputs as one tuple, so that they can run on copies of them."""
     import torch
     import torch.nn.functional as F
 
@@ -1990,66 +2057,66 @@ def _probe_cases(int8, warp2, bisect):
     cases = []
 
     def add(kernel, tpu, res, plain, rule, library, reps, work, out=None, lib_of=None):
-        fn, args = res["fn"], res["args"]
         cases.append(dict(kernel=kernel, tpu=tpu, out=res["out"] if out is None else out,
-                          kern=lambda: fn(*args), plain=plain, rule=rule, library=library,
-                          lib_of=lib_of, reps=reps, work=work))
+                          fn=res["fn"], args=res["args"], plain=plain, rule=rule,
+                          library=library, lib_of=lib_of, reps=reps, work=work))
 
     # tools/int8_probe.py
     r = int8["bf16 matmul"]
     a, b = r["args"]
     m, k = a.shape
     n = b.shape[1]
-    add("matmul", "k1 bf16 matmul (:70)", r, lambda: P.matmul_plain(a, b), "rel",
-        lambda: torch.matmul(a, b), 100, kb.matmul_work(m, k, n, "bf16"))
+    add("matmul", "k1 bf16 matmul (:70)", r, lambda a: P.matmul_plain(*a), "rel",
+        lambda a: torch.matmul(*a), 100, kb.matmul_work(m, k, n, "bf16"))
     r = int8["int8 matmul"]
-    aq, bq = r["args"]
-    add("matmul", "k2 int8 matmul (:80)", r, lambda: P.matmul_plain(aq, bq), "bitwise",
-        lambda: torch._int_mm(aq, bq), 100, kb.matmul_work(m, k, n, "int8", out_bytes=4),
+    add("matmul", "k2 int8 matmul (:80)", r, lambda a: P.matmul_plain(*a), "bitwise",
+        lambda a: torch._int_mm(*a), 100, kb.matmul_work(m, k, n, "int8", out_bytes=4),
         lib_of=lambda o: o)
     r = int8["quantize-in-kernel + int8 matmul"]
-    a3, b3 = r["args"]
+    a3, _ = r["args"]
 
-    def k3_plain():
-        q, s = P.absmax_quantize_plain(a3)
-        return P.matmul_plain(q, b3, s)
+    def k3_plain(a):
+        q, s = P.absmax_quantize_plain(a[0])
+        return P.matmul_plain(q, a[1], s)
 
     add("matmul", "k3 K9 + int8 matmul (:100)", r, k3_plain, "bitwise", None, 100,
         kb.quantized_matmul_work(m, k, n))
     res_q = dict(fn=P.absmax_quantize, args=(a3,), out=None)
-    add("absmax_quantize", "k3's quantize (:100)", res_q, lambda: P.absmax_quantize_plain(a3),
+    add("absmax_quantize", "k3's quantize (:100)", res_q, lambda a: P.absmax_quantize_plain(*a),
         "bitwise", None, 100, kb.quantize_work(a3.numel()), out=P.absmax_quantize(a3))
     r = int8["bf16 tap-conv (same geometry)"]  # K10's headline: it has a library call
     band_bf, w_bf = r["args"]
     c2 = band_bf.shape[2]
     rows, cols, cout = r["out"].shape
-    x_cl = band_bf.permute(2, 0, 1)[None, :, :rows + 2, :cols + 2]  # NCHW view, channels last
     w_oihw = w_bf.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    add("tapconv", "k5 bf16 tap conv (:148)", r, lambda: P.tapconv_plain(band_bf, w_bf, rows, cols),
-        "rel", lambda: F.conv2d(x_cl, w_oihw), 50, kb.tapconv_work(rows, cols, c2, cout, "bf16"))
+    add("tapconv", "k5 bf16 tap conv (:148)", r,
+        lambda a: P.tapconv_plain(*a, rows, cols), "rel",
+        # an NCHW view, channels last, of the band's first rows + 2 x cols + 2
+        lambda a: F.conv2d(a[0].permute(2, 0, 1)[None, :, :rows + 2, :cols + 2], w_oihw), 50,
+        kb.tapconv_work(rows, cols, c2, cout, "bf16"))
 
     r = int8["int8 tap-conv (strided slices)"]
     band, wq = r["args"]
 
-    def k4_plain():
-        q, s = P.absmax_quantize_plain(band)
-        return P.tapconv_plain(q, wq, rows, cols, s)
+    def k4_plain(a):
+        q, s = P.absmax_quantize_plain(a[0])
+        return P.tapconv_plain(q, a[1], rows, cols, s)
 
     add("tapconv", "k4 K9 + int8 tap conv (:127)", r, k4_plain, "bitwise", None, 50,
         kb.quantized_tapconv_work(*band.shape[:2], rows, cols, c2, cout))
     add("absmax_quantize", "k4's quantize (:127)", dict(fn=P.absmax_quantize, args=(band,)),
-        lambda: P.absmax_quantize_plain(band), "bitwise", None, 50,
+        lambda a: P.absmax_quantize_plain(*a), "bitwise", None, 50,
         kb.quantize_work(band.numel()), out=P.absmax_quantize(band))
     # tools/warp_kernel_probe2.py
     r = warp2["band DMA floor (128-lane)"]
     src, oh, ow, y0, x0 = r["args"]
-    add("window_copy", "probe_floor128 (:78)", r, lambda r=r: P.window_copy_plain(*r["args"]),
-        "bitwise", lambda a=r["args"]: torch.mul(a[0][:, a[3]:a[3] + a[1], a[4]:a[4] + a[2]], 2),
+    add("window_copy", "probe_floor128 (:78)", r, lambda a: P.window_copy_plain(*a),
+        "bitwise", lambda a: torch.mul(a[0][:, a[3]:a[3] + a[1], a[4]:a[4] + a[2]], 2),
         30, kb.copy_work(1, oh, oh, ow, src.shape[3]), lib_of=lambda o: o)
     r = warp2["matmul-select H + dense V"]
     xp, s_all, vm = r["args"]
     nb, nt, _, kw = s_all.shape
-    add("mmsel", "probe_mmsel (:126)", r, lambda: P.mmsel_warp_plain(xp, s_all, vm), "bf16",
+    add("mmsel", "probe_mmsel (:126)", r, lambda a: P.mmsel_warp_plain(*a), "bf16",
         None, 30, kb.mmsel_work(nb, nt, kw, xp.shape[3], vm.shape[2] + 7, nt * 128, vm.shape[2],
                                 s_nnz=int((s_all != 0).sum()), vm_nnz=int((vm != 0).sum())))
 
@@ -2061,10 +2128,8 @@ def _probe_cases(int8, warp2, bisect):
         if form == "fori":  # the library's (rows, 128, lanes) is columns 0..127 of the output
             _, s1, nbb, j0, w_out = r["args"]
             kw = s1.shape[3]
-            add("mmsel", f"k_fori_dot({lanes}) (:105)", r,
-                lambda r=r: P.mmsel_h_plain(*r["args"]), "bf16",
-                lambda x=x, s1=s1, j0=j0, nbb=nbb, kw=kw:
-                    torch.matmul(s1[0, 0], x[0, j0:j0 + 8 * nbb, :kw]),
+            add("mmsel", f"k_fori_dot({lanes}) (:105)", r, lambda a: P.mmsel_h_plain(*a), "bf16",
+                lambda a, kw=kw: torch.matmul(a[1][0, 0], a[0][0, a[3]:a[3] + 8 * a[2], :kw]),
                 30, kb.mmsel_work(nbb, 1, kw, lanes, 8, w_out, s_bands=1,
                                   s_nnz=int((s1 != 0).sum())),
                 lib_of=lambda o: o[0, :, :P.TILE])
@@ -2073,9 +2138,9 @@ def _probe_cases(int8, warp2, bisect):
             period = period[0] if period else 0
             rows_in = min(period, oh) if period else oh
             add("window_copy", f"k_{form}({lanes}) (:{52 if form == 'dma' else 72})", r,
-                lambda r=r: P.window_copy_plain(*r["args"]), "bitwise",
-                lambda x=x, y0=y0, x0=x0, oh=oh, ow=ow, n=rows_in, c=lanes: torch.mul(
-                    x[:, y0:y0 + n, x0:x0 + ow].unsqueeze(1).expand(-1, oh // n, -1, -1, -1),
+                lambda a: P.window_copy_plain(*a), "bitwise",
+                lambda a, y0=y0, x0=x0, oh=oh, ow=ow, n=rows_in, c=lanes: torch.mul(
+                    a[0][:, y0:y0 + n, x0:x0 + ow].unsqueeze(1).expand(-1, oh // n, -1, -1, -1),
                     2).reshape(1, oh, ow, c),
                 30, kb.copy_work(1, rows_in, oh, ow, lanes), lib_of=lambda o: o)
     return cases
@@ -2162,28 +2227,146 @@ def phase_probes(dev, smi):
     return out
 
 
+L2_BYTES = 50 * 2**20     # the H100's L2
+COLD_BYTES = 150 * 10**6  # rotated copies of a stage's inputs total at least this
+DEVICE_BELOW_MS = 0.1     # a kernel this fast by the old method also gets its device time
+BOUND_GATE = 1.05         # no kernel reading may pass its bound by more than 5%
+
+
+def _nbytes(args):
+    import torch
+
+    return sum(a.nbytes for a in args if isinstance(a, torch.Tensor))
+
+
+def _rotation(args):
+    """``args`` and copies of it (every tensor cloned): at least three, and
+    at least ``COLD_BYTES`` of inputs together."""
+    import torch
+
+    k = max(3, -(-COLD_BYTES // max(_nbytes(args), 1)))
+    return [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+                     for _ in range(k - 1)]
+
+
+def _rotated_ms(f, sets, n):
+    """Milliseconds a call of ``f`` over n calls that take the argument sets
+    in turn (CUDA events), after one call on each set; the last k outputs
+    stay alive, so the outputs rotate as well."""
+    import torch
+
+    outs = [f(a) for a in sets]
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(n):
+        outs[i % len(sets)] = f(sets[i % len(sets)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _graph_ms(f, sets, n, replays=3):
+    """Device milliseconds a call of ``f``: max(n, len(sets)) calls over the
+    argument sets in turn, captured in one CUDA graph (each output kept, so
+    none is reused) after a warm-up on every set, replayed once, then timed
+    over ``replays`` replays."""
+    import torch
+
+    calls = max(n, len(sets))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in sets:
+            f(a)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    outs = []
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for i in range(calls):
+            outs.append(f(sets[i % len(sets)]))
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph, outs
+    return ms
+
+
 def _probe_rows(cases, smi):
     """Each case's kernel output against its plain version (and the library
     call's against the kernel's, where it gives the kernel's dtype), then
-    timed in turns beside the library call and the bound: {kernel: [row]}."""
+    timed in turns beside the library call and the bound, by the old
+    method, cold and on the device where each applies (PROBE TIMING in the
+    module's notes); a kernel reading above ``BOUND_GATE`` times what its
+    bound allows fails: {kernel: [row]}."""
+    import torch
+
     import torch_kernel_bounds as kb
 
     rows = {}
     for c in cases:
         tag = f"{c['kernel']}: {c['tpu']}"
-        err = _probe_check(tag, c["out"], c["plain"](), c["rule"])
+        args = c["args"]
+        kern = lambda a, fn=c["fn"]: fn(*a)  # noqa: E731
+        err = _probe_check(tag, c["out"], c["plain"](args), c["rule"])
         if c["lib_of"]:
-            _probe_check(f"{tag}: library call", c["library"](), c["lib_of"](c["out"]), c["rule"])
-        p1, k1, k2, p2 = (_timed(f, c["reps"]) for f in (c["plain"], c["kern"], c["kern"],
-                                                         c["plain"]))
-        lib = _timed(c["library"], c["reps"]) if c["library"] else None
+            _probe_check(f"{tag}: library call", c["library"](args), c["lib_of"](c["out"]),
+                         c["rule"])
+        # (i) the old method: back to back on one input, host enqueue included
+        p1, k1, k2, p2 = (_timed(lambda f=f: f(args), c["reps"])
+                          for f in (c["plain"], kern, kern, c["plain"]))
+        lib = _timed(lambda: c["library"](args), c["reps"]) if c["library"] else None
         b_ms, by, t_bytes, t_ops = kb.bound(c["work"])
+        in_bytes = _nbytes(args)
+        sets = _rotation(args)
+        cold = dict(cold_ms=None, plain_cold_ms=None, library_cold_ms=None)
+        if in_bytes > L2_BYTES:  # (ii) cold, in turns
+            fns = {"plain": c["plain"], "kernel": kern, "library": c["library"]}
+            t = {n: [] for n in fns}
+            for n in ("plain", "kernel", "library", "library", "kernel", "plain"):
+                if fns[n] is not None:
+                    t[n].append(_rotated_ms(fns[n], sets, c["reps"]))
+            cold = dict(cold_ms=sum(t["kernel"]) / 2, plain_cold_ms=sum(t["plain"]) / 2,
+                        library_cold_ms=sum(t["library"]) / 2 if t["library"] else None)
+        dev = dict(device_ms=None, library_device_ms=None)
+        if min(k1, k2) < DEVICE_BELOW_MS:  # (iii) the device's time
+            dev["device_ms"] = _graph_ms(kern, sets, c["reps"])
+            if c["library"] is not None:
+                try:
+                    dev["library_device_ms"] = _graph_ms(c["library"], sets, c["reps"])
+                except RuntimeError as e:  # a library call that a graph cannot hold
+                    print(f"[probes] {tag}: the library call in a CUDA graph failed: "
+                          f"{repr(e)[:300]}; its device time not measured")
+                    torch.cuda.synchronize()
+        ncopies = len(sets)
+        del sets
         row = dict(tpu=c["tpu"], max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                   bound_ms=b_ms, bound_by=by, library_ms=lib, **c.get("extra", {}))
+                   bound_ms=b_ms, bound_by=by, library_ms=lib, **cold, **dev,
+                   in_bytes=in_bytes, **c.get("extra", {}))
         rows.setdefault(c["kernel"], []).append(row)
-        print(f"[time] {tag}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
-              f"library {'none' if lib is None else f'{lib:.4f} ms'}; bound {b_ms:.4f} ms "
-              f"({by}: bytes {t_bytes:.4f}, ops {t_ops:.4f}); {smi}")
+
+        def f4(v):
+            return "not measured" if v is None else f"{v:.4f} ms"
+
+        print(f"[time] {tag}: host-enqueue (warm, back to back) kernel {k1:.4f} / {k2:.4f} ms, "
+              f"plain {p1:.4f} / {p2:.4f} ms, library {f4(lib)}; cold (rotated over "
+              f"{ncopies} x {in_bytes / 1e6:.1f} MB) kernel "
+              f"{f4(cold['cold_ms'])}, plain {f4(cold['plain_cold_ms'])}, library "
+              f"{f4(cold['library_cold_ms'])}; device (CUDA graph) kernel "
+              f"{f4(dev['device_ms'])}, library {f4(dev['library_device_ms'])}; bound "
+              f"{b_ms:.4f} ms ({by}: bytes {t_bytes:.4f}, ops {t_ops:.4f}); {smi}")
+        readings = [v for v in (cold["cold_ms"], dev["device_ms"]) if v is not None]
+        over = [v for v in readings or [row["ms"]] if b_ms > BOUND_GATE * v]
+        if over:
+            raise AssertionError(f"{tag}: kernel reading {over} ms is above {BOUND_GATE:.0%} of "
+                                 f"its bound {b_ms:.4f} ms: a measurement error")
     return rows
 
 
@@ -2192,7 +2375,7 @@ def _probe_summary(rows, counts, path):
     under ``forms``; ``launches`` the path's count (``path`` names it too)."""
     return {name: dict(max_abs_err=max(r["max_abs_err"] for r in rs),
                        **{k: rs[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                "library_ms")},
+                                                "library_ms", "cold_ms", "device_ms")},
                        forms=rs, launches=counts[name], **{path: counts[name]})
             for name, rs in rows.items()}
 
@@ -2212,26 +2395,26 @@ def _probe_cases_b10b(wkp, dma):
     cases = []
 
     def add(kernel, tpu, res, plain, library, reps, work, extra=None):
-        fn, args = res["fn"], res["args"]
-        cases.append(dict(kernel=kernel, tpu=tpu, out=res["out"], kern=lambda: fn(*args),
-                          plain=plain, rule="bitwise", library=library,
+        cases.append(dict(kernel=kernel, tpu=tpu, out=res["out"], fn=res["fn"],
+                          args=res["args"], plain=plain, rule="bitwise", library=library,
                           lib_of=(lambda o: o) if library else None, reps=reps, work=work,
                           extra=extra or {}))
 
     r = wkp["band DMA floor"]
-    src, oh, ow, y0, x0 = a = r["args"]
-    add("window_copy", "probe_floor (:69)", r, lambda a=a: P.window_copy_plain(*a),
-        lambda: torch.mul(src[:, y0:y0 + oh, x0:x0 + ow], 2), 30,
+    src, oh, ow, y0, x0 = r["args"]
+    add("window_copy", "probe_floor (:69)", r, lambda a: P.window_copy_plain(*a),
+        lambda a: torch.mul(a[0][:, a[3]:a[3] + a[1], a[4]:a[4] + a[2]], 2), 30,
         kb.copy_work(1, oh, oh, ow, src.shape[3]))
     # K11 and K12: the input bytes are the distinct pixels this run's tables pick
     r = wkp["dense select (35H+35V)"]
-    xp, shidx, _, _, dyidx, _, _, sel_x0 = a = r["args"]
-    add("gather2", "probe_select (:124)", r, lambda a=a: P.gather2_plain(*a), None, 30,
+    xp, shidx, _, _, dyidx, _, _, sel_x0 = r["args"]
+    add("gather2", "probe_select (:124)", r, lambda a: P.gather2_plain(*a), None, 30,
         kb.gather2_work(shidx.cpu().numpy(), dyidx.cpu().numpy(), *xp.shape[1:], sel_x0))
     r = wkp["per-block window DMAs (320/band)"]
-    xp, sy, sx = (a := r["args"])[:3]
-    add("block_windows", "probe_dma (:179)", r, lambda a=a: P.block_windows_plain(*a), None, 30,
+    xp, sy, sx = r["args"][:3]
+    add("block_windows", "probe_dma (:179)", r, lambda a: P.block_windows_plain(*a), None, 30,
         kb.block_windows_work(sy.cpu().numpy(), sx.cpu().numpy(), *xp.shape[1:]))
+
     def writes_out(res):
         return res["args"][1 if res["fn"] is P.stream_copy else 2]
 
@@ -2242,8 +2425,8 @@ def _probe_cases_b10b(wkp, dma):
         kernel = "stream_copy" if res["fn"] is P.stream_copy else "ring_copy"
         line = 173 if kernel == "stream_copy" else 104
         add(kernel, f"{'run_pipelined' if line == 173 else 'run'} {label} (:{line})", res,
-            lambda z=z, wo=write_out: P.ring_copy_plain(z, wo),
-            (lambda z=z: z.clone()) if write_out else None, 30,
+            lambda a, wo=write_out: P.ring_copy_plain(a[0], wo),
+            (lambda a: a[0].clone()) if write_out else None, 30,
             kb.chunk_copy_work(*z.shape[1:], write_out),
             extra=dict(chained_ms=res["ms"]))
     return cases
@@ -2251,10 +2434,11 @@ def _probe_cases_b10b(wkp, dma):
 
 def phase_probes_b10b(dev, smi):
     """Phase 13: tools/torch_warp_kernel_probe.py and tools/torch_dma_probe.py
-    (both modes) at their JAX files' shapes on the card (the probe path:
-    every launch of K6 and K11-K13 counted), then each stage's kernel
-    against its plain version on the same inputs, bitwise, timed beside
-    it, the library call and the bound."""
+    (both modes; the ring at depth 3, then at depths 0 and 9 at split 4) at
+    their JAX files' shapes on the card (the probe path: every launch of K6
+    and K11-K13 counted), then each stage's kernel against its plain
+    version on the same inputs, bitwise, timed beside it, the library call
+    and the bound."""
     import torch
 
     sys.path.insert(0, str(ROOT / "tools"))
@@ -2267,6 +2451,8 @@ def phase_probes_b10b(dev, smi):
     probes.reset_launches()
     wkp = torch_warp_kernel_probe.main([])
     dma = torch_dma_probe.main([])
+    for depth in (0, 9):
+        dma.update(torch_dma_probe.main(["--split", "4", "--depth", str(depth)]))
     dma.update(torch_dma_probe.main(["--mode", "pipelined"]))
     torch.cuda.synchronize()
     counts = dict(probes.LAUNCHES)

@@ -61,8 +61,8 @@ SIGNATURES = {
     "pnp_tapconv": [_I] + [_P] * 4 + [_I] * 6 + [_P],
     "pnp_gather2": [_P] * 8 + [_I] * 6 + [_P],
     "pnp_block_windows": [_P] * 4 + [_I] * 4 + [_P],
-    "pnp_ring_copy": [_P, _P] + [_I] * 6 + [_P],
-    "pnp_stream_copy": [_P, _P] + [_I] * 4 + [_P],
+    "pnp_ring_copy": [_P, _P] + [_I] * 8 + [_P],
+    "pnp_stream_copy": [_P, _P] + [_I] * 5 + [_P],
     "pnp_ring_copy_smem": [_I] * 3,
 }
 # pnp_<name>_smem(c) return a (one-launch) block's dynamic shared memory in

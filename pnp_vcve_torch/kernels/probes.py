@@ -27,14 +27,18 @@ K13     ``ring_copy``,       ``csrc/probe_ring.cu``    dma_probe.py ``run`` (:10
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 checks device, dtype, shape, contiguity and 16-byte alignment, then launches
-its kernel or raises. This module's ``LAUNCHES`` (apart from the model
-kernels' ``launch.LAUNCHES``) counts one per kernel call (K9's two passes
+its kernel or raises. K13's persistent bulk-copy design takes its work as
+a list of items; :func:`ring_schedule` and :func:`stream_grid` compute what
+its wrappers hand the C entries, and :func:`ring_items` spells out the
+items as the kernel decodes them. This module's ``LAUNCHES`` (apart from
+the model kernels' ``launch.LAUNCHES``) counts one per kernel call (K9's two passes
 are one call; K13 counts its two kernels apart); :func:`reset_launches`
 zeroes it.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -49,7 +53,8 @@ __all__ = [
     "mmsel_h_plain", "build_s", "matmul", "matmul_plain", "absmax_quantize",
     "absmax_quantize_plain", "tapconv", "tapconv_plain", "gather2", "gather2_plain",
     "block_windows", "block_windows_plain", "ring_copy", "stream_copy", "ring_copy_plain",
-    "timed", "bf16_from_numpy",
+    "timed", "bf16_from_numpy", "sm_count", "ring_schedule", "ring_items", "ring_stage_bytes",
+    "stream_grid",
 ]
 
 TILE = 128       # output columns a tile of the selection matmul (rows of S)
@@ -62,6 +67,10 @@ GATHER_SHIFTS = 35  # K11: the TPU kernel's masked sums run over 35 shifts a pas
 GATHER_BAND = GATHER_SHIFTS - 1 + BAND_ROWS  # band rows K11's V pass can reach (42)
 RING_SPLITS = (1, 2, 4)
 RING_MAX_DEPTH = 9  # K13: a ring of depth + 1 stages, at most the TPU ring's 10 slots
+# the bulk-copy design's constants, as csrc/probe_ring.cu has them
+RING_STAGE_MAX = 49152  # K13: a stage's bytes at most
+RING_BAR_BYTES = 256    # K13's room for its mbarriers and the items its stages hold
+STREAM_BLOCKS_PER_SM = 8
 
 LAUNCHES = {"window_copy": 0, "mmsel": 0, "matmul": 0, "absmax_quantize": 0, "tapconv": 0,
             "gather2": 0, "block_windows": 0, "ring_copy": 0, "stream_copy": 0}
@@ -74,6 +83,20 @@ def reset_launches():
 
 def _call(name, entry, device, *args):
     call(name, entry, device, *args, counts=LAUNCHES)
+
+
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+@functools.cache
+def _sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev):
+    """The streaming multiprocessors of CUDA device ``dev``."""
+    return _sms(torch.device(dev).index or 0)
 
 
 def _cuda_args(name, tensors, dtypes):
@@ -483,11 +506,58 @@ def _copy_out(z, write_out):
     return torch.empty(shape, dtype=z.dtype, device=z.device)
 
 
+def ring_stage_bytes(depth):
+    """K13's stage: at most ``RING_STAGE_MAX`` bytes, a multiple of 128,
+    with ``depth + 1`` of them and the barriers within ``SMEM_MAX``."""
+    return min(RING_STAGE_MAX, (SMEM_MAX - RING_BAR_BYTES) // (depth + 1) // 128 * 128)
+
+
+def ring_schedule(shape, split, depth, sms):
+    """K13 ``ring_copy``'s work (csrc/probe_ring.cu) on an array of
+    ``shape (1, hp, wp, lanes)``: each row of each chunk's ``split`` column
+    segments (of the row's ``nvec`` 16-byte pieces) cut into ``pieces``
+    equal ranges of at most a stage, ``items`` in all, dealt to ``grid``
+    blocks (one a SM) in turn; ``smem`` a block's shared memory."""
+    _, hp, wp, lanes = shape
+    nvec = wp * lanes // 8
+    stage = ring_stage_bytes(depth)
+    pieces = _ceil_div(_ceil_div(nvec, split), stage // 16)
+    items = hp // BAND_ROWS * split * BAND_ROWS * pieces
+    return dict(nvec=nvec, stage_bytes=stage, pieces=pieces, items=items, grid=min(sms, items),
+                smem=RING_BAR_BYTES + (depth + 1) * stage)
+
+
+def ring_items(shape, split, depth, sms):
+    """K13's items as the kernel decodes them, per block: ``(chunk,
+    segment, row, first byte, end byte)``, the bytes within the row, in the
+    order the block copies them."""
+    sc = ring_schedule(shape, split, depth, sms)
+    nvec, pieces = sc["nvec"], sc["pieces"]
+    per_seg = BAND_ROWS * pieces
+    blocks = [[] for _ in range(sc["grid"])]
+    for i in range(sc["items"]):
+        chunk, rem = divmod(i, split * per_seg)
+        s, rem = divmod(rem, per_seg)
+        r, p = divmod(rem, pieces)
+        seg_lo = nvec * s // split
+        length = nvec * (s + 1) // split - seg_lo
+        lo, hi = seg_lo + length * p // pieces, seg_lo + length * (p + 1) // pieces
+        blocks[i % sc["grid"]].append((chunk, s, r, 16 * lo, 16 * hi))
+    return blocks
+
+
+def stream_grid(sms):
+    """K13 ``stream_copy``'s blocks: ``STREAM_BLOCKS_PER_SM`` a SM."""
+    return STREAM_BLOCKS_PER_SM * sms
+
+
 def ring_copy(z, split=1, write_out=True, depth=3):
     """K13, tools/dma_probe.py: run. Copies ``z (1, hp, wp, lanes)`` bf16 in
     chunks of 8 rows through a per-block ring of ``depth + 1`` shared-memory
-    stages fed by TMA bulk copies, each chunk's copy in ``split`` (1, 2 or 4)
-    column segments; returns :func:`ring_copy_plain`'s output."""
+    stages fed by TMA bulk loads and drained by TMA bulk stores, each
+    chunk's rows in ``split`` (1, 2 or 4) column segments, persistent
+    blocks taking the items in chunk order (:func:`ring_schedule`); returns
+    :func:`ring_copy_plain`'s output."""
     if split not in RING_SPLITS or not 0 <= depth <= RING_MAX_DEPTH:
         raise ValueError(f"ring_copy: need split in {RING_SPLITS} and depth in 0..{RING_MAX_DEPTH}, "
                          f"got {split}, {depth}")
@@ -495,24 +565,27 @@ def ring_copy(z, split=1, write_out=True, depth=3):
     if dev is None:
         return ring_copy_plain(z, write_out)
     _, hp, wp, lanes = z.shape
-    smem = library().lib.pnp_ring_copy_smem(lanes, depth, split)
-    if smem > SMEM_MAX:
-        raise ValueError(f"ring_copy: {depth + 1} stages of {lanes} lanes need {smem} bytes of "
-                         f"shared memory a block, above {SMEM_MAX}")
+    sc = ring_schedule(z.shape, split, depth, sm_count(dev))
+    if sc["smem"] > SMEM_MAX:
+        raise ValueError(f"ring_copy: {depth + 1} stages need {sc['smem']} bytes of shared memory "
+                         f"a block, above {SMEM_MAX}")
     out = _copy_out(z, write_out)
-    _call("ring_copy", "pnp_ring_copy", dev, z, out, hp, wp, lanes, split, depth, int(write_out))
+    _call("ring_copy", "pnp_ring_copy", dev, z, out, hp, wp, lanes, split, depth, int(write_out),
+          sc["grid"], sc["pieces"])
     return out
 
 
 def stream_copy(z, write_out=True):
     """K13, tools/dma_probe.py: run_pipelined. The same copy as
-    :func:`ring_copy` as a plain streamed copy, one block per chunk."""
+    :func:`ring_copy` as a plain streamed copy: :func:`stream_grid` blocks
+    walking the array in 16-byte pieces, streaming loads before stores."""
     dev = _copy_args("stream_copy", z)
     if dev is None:
         return ring_copy_plain(z, write_out)
     _, hp, wp, lanes = z.shape
     out = _copy_out(z, write_out)
-    _call("stream_copy", "pnp_stream_copy", dev, z, out, hp, wp, lanes, int(write_out))
+    _call("stream_copy", "pnp_stream_copy", dev, z, out, hp, wp, lanes, int(write_out),
+          stream_grid(sm_count(dev)))
     return out
 
 
