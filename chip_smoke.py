@@ -475,6 +475,10 @@ TC_SASS_NAMES = ("input_conv_tc", "input_conv_wg", "drt_block_tc", "drt_block_wg
 # has (two types; K3 with and without the select): each must hold HGMMA and
 # spill nothing
 WG_SASS_NAMES = {"input_conv_wg": 2, "drt_block_wg": 4, "head_wg": 2}
+# the probes' wgmma designs and their device functions: K7 (csrc/probe_mmsel.cu,
+# the V and the H mode) and K10 bf16 (csrc/probe_tapconv.cu, 4- and 8-row
+# items); the same gates
+PROBE_WG_SASS_NAMES = {"mmsel_wg": 2, "tapconv_wg": 2}
 # the probe kernels that only move data (K13's two, K6); K13's ring_copy
 # moves them with the bulk-copy engine
 COPY_NAMES = ("ring_copy_kernel", "stream_copy_kernel", "window_copy_kernel")
@@ -595,34 +599,51 @@ def phase_build():
           f"unless named): {smem}")
     print(f"[build] one-launch widths (K3, K4; two launches above): "
           f"{ {f'{n} {str(d)[6:]}': c for (n, d), c in ONE_LAUNCH_WIDTH.items()} }")
+    from pnp_vcve_torch.kernels import probes
+
     text = _sass(lib)
+    tc_names = TC_SASS_NAMES + tuple(PROBE_WG_SASS_NAMES)
+    wg_names = {**WG_SASS_NAMES, **PROBE_WG_SASS_NAMES}
     sass = None if text is None else {
         fn: {"HMMA": o.get("HMMA", 0), "HGMMA": o.get("HGMMA", 0)}
-        for fn, o in _sass_ops(text, TC_SASS_NAMES).items()}
+        for fn, o in _sass_ops(text, tc_names).items()}
     if sass is None:
         print("[build] cuobjdump not found: no HMMA/HGMMA count")
     else:
         for fn, count in sass.items():
             print(f"[build] tensor-core instructions in {fn}: HMMA {count['HMMA']}, "
                   f"HGMMA {count['HGMMA']}")
-        missing = [n for n in TC_SASS_NAMES if not any(n in fn for fn in sass)]
+        missing = [n for n in tc_names if not any(n in fn for fn in sass)]
         if missing or not all(sum(c.values()) for c in sass.values()):
-            raise AssertionError(f"K2-K5 kernels without tensor-core instructions: {sass}; "
-                                 f"no device function named {missing}")
+            raise AssertionError(f"K2-K5, K7, K10 kernels without tensor-core instructions: "
+                                 f"{sass}; no device function named {missing}")
         no_wgmma = [fn for fn, c in sass.items()
-                    if any(n in fn for n in WG_SASS_NAMES) and not c["HGMMA"]]
+                    if any(n in fn for n in wg_names) and not c["HGMMA"]]
         if no_wgmma:
             raise AssertionError(f"wgmma designs without HGMMA: {no_wgmma}")
-    # the wgmma designs: their registers, shared memory and spills; none may spill
+    # the wgmma designs: their registers, shared memory and spills; none may
+    # spill. The probes' shared memory at their probe shapes (K7's V mode at
+    # 720p, K10 at 16 x 320) must be their wrappers' mirrors'
+    # (kernels/probes.py: mmsel_schedule, tapconv_schedule)
+    probe_smem = {"mmsel_wg": (lib.lib.pnp_mmsel_smem(),
+                               probes.mmsel_schedule(90, 10, 64, 40, True, 132)["smem"]),
+                  "tapconv_wg": (lib.lib.pnp_tapconv_smem(),
+                                 probes.tapconv_schedule(16, 320, 128, 128, 132)["smem"])}
+    off = {n: v for n, v in probe_smem.items() if v[0] != v[1] or v[0] > SMEM_MAX}
+    if off:
+        raise AssertionError(f"probe shared memory (source, mirror) disagree or pass {SMEM_MAX}: "
+                             f"{off}")
     smem_of = {"input_conv_wg": "input_conv", "drt_block_wg": "drt_block", "head_wg": "head"}
-    for name, want in WG_SASS_NAMES.items():
+    for name, want in wg_names.items():
         wg = _ptxas_report(lib.log, name)
         for fn, r in wg.items():
             dtype = 1 if "bfloat16" in fn else 0
+            nbytes = (probe_smem[name][0] if name in probe_smem
+                      else _smem(lib, smem_of[name], 64, dtype))
             print(f"[build] {fn}: {r.get('registers')} registers at launch (setmaxnreg: "
-                  f"consumers 232, producer 40), {_smem(lib, smem_of[name], 64, dtype)} bytes of "
-                  f"dynamic shared memory, stack {r.get('stack')} B, spill stores "
-                  f"{r.get('spill_stores')} B, spill loads {r.get('spill_loads')} B")
+                  f"consumers 232, producer 40), {nbytes} bytes of dynamic shared memory"
+                  f"{' at the probe' if name in probe_smem else ''}, stack {r.get('stack')} B, "
+                  f"spill stores {r.get('spill_stores')} B, spill loads {r.get('spill_loads')} B")
         spills = {fn: r for fn, r in wg.items() if r.get("spill_stores") or r.get("spill_loads")}
         if len(wg) != want or spills:
             raise AssertionError(f"{name}: {len(wg)} device functions in the compiler's report "
@@ -631,8 +652,6 @@ def phase_build():
     # the copy kernels K13 and K6: none may spill; ring_copy must hold the
     # bulk copy's SASS (UBLKCP), and its shared memory is the wrapper's
     # mirror's (kernels/probes.py: ring_schedule)
-    from pnp_vcve_torch.kernels import probes
-
     copy = {fn: r for name in COPY_NAMES for fn, r in _ptxas_report(lib.log, name).items()}
     for fn, r in copy.items():
         print(f"[build] {fn}: {r.get('registers')} registers, stack {r.get('stack')} B, spill "
@@ -2018,7 +2037,10 @@ def _print_breakdown(prof, window_s, steady_s, counts):
 def _probe_check(tag, got, ref, rule):
     """Hold a probe kernel's output to its plain version's: "bitwise" (every
     tensor of a tuple), "rel" (max|diff| <= 1e-5 max|ref|) or "bf16"
-    (phase 3's bf16 bounds). Returns max|diff|."""
+    (phase 3's bf16 bounds). A bf16 ``got`` against a float32 ``ref`` under
+    "rel" (cuDNN's bf16 conv against K10's float32 output) is also allowed
+    its own rounding to bf16: half a bf16 ulp of the larger of the two
+    values. Returns max|diff|."""
     import torch
 
     torch.cuda.synchronize()
@@ -2029,6 +2051,14 @@ def _probe_check(tag, got, ref, rule):
     if rule == "bitwise":
         ok = all(g.dtype == r.dtype and g.shape == r.shape and torch.equal(g, r) for g, r in pairs)
         bound = "bitwise"
+    elif got.dtype == torch.bfloat16 and ref.dtype == torch.float32:
+        scale = float(ref.double().abs().max())
+        g, r = got.double(), ref.double()
+        big = torch.maximum(g.abs(), r.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+        half_ulp = torch.exp2(torch.floor(torch.log2(big)) - 8)  # bf16: 8 significant bits
+        ok = bool(torch.isfinite(got).all()) and bool(((g - r).abs() <= half_ulp
+                                                        + 1e-5 * scale).all())
+        bound = f"<= half a bf16 ulp + 1e-5 max|ref| = {1e-5 * scale:.3g}"
     else:
         scale = float(ref.double().abs().max())
         ok = bool(torch.isfinite(got).all()) and err <= 1e-5 * scale
@@ -2091,9 +2121,11 @@ def _probe_cases(int8, warp2, bisect):
     w_oihw = w_bf.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     add("tapconv", "k5 bf16 tap conv (:148)", r,
         lambda a: P.tapconv_plain(*a, rows, cols), "rel",
-        # an NCHW view, channels last, of the band's first rows + 2 x cols + 2
-        lambda a: F.conv2d(a[0].permute(2, 0, 1)[None, :, :rows + 2, :cols + 2], w_oihw), 50,
-        kb.tapconv_work(rows, cols, c2, cout, "bf16"))
+        # an NCHW view, channels last, of the band's first rows + 2 x cols + 2;
+        # its bf16 output seen as (rows, cols, cout)
+        lambda a: F.conv2d(a[0].permute(2, 0, 1)[None, :, :rows + 2, :cols + 2],
+                           w_oihw)[0].permute(1, 2, 0), 50,
+        kb.tapconv_work(rows, cols, c2, cout, "bf16"), lib_of=lambda o: o)
 
     r = int8["int8 tap-conv (strided slices)"]
     band, wq = r["args"]
@@ -2146,14 +2178,19 @@ def _probe_cases(int8, warp2, bisect):
     return cases
 
 
-def _k5_geometry(dev, smi):
+def _k5_geometry_cases(dev):
     """K10 in bf16 and int8 (with K9) at K5's 720p 64 -> 64 geometry, beside
-    K5 and one cuDNN conv on the same frame, bf16: a measurement only."""
+    K5 (a 'same' conv of the frame inside the band, bf16) and one cuDNN conv
+    of the band, as _probe_cases makes its cases: K10 bf16 within 1e-5 of
+    max|ref| and cuDNN's bf16 output held to it by the same rule (and its
+    own rounding), int8 bitwise, K5 by phase 3's bf16 bounds against its
+    plain version in float32."""
     import torch
     import torch.nn.functional as F
 
     from pnp_vcve_torch.kernels import KERNELS
     from pnp_vcve_torch.kernels import probes as P
+    from pnp_vcve_torch.kernels.conv_block import conv3x3_plain
     import torch_kernel_bounds as kb
 
     h, w, c = K5_GEOMETRY
@@ -2163,40 +2200,47 @@ def _k5_geometry(dev, smi):
     w_bf = wt.to(torch.bfloat16)
     wq, _ = P.absmax_quantize(w_bf)
     q, s = P.absmax_quantize(band)
-    _probe_check("tapconv bf16 at K5's geometry", P.tapconv(band, w_bf, h, w),
-                 P.tapconv_plain(band, w_bf, h, w), "rel")
-    _probe_check("tapconv int8 at K5's geometry", P.tapconv(q, wq, h, w, s),
-                 P.tapconv_plain(q, wq, h, w, s), "bitwise")
     x = band[1:h + 1, 1:w + 1][None].contiguous()  # K5 pads the frame itself
-    x_cl = band.permute(2, 0, 1)[None]
     w_oihw = w_bf.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    k5_w = wt[None]
+    cases = []
 
-    def k9_k10():
-        q_, s_ = P.absmax_quantize(band)
-        return P.tapconv(q_, wq, h, w, s_)
+    def add(kernel, tpu, fn, args, plain, rule, library, work, lib_of=None):
+        cases.append(dict(kernel=kernel, tpu=f"{tpu} at K5's geometry {h}x{w}, {c} -> {c}",
+                          out=fn(*args), fn=fn, args=args, plain=plain, rule=rule,
+                          library=library, lib_of=lib_of, reps=20, work=work))
 
-    calls = {
-        "K10 bf16": lambda: P.tapconv(band, w_bf, h, w),
-        "K10 int8 (s given)": lambda: P.tapconv(q, wq, h, w, s),
-        "K9 + K10 int8": k9_k10,
-        "K5 bf16 ('same' conv of the frame)": lambda: KERNELS.conv3x3(x, k5_w),
-        "cuDNN F.conv2d bf16": lambda: F.conv2d(x_cl, w_oihw),
-    }
-    times = {k: _timed(f, 20) for k, f in calls.items()}
-    for kind in ("bf16", "int8"):
-        b_ms, by, t_bytes, t_ops = kb.bound(kb.tapconv_work(h, w, c, c, kind))
-        print(f"[probes] K5's geometry {h}x{w}, {c} -> {c}: K10 {kind} bound {b_ms:.4f} ms "
-              f"({by}; bytes {t_bytes:.4f}, ops {t_ops:.4f})")
-    print(f"[probes] K5's geometry ({smi}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
-    return times
+    def k9_k10(b, wq_):
+        q_, s_ = P.absmax_quantize(b)
+        return P.tapconv(q_, wq_, h, w, s_)
+
+    def k9_k10_plain(a):
+        q_, s_ = P.absmax_quantize_plain(a[0])
+        return P.tapconv_plain(q_, a[1], h, w, s_)
+
+    add("tapconv", "K10 bf16", lambda b, w_: P.tapconv(b, w_, h, w), (band, w_bf),
+        lambda a: P.tapconv_plain(*a, h, w), "rel",
+        # the band's NCHW view, channels last; the bf16 output seen as (h, w, c)
+        lambda a: F.conv2d(a[0].permute(2, 0, 1)[None], w_oihw)[0].permute(1, 2, 0),
+        kb.tapconv_work(h, w, c, c, "bf16"), lib_of=lambda o: o)
+    add("tapconv", "K10 int8 (s given)", lambda q_, wq_, s_: P.tapconv(q_, wq_, h, w, s_),
+        (q, wq, s), lambda a: P.tapconv_plain(*a[:2], h, w, a[2]), "bitwise", None,
+        kb.tapconv_work(h, w, c, c, "int8"))
+    add("tapconv", "K9 + K10 int8", k9_k10, (band, wq), k9_k10_plain, "bitwise", None,
+        kb.quantized_tapconv_work(h + 2, w + 2, h, w, c, c))
+    # K5 against its plain version in float32 (TF32 off) on the same bf16
+    # values: its bf16 output is rounded once from a float32 sum
+    add("conv3x3", "K5 bf16 ('same' conv of the frame)", lambda x_, k_: KERNELS.conv3x3(x_, k_),
+        (x, w_bf.float()[None]), lambda a: conv3x3_plain(a[0].float(), a[1]), "bf16", None,
+        dict(bytes=2 * h * w * c * 2 + 9 * c * c * 4, ops={"bf16": 2 * 9 * h * w * c * c}))
+    return cases
 
 
 def phase_probes(dev, smi):
     """Phase 12: the three probe tools at their full shapes on the card (the
     probe path: every launch of K6-K10 counted), then each stage's kernel
     against its plain version on the same inputs and timed beside it, the
-    library call and the bound; K10 at K5's geometry."""
+    library call and the bound; K10 at K5's geometry the same way, beside
+    K5 and cuDNN (launches there not counted in the path's)."""
     import torch
 
     sys.path.insert(0, str(ROOT / "tools"))
@@ -2221,9 +2265,9 @@ def phase_probes(dev, smi):
                                              "tapconv")):
         raise AssertionError(f"probe stages failed: {failed}; launches {counts}")
     rows = _probe_rows(_probe_cases(int8, warp2, bisect), smi)
-    k5 = _k5_geometry(dev, smi)
+    k5 = _probe_rows(_k5_geometry_cases(dev), smi)
     out = _probe_summary(rows, counts, "phase12_launches")
-    out["tapconv"]["k5_geometry_ms"] = k5
+    out["tapconv"]["k5_geometry"] = k5["tapconv"] + k5["conv3x3"]
     return out
 
 

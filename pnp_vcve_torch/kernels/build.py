@@ -54,11 +54,11 @@ SIGNATURES = {
     "pnp_conv3x3": [_I] + [_P] * 5 + [_I] * 5 + [_P],
     # the probe kernels (probes.py)
     "pnp_window_copy": [_P, _P] + [_I] * 9 + [_P],
-    "pnp_mmsel": [_P] * 4 + [_I] * 6 + [_L, _L] + [_I] * 3 + [_P],
+    "pnp_mmsel": [_P] * 4 + [_I] * 6 + [_L, _L] + [_I] * 5 + [_P],
     "pnp_matmul": [_I] + [_P] * 4 + [_I] * 3 + [_P],
     "pnp_absmax_quantize": [_P, _L, _P, _P, _P, _P],
     "pnp_absmax_parts": [],
-    "pnp_tapconv": [_I] + [_P] * 4 + [_I] * 6 + [_P],
+    "pnp_tapconv": [_I] + [_P] * 4 + [_I] * 8 + [_P],
     "pnp_gather2": [_P] * 8 + [_I] * 6 + [_P],
     "pnp_block_windows": [_P] * 4 + [_I] * 4 + [_P],
     "pnp_ring_copy": [_P, _P] + [_I] * 8 + [_P],

@@ -1,7 +1,10 @@
 // What the wgmma designs at 64 channels share, on wgmma.cuh's pieces: K2's
 // and K4's (input_conv.cu: input_conv_wg, head.cu: head_wg) all of it below,
 // K3's (drt_block.cu: drt_block_wg) the block's roles, the weight ring, the
-// A fragments and the swizzled pixel addressing.
+// A fragments and the swizzled pixel addressing; the probes' K10
+// (probe_tapconv.cu: tapconv_wg) the roles, the chunk ring, the A
+// fragments and the pixel addressing, and the tensor-map ring (TRing) that
+// K7 (probe_mmsel.cu: mmsel_wg) shares.
 //
 // Block: two consumer warpgroups and one producer warpgroup, 384 threads,
 // one block an SM, persistent over the output tiles in (sample, tile row,
@@ -30,6 +33,7 @@
 #pragma once
 
 #include "tc_conv.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace pnp {
@@ -135,6 +139,50 @@ struct XRing {
   __device__ __forceinline__ void release() const {
     __syncwarp();
     if (threadIdx.x % 32 == 0) wg::mbar_arrive(&empty[g & 1]);
+  }
+};
+
+// A ring of NS stages of STAGE bytes (a multiple of 1024) that one producer
+// thread fills with tensor-map boxes (K7's window rows, K10's weights):
+// full[k] takes the producer's arrival with the box's bytes, empty[k] one
+// arrival from each consumer warp. A consumer that multiplies one stage
+// while the next one's products run keeps two positions in it: one it
+// waits at, one it releases at.
+template <int NS, int STAGE>
+struct TRing {
+  uint8_t* base;
+  uint64_t* full;
+  uint64_t* empty;
+  int slot = 0;
+  uint32_t ph = 0;
+
+  __device__ __forceinline__ void advance() {
+    if (++slot == NS) {
+      slot = 0;
+      ph ^= 1;
+    }
+  }
+  // producer: copy the box at (c0, c1, c2) of map (bytes in all) into the
+  // next stage once it is free
+  __device__ __forceinline__ void put(const CUtensorMap* map, int c0, int c1, int c2,
+                                      uint32_t bytes) {
+    wg::mbar_wait(&empty[slot], ph ^ 1);
+    wg::mbar_arrive_tx(&full[slot], bytes);
+    tma::load_3d(base + slot * STAGE, map, c0, c1, c2, &full[slot]);
+    advance();
+  }
+  // consumer: wait until the next stage has landed
+  __device__ __forceinline__ const uint8_t* wait() {
+    wg::mbar_wait(&full[slot], ph);
+    const uint8_t* st = base + slot * STAGE;
+    advance();
+    return st;
+  }
+  // consumer: this warp is done with the next stage to release
+  __device__ __forceinline__ void release() {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) wg::mbar_arrive(&empty[slot]);
+    advance();
   }
 };
 

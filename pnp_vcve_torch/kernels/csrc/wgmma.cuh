@@ -1,5 +1,6 @@
 // Hopper's asynchronous pieces for the wgmma designs of K2, K3 and K4
-// (input_conv.cu, drt_block.cu, head.cu): the mbarriers of a producer /
+// (input_conv.cu, drt_block.cu, head.cu) and of the probes K7 and K10
+// (probe_mmsel.cu, probe_tapconv.cu): the mbarriers of a producer /
 // consumer ring, bulk and cp.async copies that complete on them,
 // shared-memory matrix descriptors and warpgroup matrix multiplies (wgmma)
 // with A from registers and B from shared memory.
@@ -14,7 +15,7 @@
 // "col" layout of the weights), 128-byte swizzled: rows of 128 bytes, in
 // atoms of 8 rows (1024 bytes, 1024-aligned) whose 16-byte chunk j of row r
 // sits at chunk j ^ r; a k-step 32 bytes further is the descriptor's start
-// address 32 bytes further.
+// address 32 bytes further. K7 and K10 read B MN-major instead (desc_mn).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -107,8 +108,34 @@ __device__ __forceinline__ uint64_t desc_sw32(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
 }
+// descriptor of an MN-major operand at p (K7's window rows, K10's weights:
+// each K row's SW bytes of N values contiguous, as they lie in device
+// memory), SW-byte swizzled (SW 64 or 128): K rows of SW bytes in atoms of 8
+// rows (8 SW bytes, 8 SW-aligned) whose 16-byte chunk j of row r sits at
+// chunk j ^ ((SW r / 128) % (SW / 16)) (mn_chunk). The stride between 8-row
+// groups along K is 8 SW bytes; N spans one atom, so the stride between
+// atoms along N is never used and is given the same value. A k-step (16
+// rows) is 16 SW bytes further.
+template <int SW>
+__device__ __forceinline__ uint64_t desc_mn(const void* p) {
+  static_assert(SW == 64 || SW == 128, "64- or 128-byte swizzle");
+  constexpr uint64_t grp = 8 * SW >> 4;
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (grp << 16) | (grp << 32) |
+         ((uint64_t)(SW == 128 ? 1 : 2) << 62);
+}
+// the byte offset of chunk j (16 bytes) of K row r in an MN-major SW-byte
+// swizzled operand (desc_mn)
+__host__ __device__ constexpr int mn_chunk(int sw, int r, int j) {
+  return sw * r + 16 * (j ^ ((sw * r >> 7) & (sw / 16 - 1)));
+}
 // the descriptor `bytes` further along K (a multiple of 16, inside the atom)
 __device__ __forceinline__ uint64_t desc_add(uint64_t d, int bytes) { return d + (bytes >> 4); }
+// order this thread's view of shared memory, written by other threads'
+// stores or cp.async and acquired through an mbarrier, before its wgmma
+// (the async proxy) read it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 __device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void commit() {
@@ -173,8 +200,39 @@ __device__ __forceinline__ void mma_tf32(float (&d)[32], const uint32_t (&a)[4],
       : PNP_WG_D32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
+// the same with B MN-major (desc_mn<128>; transposed, bf16 only)
+__device__ __forceinline__ void mma_bf16_mn(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PNP_WG_DREGS
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : PNP_WG_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
 #undef PNP_WG_D32
 #undef PNP_WG_DREGS
+
+// d (64 x 32, float32) += a (64 x 16 bf16, registers) * B (16 x 32 bf16 at
+// desc, MN-major: desc_mn<64>)
+__device__ __forceinline__ void mma_bf16_n32_mn(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
 
 // d (64 x 32, float32) += a (64 x 8 tf32, registers) * B (8 x 32 tf32 at desc)
 __device__ __forceinline__ void mma_tf32_n32(float (&d)[16], const uint32_t (&a)[4],

@@ -1,6 +1,9 @@
 """The probe kernels K6-K13: the TPU micro-benchmarks of ``tools/`` as
-hand-written Hopper kernels (``csrc/probe_*.cu``; K7-K10 on the tensor-core
-helpers of ``csrc/mma.cuh``), with their plain PyTorch versions. K7-K10
+hand-written Hopper kernels (``csrc/probe_*.cu``; K7 and K10's bf16 form on
+``wgmma``, their operands copied by the tensor memory accelerator
+(``csrc/tma.cuh``) through ``csrc/wg_conv.cuh``'s rings; K8, K9 and K10's
+int8 form on the ``mma.sync`` helpers of ``csrc/mma.cuh``), with their plain
+PyTorch versions. K7-K10
 multiply on the matrix unit; K6 and K11-K13 move data. No model path runs
 them; ``tools/torch_int8_probe.py``, ``tools/torch_warp_kernel_probe2.py``,
 ``tools/torch_warp_bisect.py``, ``tools/torch_warp_kernel_probe.py`` and
@@ -30,10 +33,12 @@ checks device, dtype, shape, contiguity and 16-byte alignment, then launches
 its kernel or raises. K13's persistent bulk-copy design takes its work as
 a list of items; :func:`ring_schedule` and :func:`stream_grid` compute what
 its wrappers hand the C entries, and :func:`ring_items` spells out the
-items as the kernel decodes them. This module's ``LAUNCHES`` (apart from
-the model kernels' ``launch.LAUNCHES``) counts one per kernel call (K9's two passes
-are one call; K13 counts its two kernels apart); :func:`reset_launches`
-zeroes it.
+items as the kernel decodes them. K7's and K10's persistent wgmma designs
+do the same: :func:`mmsel_schedule` / :func:`mmsel_items` and
+:func:`tapconv_schedule` / :func:`tapconv_items`. This module's
+``LAUNCHES`` (apart from the model kernels' ``launch.LAUNCHES``) counts one
+per kernel call (K9's two passes are one call; K13 counts its two kernels
+apart); :func:`reset_launches` zeroes it.
 """
 
 from __future__ import annotations
@@ -54,13 +59,24 @@ __all__ = [
     "absmax_quantize_plain", "tapconv", "tapconv_plain", "gather2", "gather2_plain",
     "block_windows", "block_windows_plain", "ring_copy", "stream_copy", "ring_copy_plain",
     "timed", "bf16_from_numpy", "sm_count", "ring_schedule", "ring_items", "ring_stage_bytes",
-    "stream_grid",
+    "stream_grid", "mmsel_schedule", "mmsel_items", "tapconv_schedule", "tapconv_items",
 ]
 
 TILE = 128       # output columns a tile of the selection matmul (rows of S)
 BAND_ROWS = 8    # output rows a band
 _KP = 192        # K7's depth: S's kw zero-padded to 12 k-steps of 16
 _DV_MAX = 40     # K7's V terms at most
+# K7's wgmma design, as csrc/probe_mmsel.cu has it
+MMSEL_CHANNELS = 32         # channels an item (the product's N)
+MMSEL_STAGES = 6            # window rows in flight
+MMSEL_ROW_BYTES = _KP * MMSEL_CHANNELS * 2
+MMSEL_S_IMAGE = 3 * TILE * 128  # S's image: three 64-tap blocks of 128-byte rows
+MMSEL_BARRIERS = 2 * MMSEL_STAGES + 4
+# K10's bf16 wgmma design, as csrc/probe_tapconv.cu has it
+TAPCONV_COLS = 32           # output columns an item
+TAPCONV_COUT = 64           # output channels an item
+TAPCONV_STAGES = 6          # weight stages of 64 x 64 bf16
+TAPCONV_BARRIERS = 2 * TAPCONV_STAGES + 4
 _TYPE_CODE = {torch.bfloat16: 1, torch.int8: 2}
 
 GATHER_SHIFTS = 35  # K11: the TPU kernel's masked sums run over 35 shifts a pass
@@ -200,6 +216,48 @@ def mmsel_h_plain(x, s, nb, j0, out_w):
     return out
 
 
+def _waves_then_rows(options, sms):
+    """Of ``(rows an item, items)`` pairs, the one whose items take the
+    fewest rows a block (waves over ``sms`` times rows), the larger item on
+    a tie."""
+    return min(options, key=lambda o: (_ceil_div(o[1], sms) * o[0], -o[0]))
+
+
+def mmsel_schedule(nb, nt, c, dv, v_mode, sms):
+    """K7's work (csrc/probe_mmsel.cu): items of (band, tile, row group,
+    32-channel part), the part fastest, ``items`` in all, dealt to ``grid``
+    persistent blocks (one a SM) in turn. The V mode runs a band's ``dv +
+    7`` H rows in one item; the H mode cuts a band's 8 rows into groups of
+    ``rows_item`` (2, 4 or 8) so that the items fill the card.
+    ``smem`` is a block's shared memory."""
+    ncp = _ceil_div(c, MMSEL_CHANNELS)
+    if v_mode:
+        rows_item, nrows = BAND_ROWS, dv + BAND_ROWS - 1
+    else:
+        rows_item = _waves_then_rows(  # 2 at least: the kernel runs rows in pairs
+            [(r, nb * nt * ncp * BAND_ROWS // r) for r in (8, 4, 2)], sms)[0]
+        nrows = rows_item
+    nrg = 1 if v_mode else BAND_ROWS // rows_item
+    items = nb * nt * nrg * ncp
+    slot = _ceil_div(MMSEL_S_IMAGE + (TILE * dv * 4 if v_mode else 0), 1024) * 1024
+    return dict(ncp=ncp, rows_item=rows_item, nrg=nrg, nrows=nrows, items=items,
+                grid=min(sms, items),
+                smem=1024 + MMSEL_STAGES * MMSEL_ROW_BYTES + 2 * slot + 8 * MMSEL_BARRIERS)
+
+
+def mmsel_items(nb, nt, c, dv, v_mode, sms):
+    """K7's items as the kernel decodes them, per block: ``(band, tile, row
+    group, channel part)`` in the order the block takes them."""
+    sc = mmsel_schedule(nb, nt, c, dv, v_mode, sms)
+    blocks = [[] for _ in range(sc["grid"])]
+    for it in range(sc["items"]):
+        rest, cp = divmod(it, sc["ncp"])
+        rest, rg = divmod(rest, sc["nrg"])
+        ri, tj = divmod(rest, nt)
+        blocks[it % sc["grid"]].append((ri, tj, rg, cp))
+    return blocks
+
+
 def _mmsel_launch(src, s, vm, nb, j0, out_w):
     _, hs, ws, c = src.shape
     ns, nt, tile, kw = s.shape
@@ -225,8 +283,9 @@ def _mmsel_launch(src, s, vm, nb, j0, out_w):
                          f"{tuple(src.shape)}")
     out = torch.empty((1, nb * BAND_ROWS, out_w, c), dtype=torch.bfloat16, device=dev)
     s_band = 0 if ns == 1 else nt * TILE * kw  # one S for every band, or one a band
+    sc = mmsel_schedule(nb, nt, c, dv, vm is not None, sm_count(dev))
     _call("mmsel", "pnp_mmsel", dev, src, s, vm, out, nb, nt, hs, ws, c, kw, s_band, TILE * kw, j0,
-         dv, out_w)
+          dv, out_w, sc["rows_item"], sc["grid"])
     return out
 
 
@@ -327,6 +386,43 @@ def tapconv_plain(band, w, rows, cols, scale=None):
     return acc.reshape(rows, cols, cout)
 
 
+def tapconv_schedule(rows, cols, cin, cout, sms):
+    """K10's bf16 work (csrc/probe_tapconv.cu: tapconv_wg): items of ``4 nm``
+    output rows x 32 columns x 64 output channels, the channel part
+    fastest, dealt to ``grid`` persistent blocks (one a SM) in turn; ``nm``
+    2, or 1 where the nm = 2 items would leave SMs idle. The input runs in
+    ``chunks`` of 64 channels; ``smem`` is a block's shared memory (with
+    each of the two consumer warpgroups' two output boxes of ``2 nm`` rows
+    x 32 pixels x 32 float32 channels)."""
+    ntx, ncp = _ceil_div(cols, TAPCONV_COLS), _ceil_div(cout, TAPCONV_COUT)
+
+    def count(nm):
+        return ntx * _ceil_div(rows, 4 * nm) * ncp
+
+    nm = 2 if count(2) >= sms else 1
+    th = 4 * nm
+    items = count(nm)
+    patch = _ceil_div((th + 2) * (TAPCONV_COLS + 2) * 128, 1024) * 1024  # a chunk's buffer
+    return dict(nm=nm, tile_rows=th, ntx=ntx, nty=_ceil_div(rows, th), ncp=ncp,
+                chunks=_ceil_div(cin, 64), items=items, grid=min(sms, items),
+                smem=1024 + TAPCONV_STAGES * 64 * 128 + 2 * patch
+                + 4 * 2 * nm * TAPCONV_COLS * 128 + 8 * TAPCONV_BARRIERS)
+
+
+def tapconv_items(rows, cols, cin, cout, sms):
+    """K10's bf16 items as the kernel decodes them, per block: ``(first row,
+    first column, first output channel)`` of each, in the order the block
+    takes them."""
+    sc = tapconv_schedule(rows, cols, cin, cout, sms)
+    blocks = [[] for _ in range(sc["grid"])]
+    for it in range(sc["items"]):
+        tt, cp = divmod(it, sc["ncp"])
+        ty, tx = divmod(tt, sc["ntx"])
+        blocks[it % sc["grid"]].append((ty * sc["tile_rows"], tx * TAPCONV_COLS,
+                                        cp * TAPCONV_COUT))
+    return blocks
+
+
 def tapconv(band, w, rows, cols, scale=None):
     """K10. ``band (bh, bw, cin)`` with bh >= rows + 2, bw >= cols + 2, ``w
     (3, 3, cin, cout)``: both bfloat16 (no scale), or both int8 with a
@@ -351,8 +447,10 @@ def tapconv(band, w, rows, cols, scale=None):
         raise ValueError(f"tapconv: need cin % {step} == 0, cout % 8 == 0 and one scale; got "
                          f"cin {cin}, cout {cout}")
     out = torch.empty((rows, cols, cout), dtype=torch.float32, device=dev)
+    sc = (tapconv_schedule(rows, cols, cin, cout, sm_count(dev)) if scale is None
+          else dict(nm=0, grid=0))  # int8: the mma.sync design takes no schedule
     _call("tapconv", "pnp_tapconv", dev, _TYPE_CODE[band.dtype], band, w, scale, out, bh, bw, cin,
-         cout, rows, cols)
+          cout, rows, cols, sc["nm"], sc["grid"])
     return out
 
 
