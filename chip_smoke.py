@@ -469,23 +469,24 @@ JOINT_CROP, TOL_JOINT = 128, 1e-4
 # cores)
 TC_KERNELS = ("input_conv", "drt_block", "drt_block_select", "head", "conv3x3")
 TC_SASS_NAMES = ("input_conv_tc", "input_conv_wg", "drt_block_tc", "drt_block_wg", "head_tc",
-                 "head_wg", "head_hidden_tc", "conv3x3_tc")
+                 "head_wg", "head_hidden_tc", "conv3x3_tc", "conv3x3_wg")
 # the wgmma designs at 64 channels (K2 csrc/input_conv.cu, K3 / K3s
-# csrc/drt_block.cu, K4 csrc/head.cu) and how many device functions each
-# has (two types; K3 with and without the select): each must hold HGMMA and
-# spill nothing
-WG_SASS_NAMES = {"input_conv_wg": 2, "drt_block_wg": 4, "head_wg": 2}
+# csrc/drt_block.cu, K4 csrc/head.cu, K5 csrc/conv3x3.cu at 64 -> 64) and
+# how many device functions each has (two types; K3 with and without the
+# select; K5 with its input by cp.async and by tensor-map boxes): each must
+# hold HGMMA and spill nothing
+WG_SASS_NAMES = {"input_conv_wg": 2, "drt_block_wg": 4, "head_wg": 2, "conv3x3_wg": 4}
 # the probes' wgmma designs and their device functions: K7 (csrc/probe_mmsel.cu,
-# the V and the H mode) and K10 bf16 (csrc/probe_tapconv.cu, 4- and 8-row
-# items); the same gates
-PROBE_WG_SASS_NAMES = {"mmsel_wg": 2, "tapconv_wg": 2}
+# the V and the H mode), K8 bf16 (csrc/probe_matmul.cu) and K10 bf16
+# (csrc/probe_tapconv.cu, 4- and 8-row items); the same gates
+PROBE_WG_SASS_NAMES = {"mmsel_wg": 2, "matmul_wg": 1, "tapconv_wg": 2}
 # the probe kernels that only move data (K13's two, K6); K13's ring_copy
 # moves them with the bulk-copy engine
 COPY_NAMES = ("ring_copy_kernel", "stream_copy_kernel", "window_copy_kernel")
 BULK_SASS_NAMES = ("ring_copy_kernel",)
 BULK_SASS_OP = "UBLKCP"  # cp.async.bulk, both ways, on sm_90a
 # each model kernel's device functions as the profiler names them (K3 and
-# K3s are one kernel with other template arguments; K2-K4 run their *_wg
+# K3s are one kernel with other template arguments; K2-K5 run their *_wg
 # function at 64 channels, their *_tc ones at the other widths)
 DEVICE_FUNCS = {
     "warp": ("pnp::warp_kernel",), "warp_block": ("pnp::warp_block_kernel",),
@@ -493,7 +494,7 @@ DEVICE_FUNCS = {
     "drt_block": ("pnp::tc::drt_block_wg", "pnp::tc::drt_block_tc"),
     "head": ("pnp::tc::head_wg", "pnp::tc::head_tc", "pnp::tc::head_hidden_tc",
              "pnp::tc::head_last_kernel"),
-    "conv3x3": ("pnp::tc::conv3x3_tc",),
+    "conv3x3": ("pnp::tc::conv3x3_wg", "pnp::tc::conv3x3_tc"),
 }
 
 
@@ -615,7 +616,7 @@ def phase_build():
                   f"HGMMA {count['HGMMA']}")
         missing = [n for n in tc_names if not any(n in fn for fn in sass)]
         if missing or not all(sum(c.values()) for c in sass.values()):
-            raise AssertionError(f"K2-K5, K7, K10 kernels without tensor-core instructions: "
+            raise AssertionError(f"K2-K5, K7, K8, K10 kernels without tensor-core instructions: "
                                  f"{sass}; no device function named {missing}")
         no_wgmma = [fn for fn, c in sass.items()
                     if any(n in fn for n in wg_names) and not c["HGMMA"]]
@@ -623,25 +624,29 @@ def phase_build():
             raise AssertionError(f"wgmma designs without HGMMA: {no_wgmma}")
     # the wgmma designs: their registers, shared memory and spills; none may
     # spill. The probes' shared memory at their probe shapes (K7's V mode at
-    # 720p, K10 at 16 x 320) must be their wrappers' mirrors'
-    # (kernels/probes.py: mmsel_schedule, tapconv_schedule)
+    # 720p, K10 at 16 x 320; K8's at any) must be their wrappers' mirrors'
+    # (kernels/probes.py: mmsel_schedule, tapconv_schedule, MATMUL_SMEM)
     probe_smem = {"mmsel_wg": (lib.lib.pnp_mmsel_smem(),
                                probes.mmsel_schedule(90, 10, 64, 40, True, 132)["smem"]),
+                  "matmul_wg": (lib.lib.pnp_matmul_smem(), probes.MATMUL_SMEM),
                   "tapconv_wg": (lib.lib.pnp_tapconv_smem(),
                                  probes.tapconv_schedule(16, 320, 128, 128, 132)["smem"])}
     off = {n: v for n, v in probe_smem.items() if v[0] != v[1] or v[0] > SMEM_MAX}
     if off:
         raise AssertionError(f"probe shared memory (source, mirror) disagree or pass {SMEM_MAX}: "
                              f"{off}")
-    smem_of = {"input_conv_wg": "input_conv", "drt_block_wg": "drt_block", "head_wg": "head"}
+    smem_of = {"input_conv_wg": "input_conv", "drt_block_wg": "drt_block", "head_wg": "head",
+               "conv3x3_wg": "conv3x3"}
     for name, want in wg_names.items():
         wg = _ptxas_report(lib.log, name)
         for fn, r in wg.items():
             dtype = 1 if "bfloat16" in fn else 0
             nbytes = (probe_smem[name][0] if name in probe_smem
                       else _smem(lib, smem_of[name], 64, dtype))
-            print(f"[build] {fn}: {r.get('registers')} registers at launch (setmaxnreg: "
-                  f"consumers 232, producer 40), {nbytes} bytes of dynamic shared memory"
+            regs = ("" if name == "matmul_wg"  # one warpgroup and a warp: no setmaxnreg
+                    else " (setmaxnreg: consumers 232, producer 40)")
+            print(f"[build] {fn}: {r.get('registers')} registers at launch{regs}, "
+                  f"{nbytes} bytes of dynamic shared memory"
                   f"{' at the probe' if name in probe_smem else ''}, stack {r.get('stack')} B, "
                   f"spill stores {r.get('spill_stores')} B, spill loads {r.get('spill_loads')} B")
         spills = {fn: r for fn, r in wg.items() if r.get("spill_stores") or r.get("spill_loads")}
@@ -778,6 +783,39 @@ def _mma_sync_head(x, hd):
     out = torch.empty((*x.shape[:3], 3), dtype=x.dtype, device=x.device)
     call("head", "pnp_head_mma_sync", x.device, 0 if x.dtype == torch.float32 else 1, x,
          *weights, None, out, *x.shape, counts={"head": 0})
+    return out
+
+
+def _conv3x3_yardstick(entry, x, k, bias, g):
+    """K5 through C entry ``entry``: "pnp_conv3x3_mma_sync", the mma.sync
+    design (conv_tc) at any widths, the one the wgmma design replaced at 64
+    -> 64 (the yardstick of phases 3 and 12), on conv3x3_args' operands; or
+    "pnp_conv3x3_wg_alt_staging", the wgmma design at 64 -> 64 with the
+    other staging of its input chunks (bf16 by tensor-map boxes, float32 by
+    cp.async), on conv3x3_operands'. Its launches count nowhere."""
+    import torch
+
+    from pnp_vcve_torch.kernels.conv_block import conv3x3_args, conv3x3_operands
+    from pnp_vcve_torch.kernels.launch import call
+
+    prep = conv3x3_args if entry == "pnp_conv3x3_mma_sync" else conv3x3_operands
+    out = torch.empty((*x.shape[:3], k.shape[-1]), dtype=x.dtype, device=x.device)
+    call("conv3x3", entry, x.device, 0 if x.dtype == torch.float32 else 1, x,
+         *prep(x, k, bias, g), out, *x.shape, k.shape[-1], counts={"conv3x3": 0})
+    return out
+
+
+def _mma_sync_matmul(a, b):
+    """K8 bf16 through its mma.sync design, the one the wgmma design
+    replaced: phase 12's yardstick. Its launches count nowhere."""
+    import torch
+
+    from pnp_vcve_torch.kernels.launch import call
+
+    (m, k), n = a.shape, b.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    call("matmul", "pnp_matmul_mma_sync", a.device, 1, a, b, None, out, m, n, k,
+         counts={"matmul": 0})
     return out
 
 
@@ -951,33 +989,56 @@ def _cases(dev, dtype, b, h, w, gen, c=64):
         bytes=nbytes(x, *hd) + b * h * w * 3 * x.element_size()))
 
     def conv_case(bb, c_in, c_out, timed):
-        """K5 with per-sample kernels, biases and gains; the library call is
-        one F.conv2d with groups=bb on the same kernels (the gain folded in),
-        the grouped-conv form of ops/dynamic_conv.py: per_sample_conv."""
+        """K5 with per-sample kernels, biases and gains (the gain folded into
+        the library call's weights and bias, in the type). The library call:
+        at one sample one channels-last F.conv2d of the NHWC frame; at
+        several one grouped F.conv2d (groups=bb) on an NCHW-contiguous copy,
+        the grouped-conv form of ops/dynamic_conv.py: per_sample_conv. At 64
+        -> 64 the wgmma design runs; the mma.sync design it replaced is its
+        yardstick, held to the same plain version."""
         xc = x if (bb, c_in) == (b, 64) else torch.randn((bb, h, w, c_in), generator=gen).to(
             dev, dtype)
         k, bias = wt((bb, 3, 3, c_in, c_out), 0.03), wt((bb, c_out), 0.1)
         g = torch.rand((bb, c_out), generator=gen).to(dev)
-        xg = xc.permute(0, 3, 1, 2).reshape(1, bb * c_in, h, w).contiguous()
-        wg = ((k * g[:, None, None, None, :]).permute(0, 4, 3, 1, 2)
-              .reshape(bb * c_out, c_in, 3, 3).to(dtype).contiguous())
-        bg = (bias * g).reshape(-1).to(dtype)
+        kg = (k * g[:, None, None, None, :]).permute(0, 4, 3, 1, 2).to(dtype)  # (bb, o, i, 3, 3)
+        bg = (bias * g).to(dtype)
+        if bb == 1:  # the NHWC frame seen as NCHW is channels-last: cuDNN takes it as it is
+            w_cl = kg[0].contiguous(memory_format=torch.channels_last)
+            library = lambda: F.conv2d(xc.permute(0, 3, 1, 2), w_cl, bg[0], padding=1)  # noqa: E731
+            library_label = "channels-last F.conv2d"
+        else:
+            xg = xc.permute(0, 3, 1, 2).reshape(1, bb * c_in, h, w).contiguous()
+            wg = kg.reshape(bb * c_out, c_in, 3, 3).contiguous()
+            library = lambda: F.conv2d(xg, wg, bg.reshape(-1), padding=1, groups=bb)  # noqa: E731
+            library_label = f"grouped NCHW F.conv2d (groups={bb})"
         main = (bb, c_in, c_out) == (b, 64, 64)
+        square = (c_in, c_out) == (64, 64)
+        tag = f"conv3x3 (mma.sync yardstick) {str(dtype)[6:]} b={bb} {h}x{w}"
+
+        def check():
+            _compare(tag, _conv3x3_yardstick("pnp_conv3x3_mma_sync", xc, k, bias, g),
+                     PLAIN.conv3x3(xc.float(), k, bias, g), dtype, BF16_BOUNDS["conv3x3"])
+            return "the mma.sync yardstick agrees with the plain version"
+
         return dict(
             label="conv3x3" if main else f"conv3x3 ({c_in}->{c_out}, b={bb})", name="conv3x3",
             kern=lambda: KERNELS.conv3x3(xc, k, bias, g),
             ref32=lambda: PLAIN.conv3x3(xc.float(), k, bias, g),
-            plain=lambda: PLAIN.conv3x3(xc, k, bias, g),
-            library=lambda: F.conv2d(xg, wg, bg, padding=1, groups=bb),
-            yardsticks={}, check=None, reps=5, time=timed,
+            plain=lambda: PLAIN.conv3x3(xc, k, bias, g), library=library,
+            library_label=library_label,
+            yardsticks={} if not square else {
+                "mma_sync_ms": lambda: _conv3x3_yardstick("pnp_conv3x3_mma_sync", xc, k, bias,
+                                                          g)},
+            check=check if square else None, reps=5, time=timed,
             bytes=nbytes(xc, k, bias, g) + bb * h * w * c_out * xc.element_size())
 
     if c != 64:
         return cases
-    # K5 at the model's 64 -> 64; at 720p also two samples with their own
-    # kernels; at the ragged size every pair of CONV_RAGGED_CHANNELS
+    # K5 at the model's 64 -> 64; at 720p and the ragged size also two
+    # samples with their own kernels; at the ragged size every pair of
+    # CONV_RAGGED_CHANNELS
     cases.append(conv_case(b, 64, 64, True))
-    if (b, h, w) == (1, *MAIN_HW):
+    if (b, h, w) in ((1, *MAIN_HW), (1, *RAGGED_HW)):
         cases.append(conv_case(2, 64, 64, False))
     if (h, w) == RAGGED_HW:
         cases += [conv_case(b, ci, co, False) for ci, co in CONV_RAGGED_CHANNELS
@@ -1004,9 +1065,10 @@ def _time_case(c, tag, b, h, w, width=64):
     t_bytes, t_ops, t_tf32x3, t_bf16 = bd["bytes_ms"], bd["f32_ms"], bd["tf32x3_ms"], bd["bf16_ms"]
     rate = f"{flop / (k1 + k2) * 2e-9:.1f} TFLOP/s, " if flop else ""
     yard_txt = "".join(f", {k[:-3]} {v:.3f} ms" for k, v in yard.items())
+    lib_label = f" ({c['library_label']})" if c.get("library_label") else ""
     print(f"[time] {tag}: kernel {k1:.3f} / {k2:.3f} ms, "
           f"plain {p1:.3f} / {p2:.3f} ms, library "
-          f"{'none' if lib is None else f'{lib:.3f} ms'}{yard_txt}; {rate}"
+          f"{'none' if lib is None else f'{lib:.3f} ms'}{lib_label}{yard_txt}; {rate}"
           f"{c['bytes'] / ((k1 + k2) / 2) * 1e-6:.0f} GB/s; bounds: bytes {t_bytes:.3f} ms, "
           f"float32 CUDA-core ops {t_ops:.3f}, 3xTF32 ops {t_tf32x3:.3f}, bf16 tensor-core ops "
           f"{t_bf16:.3f}")
@@ -1899,6 +1961,7 @@ def phase_block_forms(dev, smi):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t = FRAMES
+    repack_ms = _k5_repack_ms(dev)
     rng = np.random.default_rng(SEED + 11)
     small = _clip_inputs(rng, 1, t, *FORMS_HW, dev)
     big = _clip_inputs(rng, 1, t, *MAIN_HW, dev)
@@ -1949,7 +2012,7 @@ def phase_block_forms(dev, smi):
         if counts != want or counts_small != want or (want["conv3x3"] and not counts["conv3x3"]):
             raise AssertionError(f"{form}: the forward did not run through the kernels")
         if not want["drt_block"]:
-            _print_form_profile(form, prof, walls[-1], prof_counts)
+            _print_form_profile(form, prof, walls[-1], prof_counts, repack_ms)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         if form == "one_layer_false":
@@ -1988,11 +2051,35 @@ def _device_time(prof):
     return busy * 1e-6, by_name
 
 
-def _print_form_profile(form, prof, wall_s, counts):
+def _k5_repack_ms(dev):
+    """Device milliseconds of K5's wrapper preparing one launch's operands
+    for the block forms (b = 1, 720p, 64 -> 64, float32): the per-sample
+    taps transposed, split for 3xTF32 and laid out as the kernel reads
+    them, the bias and gain as float32 (one CUDA graph of 20 calls)."""
+    import torch
+
+    from pnp_vcve_torch.kernels import conv_block
+
+    # a tree without K5's wgmma design hands the kernel conv3x3_args' operands
+    prep = getattr(conv_block, "conv3x3_operands", conv_block.conv3x3_args)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    c = 64
+    args = (torch.empty((1, *MAIN_HW, c), device=dev),
+            (torch.randn((1, 3, 3, c, c), generator=gen) * 0.03).to(dev),
+            (torch.randn((1, c), generator=gen) * 0.1).to(dev),
+            torch.rand((1, c), generator=gen).to(dev))
+    ms = _graph_ms(lambda a: prep(*a), [args], 20)
+    print(f"[forms] K5's wrapper repacking one launch's operands (b=1, {c} -> {c}, float32): "
+          f"{ms:.4f} device ms")
+    return ms
+
+
+def _print_form_profile(form, prof, wall_s, counts, repack_ms):
     """Device time of one profiled 720p clip of an unfused block form
     (``counts``: its launches): busy time and idle share against the
     unprofiled clip, K5's share and the port's kernels' share of the device
-    time, the top kernels."""
+    time, K5's device time a launch beside its wrapper's repacking
+    (``repack_ms``, device ms a launch), the top kernels."""
     found = _device_time(prof)
     if found is None:
         print(f"[forms] {form}: profiler recorded no device events; breakdown not measured")
@@ -2001,10 +2088,13 @@ def _print_form_profile(form, prof, wall_s, counts):
     total = sum(by_name.values())
     times = _kernel_times(by_name, counts, DEVICE_FUNCS)
     k5, ours = times["conv3x3"], sum(times.values())
+    k5_ms = k5 * 1e3 / counts["conv3x3"]
     print(f"[forms] {form}, one profiled 720p clip: device busy {busy:.4f} s, idle share "
           f"{max(0.0, 1 - busy / wall_s):.4f} of the unprofiled {wall_s:.4f} s clip; K5 "
           f"{k5:.4f} s = {k5 / total:.4f} of device time, K1-K5 {ours / total:.4f}, the rest "
           f"{total - ours:.4f} s (the partition path, ReLU, residual and premix as torch ops)")
+    print(f"[forms] {form}: K5 {k5_ms:.4f} device ms a launch ({counts['conv3x3']} launches); "
+          f"its wrapper's repacking {repack_ms:.4f} ms a launch = {repack_ms / k5_ms:.4f} of it")
     for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"[forms]   {v:.4f} s {v / total:.4f}  {name[:110]}")
 
@@ -2046,6 +2136,8 @@ def _probe_check(tag, got, ref, rule):
     torch.cuda.synchronize()
     if rule == "bf16":
         return _compare(tag, got, ref, torch.bfloat16, (0.02, 0.002))
+    if rule == "conv3x3":  # K5: phase 3's bounds in the output's type
+        return _compare(tag, got, ref, got.dtype, BF16_BOUNDS["conv3x3"])
     pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
     err = max(float((g.double() - r.double()).abs().max()) for g, r in pairs)
     if rule == "bitwise":
@@ -2091,17 +2183,26 @@ def _probe_cases(int8, warp2, bisect):
                           fn=res["fn"], args=res["args"], plain=plain, rule=rule,
                           library=library, lib_of=lib_of, reps=reps, work=work))
 
-    # tools/int8_probe.py
+    # tools/int8_probe.py; every K8 form also on device time, k1 (the wgmma
+    # design) beside the mma.sync design it replaced
     r = int8["bf16 matmul"]
     a, b = r["args"]
     m, k = a.shape
     n = b.shape[1]
     add("matmul", "k1 bf16 matmul (:70)", r, lambda a: P.matmul_plain(*a), "rel",
         lambda a: torch.matmul(*a), 100, kb.matmul_work(m, k, n, "bf16"))
+    cases[-1]["device"] = True
+    if _has_entry("pnp_matmul_mma_sync"):
+        add("matmul", "k1 bf16 matmul (:70), the mma.sync yardstick",
+            dict(out=_mma_sync_matmul(a, b), fn=_mma_sync_matmul, args=(a, b)),
+            lambda a: P.matmul_plain(*a), "rel", lambda a: torch.matmul(*a), 100,
+            kb.matmul_work(m, k, n, "bf16"))
+        cases[-1]["device"] = True
     r = int8["int8 matmul"]
     add("matmul", "k2 int8 matmul (:80)", r, lambda a: P.matmul_plain(*a), "bitwise",
         lambda a: torch._int_mm(*a), 100, kb.matmul_work(m, k, n, "int8", out_bytes=4),
         lib_of=lambda o: o)
+    cases[-1]["device"] = True
     r = int8["quantize-in-kernel + int8 matmul"]
     a3, _ = r["args"]
 
@@ -2111,6 +2212,7 @@ def _probe_cases(int8, warp2, bisect):
 
     add("matmul", "k3 K9 + int8 matmul (:100)", r, k3_plain, "bitwise", None, 100,
         kb.quantized_matmul_work(m, k, n))
+    cases[-1]["device"] = True
     res_q = dict(fn=P.absmax_quantize, args=(a3,), out=None)
     add("absmax_quantize", "k3's quantize (:100)", res_q, lambda a: P.absmax_quantize_plain(*a),
         "bitwise", None, 100, kb.quantize_work(a3.numel()), out=P.absmax_quantize(a3))
@@ -2180,11 +2282,15 @@ def _probe_cases(int8, warp2, bisect):
 
 def _k5_geometry_cases(dev):
     """K10 in bf16 and int8 (with K9) at K5's 720p 64 -> 64 geometry, beside
-    K5 (a 'same' conv of the frame inside the band, bf16) and one cuDNN conv
-    of the band, as _probe_cases makes its cases: K10 bf16 within 1e-5 of
-    max|ref| and cuDNN's bf16 output held to it by the same rule (and its
-    own rounding), int8 bitwise, K5 by phase 3's bf16 bounds against its
-    plain version in float32."""
+    one cuDNN conv of the band, and K5 itself there (a 'same' conv of the
+    frame, b = 1, with bias and gain) in float32 and bf16 beside one
+    channels-last cuDNN conv of the same function, as _probe_cases makes
+    its cases: K10 bf16 within 1e-5 of max|ref| and cuDNN's bf16 output held
+    to it by the same rule (and its own rounding), int8 bitwise, K5 by phase
+    3's bounds against its plain version in float32; K5 also on device time
+    (one CUDA graph) though it takes more than 0.1 ms, and beside it its
+    mma.sync design, the yardstick, and its wgmma design with the other
+    staging of its input (bf16 by tensor-map boxes, float32 by cp.async)."""
     import torch
     import torch.nn.functional as F
 
@@ -2227,12 +2333,46 @@ def _k5_geometry_cases(dev):
         kb.tapconv_work(h, w, c, c, "int8"))
     add("tapconv", "K9 + K10 int8", k9_k10, (band, wq), k9_k10_plain, "bitwise", None,
         kb.quantized_tapconv_work(h + 2, w + 2, h, w, c, c))
-    # K5 against its plain version in float32 (TF32 off) on the same bf16
-    # values: its bf16 output is rounded once from a float32 sum
-    add("conv3x3", "K5 bf16 ('same' conv of the frame)", lambda x_, k_: KERNELS.conv3x3(x_, k_),
-        (x, w_bf.float()[None]), lambda a: conv3x3_plain(a[0].float(), a[1]), "bf16", None,
-        dict(bytes=2 * h * w * c * 2 + 9 * c * c * 4, ops={"bf16": 2 * 9 * h * w * c * c}))
+    # K5 itself at b = 1 in both types, with its bias and gain: against its
+    # plain version in float32 (TF32 off) by phase 3's bounds, timed cold
+    # and on device time (the wrapper's weight repacking included) beside
+    # one channels-last cuDNN conv of the same function, the gain folded
+    # into its weights and bias (in the type, prepared once)
+    for dtype in (torch.float32, torch.bfloat16):
+        xk = (x if dtype == torch.bfloat16
+              else torch.randn((1, h, w, c), generator=gen).to(dev))
+        k5 = ((torch.randn((1, 3, 3, c, c), generator=gen) * 0.03).to(dev),
+              (torch.randn((1, c), generator=gen) * 0.1).to(dev),
+              torch.rand((1, c), generator=gen).to(dev))
+        k, bias, g = k5
+        w_cl = ((k * g[:, None, None, None, :])[0].permute(3, 2, 0, 1).to(dtype)
+                .contiguous(memory_format=torch.channels_last))
+        b_cl = (bias * g)[0].to(dtype)
+        name = str(dtype)[6:]
+        designs = {"": lambda *a: KERNELS.conv3x3(*a)}
+        for label, entry in ((", the mma.sync yardstick", "pnp_conv3x3_mma_sync"),
+                             (", the other input staging", "pnp_conv3x3_wg_alt_staging")):
+            if _has_entry(entry):
+                designs[label] = lambda *a, e=entry: _conv3x3_yardstick(e, *a)
+        for label, fn in designs.items():
+            add("conv3x3", f"K5 {name} (bias and gain, b=1){label}", fn, (xk, *k5),
+                lambda a: conv3x3_plain(a[0].float(), *a[1:]), "conv3x3",
+                # the NHWC frame seen as NCHW is channels-last: cuDNN takes it as it is
+                lambda a, w_=w_cl, b_=b_cl: F.conv2d(a[0].permute(0, 3, 1, 2), w_, b_,
+                                                     padding=1),
+                kb.conv3x3_work(1, h, w, c, c, "bf16" if dtype == torch.bfloat16 else "tf32x3",
+                                xk.element_size()))
+            cases[-1]["device"] = True
     return cases
+
+
+def _has_entry(entry):
+    """Whether the built library has C entry ``entry``: a tree without the
+    wgmma designs of K5 and K8 has no entry for their mma.sync yardsticks
+    (tools/torch_probe_turns.py runs phase 12 on such a tree)."""
+    from pnp_vcve_torch.kernels.build import library
+
+    return hasattr(library().lib, entry)
 
 
 def phase_probes(dev, smi):
@@ -2380,7 +2520,7 @@ def _probe_rows(cases, smi):
             cold = dict(cold_ms=sum(t["kernel"]) / 2, plain_cold_ms=sum(t["plain"]) / 2,
                         library_cold_ms=sum(t["library"]) / 2 if t["library"] else None)
         dev = dict(device_ms=None, library_device_ms=None)
-        if min(k1, k2) < DEVICE_BELOW_MS:  # (iii) the device's time
+        if min(k1, k2) < DEVICE_BELOW_MS or c.get("device"):  # (iii) the device's time
             dev["device_ms"] = _graph_ms(kern, sets, c["reps"])
             if c["library"] is not None:
                 try:

@@ -52,10 +52,16 @@ SIGNATURES = {
     # K4's mma.sync design at any width (chip_smoke.py's yardstick)
     "pnp_head_mma_sync": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "pnp_conv3x3": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+    # K5's mma.sync design at any widths, and its wgmma design with the
+    # other staging of its input (chip_smoke.py's yardsticks)
+    "pnp_conv3x3_mma_sync": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+    "pnp_conv3x3_wg_alt_staging": [_I] + [_P] * 5 + [_I] * 5 + [_P],
     # the probe kernels (probes.py)
     "pnp_window_copy": [_P, _P] + [_I] * 9 + [_P],
     "pnp_mmsel": [_P] * 4 + [_I] * 6 + [_L, _L] + [_I] * 5 + [_P],
     "pnp_matmul": [_I] + [_P] * 4 + [_I] * 3 + [_P],
+    # K8's mma.sync design for bf16 too (chip_smoke.py's yardstick)
+    "pnp_matmul_mma_sync": [_I] + [_P] * 4 + [_I] * 3 + [_P],
     "pnp_absmax_quantize": [_P, _L, _P, _P, _P, _P],
     "pnp_absmax_parts": [],
     "pnp_tapconv": [_I] + [_P] * 4 + [_I] * 8 + [_P],
@@ -71,7 +77,7 @@ SIGNATURES = {
 # them): name -> whether it takes the dtype code; pnp_<name>_smem() that of a probe
 SMEM_REPORT = {"warp_block": False, "input_conv": True, "drt_block": True, "head": True,
                "conv3x3": True}
-PROBE_SMEM_REPORT = ("mmsel", "tapconv")
+PROBE_SMEM_REPORT = ("mmsel", "matmul", "tapconv")
 
 
 @dataclass

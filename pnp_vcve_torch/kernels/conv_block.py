@@ -16,15 +16,22 @@ is K3's function: :func:`pnp_vcve_torch.kernels.drt_stack.drt_block` takes
 its arguments reordered, ``(x, par, dyn_kernels, dyn_biases, gamma,
 par_kernel, conv1_kernel, conv1_bias)``.
 
-K5 runs on the tensor cores (``csrc/tc_conv.cuh``, K2's GEMM loop):
-bfloat16 features with the per-sample kernels rounded to bfloat16, as the
-plain version rounds them, float32 features in 3xTF32
-(:func:`.drt_stack.tf32_split`). The gain applies after the bias, in the
+K5 runs on the tensor cores: bfloat16 features with the per-sample kernels
+rounded to bfloat16, as the plain version rounds them, float32 features in
+3xTF32 (:func:`.drt_stack.tf32_split`). At 64 -> 64, the width of every
+model path (the unfused DRT block forms' two convs), it runs a wgmma design
+(``csrc/conv3x3.cu: conv3x3_wg``: persistent blocks over ``K5_TILE[dtype]``
+output tiles, :func:`.drt_stack.wg_tile_walk`), whose per-sample weights
+the wrapper packs into the shared-memory images its bulk copies move
+(:func:`.drt_stack.wg_image`); at any other pair of widths K2's
+``mma.sync`` GEMM loop (``csrc/tc_conv.cuh``); ``launch.kernel_design``
+says which. The gain applies after the bias, in the
 kernel's float32 epilogue (``gamma * (conv + b)``, as
 ``dynamic_conv2d(..., gamma=)``, pnp_vcve_tpu/ops/dynamic_conv.py:57-119),
 not folded into the weights; so K5 also serves the DRT blocks'
 expert-mixed convs with the SE gain. :func:`conv3x3_args` holds the checks
-a launch makes and the weight repacking; it runs on any device. On CUDA
+a launch makes and the weight repacking, :func:`conv3x3_operands` the
+operands the launch hands the kernel; both run on any device. On CUDA
 tensors each launch runs inside :class:`Conv3x3Function`, whose gradients
 are the plain version's (``launch.plain_grads``), where a gradient is
 recorded. The launch is the CUDA implementation of the registered op
@@ -38,11 +45,12 @@ import torch
 import torch.nn.functional as F
 
 from pnp_vcve_torch.ops.dynamic_conv import dynamic_conv2d
-from .drt_stack import tc_weights
-from .launch import check_cuda_args, launch, on_cpu, plain_grads
+from .drt_stack import K5_TILE, tc_weights, wg_image
+from .launch import check_cuda_args, kernel_design, launch, on_cpu, plain_grads
 from .ops_registry import flop_per_pixel, register, tracks_grad
 
-__all__ = ["conv3x3", "conv3x3_plain", "conv3x3_args", "Conv3x3Function"]
+__all__ = ["conv3x3", "conv3x3_plain", "conv3x3_args", "conv3x3_operands", "Conv3x3Function",
+           "K5_TILE"]
 
 
 def conv3x3_plain(x, kernels, biases=None, gamma=None):
@@ -70,6 +78,16 @@ def conv3x3_args(x, kernels, biases, gamma):
     return tc_weights(taps, x.dtype), biases.float().contiguous(), gamma.float().contiguous()
 
 
+def conv3x3_operands(x, kernels, biases, gamma):
+    """What K5's launch hands its kernel: :func:`conv3x3_args`' operands, the
+    taps at 64 -> 64 as the wgmma design's images (:func:`.drt_stack.wg_image`,
+    ``(b, 9, KB, NW, 64, 128 bytes)``), at any other pair as they are."""
+    wk, bias, gain = conv3x3_args(x, kernels, biases, gamma)
+    if kernel_design("conv3x3", kernels.shape[-1], x.dtype, c_in=x.shape[-1])[0] == "wgmma":
+        wk = wg_image(wk)
+    return wk, bias, gain
+
+
 def _conv3x3_kernel(x, kernels, biases, gamma):
     """The op's CUDA implementation: no bias reads as zeros and no gain as
     ones; the taps repacked, K5's launch."""
@@ -78,7 +96,7 @@ def _conv3x3_kernel(x, kernels, biases, gamma):
         biases = torch.zeros((b, c_out), device=x.device)
     if gamma is None:
         gamma = torch.ones((b, c_out), device=x.device)
-    operands = conv3x3_args(x, kernels, biases, gamma)
+    operands = conv3x3_operands(x, kernels, biases, gamma)
     check_cuda_args("conv3x3", (x,), operands)
     b, h, w, c_in = x.shape
     out = torch.empty((b, h, w, kernels.shape[-1]), dtype=x.dtype, device=x.device)

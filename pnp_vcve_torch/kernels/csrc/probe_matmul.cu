@@ -16,18 +16,39 @@
 // floats from L2) and block 0 stores s for K8's epilogue. No atomics, no
 // memset, the same bits every run. k3 is K9 then K8 with the scale.
 //
-// K8's layout: a block of 8 warps computes a 128 x 64 tile of out; warp w
-// computes rows 32 (w % 4) .. + 32 and columns 32 (w / 4) .. + 32 as 2 x 4
-// mma tiles. The depth runs in chunks of 128 bytes (64 bf16 or 128 int8):
-// the chunk of A is staged row-major and that of B transposed (the "col"
-// operand), each row padded by 16 bytes so that ldmatrix's eight row reads
-// fall in distinct banks; rows and columns past m, n and k are zeros.
-//
 // Bound: at the probe's 4096 x 128 x 128 the work is 134 MFLOP (0.14 us at
 // 989 TFLOP/s bf16) against 3.2 MB of bytes (0.95 us at 3.35 TB/s): a
-// launch (~2-4 us) costs more than either. The design is the simple one,
-// synchronous staging and no pipelining; wgmma and TMA are for the PRs that
-// make a kernel fast.
+// launch (~2-4 us) costs more than either, so what counts is the latency
+// of one wave of blocks.
+//
+// Two designs, picked by the type:
+//
+// bf16: matmul_wg, wgmma with its operands loaded by the tensor memory
+// accelerator (tma.cuh). A block computes a 64 x 64 tile of out (128 blocks
+// at the probe's shape: one wave on 132 SMs) with one consumer warpgroup
+// and one producer warp. The producer's thread copies each 64-deep chunk of
+// the depth as two boxes into a ring of 4 stages (at the probe's k = 128
+// the whole depth is two stages, both in flight at once): A's 64 rows x 64
+// (128 bytes, K-major) and B's 64 rows of k x 64 columns (128 bytes, MN-major
+// as B lies in device memory: bf16 wgmma reads a transposed B, so nothing is
+// repacked), both 128-byte swizzled, zeros past m, n and k. The consumers
+// run four m64n64k16 a chunk with both operands read from the stage by
+// descriptors (A K-major, B MN-major), a chunk a commit group, the next
+// chunk's products issued before the one before is waited for; the float32
+// sums are stored from registers.
+//
+// int8 (k2, and k3's product): matmul_kernel, mma.sync. wgmma's s8 form
+// reads B K-major only, so B would need a transpose in shared memory; on
+// device time this design is already under torch._int_mm at the probe's
+// shape (PERF.md), so it stays. A block of 8 warps computes a 128 x 64
+// tile of out; warp w computes rows 32 (w % 4) .. + 32 and columns
+// 32 (w / 4) .. + 32 as 2 x 4 mma tiles. The depth runs in chunks of 128
+// bytes (128 int8): the chunk of A is staged row-major and that of B
+// transposed (the "col" operand), each row padded by 16 bytes so that
+// ldmatrix's eight row reads fall in distinct banks; rows and columns past
+// m, n and k are zeros; synchronous staging, no pipelining. It also runs
+// bf16 through pnp_matmul_mma_sync, the yardstick chip_smoke.py times the
+// wgmma design against.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,6 +57,7 @@
 #include <type_traits>
 
 #include "mma.cuh"
+#include "wg_conv.cuh"
 
 namespace pnp {
 
@@ -118,6 +140,130 @@ cudaError_t launch_matmul(const void* a, const void* b, const float* scale, void
   return cudaGetLastError();
 }
 
+// ---- K8 bf16: the wgmma design ------------------------------------------------------
+
+namespace mw {
+
+constexpr int BM = 64, BN = 64, BK = 64;  // out tile; a depth chunk (128 bytes of bf16)
+constexpr int NS = 4;                     // ring stages
+constexpr int ABOX = BM * 128, BBOX = BK * 128;  // A's and B's boxes, 8 KB each
+constexpr int STAGE = ABOX + BBOX;
+constexpr int NTHR = 160;                 // one consumer warpgroup, one producer warp
+
+// a block's dynamic shared memory: alignment slack, the ring, its barriers
+__host__ __device__ constexpr int smem() { return 1024 + NS * STAGE + 2 * NS * 8; }
+
+// tm_a: a (m, k) in boxes of 64 rows x 64 (k); tm_b: b (k, n) in boxes of 64
+// rows (k) x 64 (n); both bf16, 128-byte swizzled. Block (x, y) computes out
+// rows 64 y .. + 64, columns 64 x .. + 64.
+__global__ void __launch_bounds__(NTHR)
+    matmul_wg(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+              float* __restrict__ out, int m, int n, int k) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* ring = tc::wgc::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + NS * STAGE);
+  uint64_t* empty = full + NS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], 4);  // one arrival from each consumer warp
+    }
+    wg::fence_mbar_init();
+  }
+  __syncthreads();
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, nk = (k + BK - 1) / BK;
+
+  if (threadIdx.x >= 128) {
+    // ---- the producer warp: one thread copies each chunk's two boxes
+    if (threadIdx.x == 128) {
+      tma::prefetch(&tm_a);
+      tma::prefetch(&tm_b);
+      int slot = 0;
+      uint32_t ph = 0;
+      for (int kc = 0; kc < nk; ++kc) {
+        wg::mbar_wait(&empty[slot], ph ^ 1);
+        wg::mbar_arrive_tx(&full[slot], STAGE);
+        uint8_t* st = ring + slot * STAGE;
+        tma::load_2d(st, &tm_a, kc * BK, m0, &full[slot]);
+        tma::load_2d(st + ABOX, &tm_b, n0, kc * BK, &full[slot]);
+        if (++slot == NS) {
+          slot = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: warp w holds out rows 16 w .. + 16 of the
+  // tile. A chunk's four products read both operands from its stage; each
+  // chunk is one commit group, and a stage is released once the group after
+  // it has been issued and its own has completed
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  int slot = 0;
+  uint32_t ph = 0;
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) wg::mbar_arrive(&empty[s]);
+  };
+  for (int kc = 0; kc < nk; ++kc) {
+    wg::mbar_wait(&full[slot], ph);
+    const uint8_t* st = ring + slot * STAGE;
+    const uint64_t da = wg::desc_sw128(st), db = wg::desc_mn<128>(st + ABOX);
+    wg::hold(acc);
+    wg::fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wg::mma_bf16_ss_mn(acc, wg::desc_add(da, ks * KSTEP_BYTES), wg::desc_add(db, ks * 16 * 128));
+    wg::commit();
+    if (kc > 0) {  // the chunk before has completed: its stage is free
+      wg::wait<1>();
+      release(slot == 0 ? NS - 1 : slot - 1);
+    }
+    if (++slot == NS) {
+      slot = 0;
+      ph ^= 1;
+    }
+  }
+  wg::wait<0>();
+  wg::hold(acc);
+  // sums d[4 j + 2 hf + e]: row 16 warp + g + 8 hf, column 8 j + 2 t + e
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = m0 + 16 * warp + g + 8 * hf, c = n0 + 8 * j + 2 * t;
+      if (r < m && c < n)
+        *reinterpret_cast<float2*>(out + (size_t)r * n + c) =
+            make_float2(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
+    }
+}
+
+}  // namespace mw
+
+inline cudaError_t launch_matmul_wg(const void* a, const void* b, void* out, int m, int n, int k,
+                                    cudaStream_t stream) {
+  CUtensorMap tm_a, tm_b;
+  const uint64_t adims[2] = {(uint64_t)k, (uint64_t)m}, astr[1] = {(uint64_t)k * 2};
+  const uint64_t bdims[2] = {(uint64_t)n, (uint64_t)k}, bstr[1] = {(uint64_t)n * 2};
+  const uint32_t abox[2] = {mw::BK, mw::BM}, bbox[2] = {mw::BN, mw::BK};
+  const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  cudaError_t e = tma::encode(&tm_a, bf16, a, 2, adims, astr, abox, 128);
+  if (e == cudaSuccess) e = tma::encode(&tm_b, bf16, b, 2, bdims, bstr, bbox, 128);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(mw::matmul_wg, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           mw::smem());
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n + mw::BN - 1) / mw::BN, (m + mw::BM - 1) / mw::BM);
+  mw::matmul_wg<<<grid, mw::NTHR, mw::smem(), stream>>>(tm_a, tm_b, static_cast<float*>(out), m,
+                                                        n, k);
+  return cudaGetLastError();
+}
+
 // ---- K9 -------------------------------------------------------------------------------
 
 constexpr int AQ_THREADS = 256;
@@ -194,20 +340,42 @@ __global__ void __launch_bounds__(AQ_THREADS)
 
 }  // namespace pnp
 
-// K8. dtype: 1 bf16 (out float32), 2 int8 (out int32, or float32 when scale
-// is not null: float(sum) * *scale). a (m, k), b (k, n), out (m, n), all
-// row-major; m % 16 == 0, n % 8 == 0, k % 16 == 0 (bf16) or % 32 (int8).
+namespace pnp {
+
+// design 0: bf16 by the wgmma design, int8 by mma.sync; 1: mma.sync for both
+inline int matmul_entry(int design, int dtype, const void* a, const void* b, const void* scale,
+                        void* out, int m, int n, int k, cudaStream_t st) {
+  const float* s = static_cast<const float*>(scale);
+  if (m <= 0 || n <= 0 || k <= 0 || m % 16 || n % 8 || (design != 0 && design != 1))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && k % 16 == 0 && !s)
+    return design == 0 ? (int)launch_matmul_wg(a, b, out, m, n, k, st)
+                       : (int)launch_matmul<__nv_bfloat16, float>(a, b, s, out, m, n, k, st);
+  if (dtype == 2 && k % 32 == 0)
+    return s ? (int)launch_matmul<int8_t, float>(a, b, s, out, m, n, k, st)
+             : (int)launch_matmul<int8_t, int>(a, b, s, out, m, n, k, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace pnp
+
+// K8. dtype: 1 bf16 (out float32; the wgmma design), 2 int8 (out int32, or
+// float32 when scale is not null: float(sum) * *scale; mma.sync). a (m, k),
+// b (k, n), out (m, n), all row-major; m % 16 == 0, n % 8 == 0, k % 16 == 0
+// (bf16) or % 32 (int8).
 extern "C" int pnp_matmul(int dtype, const void* a, const void* b, const void* scale, void* out,
                           int m, int n, int k, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* s = static_cast<const float*>(scale);
-  if (m <= 0 || n <= 0 || k <= 0 || m % 16 || n % 8) return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && k % 16 == 0 && !s)
-    return (int)pnp::launch_matmul<__nv_bfloat16, float>(a, b, s, out, m, n, k, st);
-  if (dtype == 2 && k % 32 == 0)
-    return s ? (int)pnp::launch_matmul<int8_t, float>(a, b, s, out, m, n, k, st)
-             : (int)pnp::launch_matmul<int8_t, int>(a, b, s, out, m, n, k, st);
-  return (int)cudaErrorInvalidValue;
+  return pnp::matmul_entry(0, dtype, a, b, scale, out, m, n, k,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The mma.sync design for bf16 too, with pnp_matmul's arguments.
+// chip_smoke.py times it beside the wgmma design as the yardstick; no probe
+// calls it.
+extern "C" int pnp_matmul_mma_sync(int dtype, const void* a, const void* b, const void* scale,
+                                   void* out, int m, int n, int k, void* stream) {
+  return pnp::matmul_entry(1, dtype, a, b, scale, out, m, n, k,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // K9 (both passes). x: n bf16 values (n % 8 == 0); parts: pnp_absmax_parts()
@@ -228,6 +396,10 @@ extern "C" int pnp_absmax_quantize(const void* x, long long n, void* parts, void
                                                        static_cast<float*>(s));
   return (int)cudaGetLastError();
 }
+
+// dynamic shared memory of one bf16 (wgmma) block, any shape
+// (kernels/probes.py: MATMUL_SMEM)
+extern "C" int pnp_matmul_smem() { return pnp::mw::smem(); }
 
 // scratch floats pnp_absmax_quantize needs for its partials
 extern "C" int pnp_absmax_parts() { return pnp::AQ_PARTS; }

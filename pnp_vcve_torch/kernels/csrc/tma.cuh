@@ -1,7 +1,7 @@
-// Hopper's tensor memory accelerator (TMA) for the probes K7 and K10
-// (probe_mmsel.cu, probe_tapconv.cu): a tiled tensor map, encoded on the
-// host by libcuda's encoder, looked up through the CUDA runtime (nothing
-// links against libcuda); the tensor load that copies one box of it into
+// Hopper's tensor memory accelerator (TMA) for the probes K7, K8 and K10
+// (probe_mmsel.cu, probe_matmul.cu, probe_tapconv.cu): a tiled tensor map,
+// encoded on the host by libcuda's encoder, looked up through the CUDA
+// runtime (nothing links against libcuda); the tensor load that copies one box of it into
 // shared memory, completing on an mbarrier's transaction count (the whole
 // box's bytes, also where it passes the tensor), elements outside the
 // tensor arriving as zeros; and the tensor store of a box back. With a swizzle of
@@ -68,7 +68,7 @@ inline cudaError_t encode(CUtensorMap* map, CUtensorMapDataType type, const void
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// the box of `map` at element coordinates (c0, c1[, c2]) into dst,
+// the box of `map` at element coordinates (c0, c1[, c2[, c3]]) into dst,
 // completing on bar
 __device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
                                         uint64_t* bar) {
@@ -84,6 +84,15 @@ __device__ __forceinline__ void load_3d(void* dst, const CUtensorMap* map, int c
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                        int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
       : "memory");
 }
 // the box of `map` at (c0, c1, c2) from src, in this thread's open bulk

@@ -1,5 +1,6 @@
-// What the wgmma designs at 64 channels share, on wgmma.cuh's pieces: K2's
-// and K4's (input_conv.cu: input_conv_wg, head.cu: head_wg) all of it below,
+// What the wgmma designs at 64 channels share, on wgmma.cuh's pieces: K2's,
+// K4's and K5's (input_conv.cu: input_conv_wg, head.cu: head_wg,
+// conv3x3.cu: conv3x3_wg) all of it below,
 // K3's (drt_block.cu: drt_block_wg) the block's roles, the weight ring, the
 // A fragments and the swizzled pixel addressing; the probes' K10
 // (probe_tapconv.cu: tapconv_wg) the roles, the chunk ring, the A
@@ -73,7 +74,7 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-// The weight ring of NS stages of STAGE bytes (K2, K3 and K4): the producer
+// The weight ring of NS stages of STAGE bytes (K2-K5): the producer
 // thread's and each consumer's position in it.
 template <int NS, int STAGE>
 struct WRing {
@@ -111,6 +112,20 @@ struct WRing {
     __syncwarp();
     if (threadIdx.x % 32 == 0) wg::mbar_arrive(&empty[slot]);
     advance();
+  }
+  // consumer that releases a stage while the next one's products run (K5):
+  // wait until the next stage has landed ...
+  __device__ __forceinline__ const uint8_t* wait() {
+    wg::mbar_wait(&full[slot], ph);
+    const uint8_t* st = base + slot * STAGE;
+    advance();
+    return st;
+  }
+  // ... and release the stage k waits back (1: the last one waited for),
+  // from the same position: no second copy of the ring in registers
+  __device__ __forceinline__ void release_back(int k) {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) wg::mbar_arrive(&empty[(slot + NS - k) % NS]);
   }
 };
 

@@ -1,9 +1,11 @@
-// Hopper's asynchronous pieces for the wgmma designs of K2, K3 and K4
-// (input_conv.cu, drt_block.cu, head.cu) and of the probes K7 and K10
-// (probe_mmsel.cu, probe_tapconv.cu): the mbarriers of a producer /
-// consumer ring, bulk and cp.async copies that complete on them,
+// Hopper's asynchronous pieces for the wgmma designs of K2-K5
+// (input_conv.cu, drt_block.cu, head.cu, conv3x3.cu) and of the probes K7,
+// K8 and K10 (probe_mmsel.cu, probe_matmul.cu, probe_tapconv.cu): the
+// mbarriers of a producer / consumer ring, bulk and cp.async copies that
+// complete on them,
 // shared-memory matrix descriptors and warpgroup matrix multiplies (wgmma)
-// with A from registers and B from shared memory.
+// with A from registers (K8: from shared memory too) and B from shared
+// memory.
 //
 // wgmma (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply-Accumulate"):
 // the four warps of a warpgroup multiply a 64-row A by a B of N columns. With
@@ -15,7 +17,7 @@
 // "col" layout of the weights), 128-byte swizzled: rows of 128 bytes, in
 // atoms of 8 rows (1024 bytes, 1024-aligned) whose 16-byte chunk j of row r
 // sits at chunk j ^ r; a k-step 32 bytes further is the descriptor's start
-// address 32 bytes further. K7 and K10 read B MN-major instead (desc_mn).
+// address 32 bytes further. K7, K8 and K10 read B MN-major instead (desc_mn).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -212,6 +214,21 @@ __device__ __forceinline__ void mma_bf16_mn(float (&d)[32], const uint32_t (&a)[
       "}\n"
       : PNP_WG_D32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+// d (64 x 64, float32) += A (64 x 16 bf16 at desc_a, K-major: desc_sw128)
+// * B (16 x 64 bf16 at desc_b, MN-major: desc_mn<128>), both from shared
+// memory (K8)
+__device__ __forceinline__ void mma_bf16_ss_mn(float (&d)[32], uint64_t desc_a,
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PNP_WG_DREGS
+      "%32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : PNP_WG_D32
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 #undef PNP_WG_D32
 #undef PNP_WG_DREGS

@@ -216,12 +216,14 @@ def tc_weights(taps, dtype, two_terms=False):
 
 # Their output tiles (launch.WG_WIDTH; csrc/drt_block.cu: drt_block_wg,
 # head.cu: head_wg) and the stage-1 region around them; K2's tile by
-# feature type (csrc/input_conv.cu: input_conv_wg, no second stage); the
+# feature type (csrc/input_conv.cu: input_conv_wg, no second stage) and
+# K5's (csrc/conv3x3.cu: conv3x3_wg); the
 # bytes of a weight tile's row (one 128-byte swizzle row: 64 bfloat16 or
 # 32 float32 input channels, a "k-block")
 WG_TILE = (14, 30)
 WG_REGION = (16, 32)
 IC_TILE = {torch.bfloat16: (16, 32), torch.float32: (8, 32)}
+K5_TILE = {torch.bfloat16: (16, 32), torch.float32: (12, 32)}
 _WG_ROW = 128
 
 
@@ -274,7 +276,8 @@ def wg_tile_walk(b: int, h: int, w: int, sms: int, tile=WG_TILE):
     grid, ... in (sample, tile row, tile column) order, each the output
     pixels ``[y0, y0 + th) x [x0, x0 + tw)`` inside the image, ``(th, tw) =
     tile`` (``WG_TILE``: ``drt_block_wg``'s and ``head_wg``'s loop;
-    ``IC_TILE[dtype]``: ``input_conv_wg``'s), in the same order."""
+    ``IC_TILE[dtype]``: ``input_conv_wg``'s; ``K5_TILE[dtype]``: K5's
+    ``conv3x3_wg``), in the same order."""
     th, tw = tile
     nty, ntx = -(-h // th), -(-w // tw)
     tiles = [(s, ty * th, tx * tw) for s in range(b) for ty in range(nty) for tx in range(ntx)]

@@ -72,23 +72,27 @@ def launch_form(name: str, c: int, dtype: torch.dtype) -> int:
     return 2 if top is not None and c > top else 1
 
 
-# K2, K3 (and K3s) and K4 run their wgmma designs (csrc/input_conv.cu:
-# input_conv_wg, drt_block.cu: drt_block_wg, head.cu: head_wg) at this
-# width, the width of every model path, and their mma.sync designs at any
-# other; each C entry picks by the same rule and refuses what neither takes
+# K2, K3 (and K3s), K4 and K5 run their wgmma designs (csrc/input_conv.cu:
+# input_conv_wg, drt_block.cu: drt_block_wg, head.cu: head_wg, conv3x3.cu:
+# conv3x3_wg) at this width (K5: 64 -> 64), the width of every model path,
+# and their mma.sync designs at any other; each C entry picks by the same
+# rule and refuses what neither takes
 WG_WIDTH = 64
-WG_KERNELS = ("input_conv", "drt_block", "drt_block_select", "head")
+WG_KERNELS = ("input_conv", "drt_block", "drt_block_select", "head", "conv3x3")
 
 
-def kernel_design(name: str, c: int, dtype: torch.dtype) -> tuple[str, int]:
-    """Which code K2, K3, K3s or K4 (``name``) runs at width ``c`` in
+def kernel_design(name: str, c: int, dtype: torch.dtype, c_in: int | None = None
+                  ) -> tuple[str, int]:
+    """Which code K2, K3, K3s, K4 or K5 (``name``) runs at width ``c`` in
     ``dtype``, and its launches: ``("wgmma", 1)`` at ``WG_WIDTH``, else
-    ``("mma.sync",`` :func:`launch_form` ``)``. A dispatch by shape, the
-    same in both types."""
+    ``("mma.sync",`` :func:`launch_form` ``)``. K5 takes its output width
+    ``c`` and its input width ``c_in``: the wgmma design at ``WG_WIDTH`` ->
+    ``WG_WIDTH`` only. A dispatch by shape, the same in both types."""
     if name not in WG_KERNELS:
         raise ValueError(f"{name}: not a kernel with a wgmma design ({WG_KERNELS})")
     form = launch_form(name, c, dtype)
-    return ("wgmma", 1) if c == WG_WIDTH else ("mma.sync", form)
+    wide = c == WG_WIDTH and (name != "conv3x3" or c_in == WG_WIDTH)
+    return ("wgmma", 1) if wide else ("mma.sync", form)
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,9 +1,9 @@
 """The probe kernels K6-K13: the TPU micro-benchmarks of ``tools/`` as
-hand-written Hopper kernels (``csrc/probe_*.cu``; K7 and K10's bf16 form on
-``wgmma``, their operands copied by the tensor memory accelerator
-(``csrc/tma.cuh``) through ``csrc/wg_conv.cuh``'s rings; K8, K9 and K10's
-int8 form on the ``mma.sync`` helpers of ``csrc/mma.cuh``), with their plain
-PyTorch versions. K7-K10
+hand-written Hopper kernels (``csrc/probe_*.cu``; K7 and the bf16 forms of
+K8 and K10 on ``wgmma``, their operands copied by the tensor memory
+accelerator (``csrc/tma.cuh``), K7's and K10's through ``csrc/wg_conv.cuh``'s
+rings; K9 and the int8 forms of K8 and K10 on the ``mma.sync`` helpers of
+``csrc/mma.cuh``), with their plain PyTorch versions. K7-K10
 multiply on the matrix unit; K6 and K11-K13 move data. No model path runs
 them; ``tools/torch_int8_probe.py``, ``tools/torch_warp_kernel_probe2.py``,
 ``tools/torch_warp_bisect.py``, ``tools/torch_warp_kernel_probe.py`` and
@@ -35,7 +35,8 @@ a list of items; :func:`ring_schedule` and :func:`stream_grid` compute what
 its wrappers hand the C entries, and :func:`ring_items` spells out the
 items as the kernel decodes them. K7's and K10's persistent wgmma designs
 do the same: :func:`mmsel_schedule` / :func:`mmsel_items` and
-:func:`tapconv_schedule` / :func:`tapconv_items`. This module's
+:func:`tapconv_schedule` / :func:`tapconv_items`; :func:`matmul_tiles`
+spells out K8's blocks and their depth chunks. This module's
 ``LAUNCHES`` (apart from the model kernels' ``launch.LAUNCHES``) counts one
 per kernel call (K9's two passes are one call; K13 counts its two kernels
 apart); :func:`reset_launches` zeroes it.
@@ -60,6 +61,7 @@ __all__ = [
     "block_windows", "block_windows_plain", "ring_copy", "stream_copy", "ring_copy_plain",
     "timed", "bf16_from_numpy", "sm_count", "ring_schedule", "ring_items", "ring_stage_bytes",
     "stream_grid", "mmsel_schedule", "mmsel_items", "tapconv_schedule", "tapconv_items",
+    "matmul_tiles", "matmul_tile_shape",
 ]
 
 TILE = 128       # output columns a tile of the selection matmul (rows of S)
@@ -77,6 +79,13 @@ TAPCONV_COLS = 32           # output columns an item
 TAPCONV_COUT = 64           # output channels an item
 TAPCONV_STAGES = 6          # weight stages of 64 x 64 bf16
 TAPCONV_BARRIERS = 2 * TAPCONV_STAGES + 4
+# K8's bf16 wgmma design, as csrc/probe_matmul.cu has it: out tiles of
+# MATMUL_TILE x MATMUL_TILE, the depth in chunks of MATMUL_CHUNK, a ring of
+# MATMUL_STAGES stages of two 8 KB boxes; a block's shared memory
+MATMUL_TILE = 64
+MATMUL_CHUNK = 64
+MATMUL_STAGES = 4
+MATMUL_SMEM = 1024 + MATMUL_STAGES * 2 * MATMUL_TILE * 128 + 2 * MATMUL_STAGES * 8
 _TYPE_CODE = {torch.bfloat16: 1, torch.int8: 2}
 
 GATHER_SHIFTS = 35  # K11: the TPU kernel's masked sums run over 35 shifts a pass
@@ -316,10 +325,30 @@ def matmul_plain(a, b, scale=None):
     return acc if scale is None else acc.float() * scale
 
 
+def matmul_tile_shape(dtype):
+    """K8's ``(rows, columns, depth chunk)`` of a block's out tile: bf16 the
+    wgmma design's (csrc/probe_matmul.cu: matmul_wg), int8 the mma.sync
+    design's (``matmul_kernel``: 128 x 64, 128 bytes of depth a chunk)."""
+    if dtype == torch.bfloat16:
+        return MATMUL_TILE, MATMUL_TILE, MATMUL_CHUNK
+    return 128, 64, 128
+
+
+def matmul_tiles(m, n, k, dtype=torch.bfloat16):
+    """K8's blocks as its kernel takes them: ``[((m0, n0), [k0 of each depth
+    chunk])]``, a block the out rows ``[m0, m0 + rows)`` and columns ``[n0,
+    n0 + columns)`` of :func:`matmul_tile_shape`, its depth in chunks from
+    each k0; zeros past m, n and k (bf16: the tensor maps' fill)."""
+    tm, tn, kc = matmul_tile_shape(dtype)
+    chunks = list(range(0, k, kc))
+    return [((m0, n0), chunks) for m0 in range(0, m, tm) for n0 in range(0, n, tn)]
+
+
 def matmul(a, b, scale=None):
-    """K8. ``a (m, k)``, ``b (k, n)`` both bfloat16 (float32 out) or both
-    int8 (int32 out, or float32 with a float32 ``scale`` of one element in
-    device memory); m % 16 == 0, n % 8 == 0, k % 16 (bf16) or % 32 (int8)."""
+    """K8. ``a (m, k)``, ``b (k, n)`` both bfloat16 (float32 out; the wgmma
+    design) or both int8 (int32 out, or float32 with a float32 ``scale`` of
+    one element in device memory; the mma.sync design); m % 16 == 0, n % 8
+    == 0, k % 16 (bf16) or % 32 (int8)."""
     if on_cpu(a):
         return matmul_plain(a, b, scale)
     if a.dtype not in _TYPE_CODE or b.dtype != a.dtype:

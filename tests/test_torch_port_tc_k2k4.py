@@ -355,7 +355,7 @@ def test_width_dispatch():
             assert kl.kernel_design(name, 64, dtype) == ("wgmma", 1)
             assert kl.kernel_design(name, 192, dtype) == ("mma.sync", wide)
     with pytest.raises(ValueError, match="no wgmma design|not a kernel"):
-        kl.kernel_design("conv3x3", 64, F32)
+        kl.kernel_design("warp", 64, F32)
 
 
 @pytest.mark.parametrize("c", [64, 128])

@@ -177,6 +177,14 @@ def tapconv_work(rows, cols, cin, cout, kind):
                 + rows * cols * cout * F32, ops={kind: 2 * 9 * rows * cols * cin * cout})
 
 
+def conv3x3_work(b, h, w, cin, cout, kind, elt):
+    """K5: b per-sample 'same' 3x3 convs, ``elt``-byte features in and out,
+    the float32 kernels, biases and gains read once; ``kind`` "bf16" or
+    "tf32x3" (float32 features on the tensor cores)."""
+    return dict(bytes=b * h * w * (cin + cout) * elt + b * (9 * cin + 2) * cout * F32,
+                ops={kind: 2 * 9 * b * h * w * cin * cout})
+
+
 def conv_bounds(flop, nbytes):
     """A convolution's bounds in ms: its ``flop`` on the float32 CUDA cores,
     in 3xTF32 and on the bf16 tensor cores, and its ``nbytes`` over the

@@ -1,13 +1,14 @@
 #!/usr/bin/env python
 """Phase 12 of chip_smoke.py (the probe kernels K6-K10 at their TPU
-probes' shapes, and K10 at K5's 720p geometry beside K5 and cuDNN) on two
+probes' shapes, and K10 and K5 at K5's 720p geometry beside cuDNN) on two
 trees in turns on one card, each run a process of its own: ``--other``, a
 checkout of another commit (``git archive`` of it unpacked under the
 git-ignored build/), and this checkout. Every run uses this checkout's
-chip_smoke.py (copied over the other tree's) with the tree's own package
-and tools, so both are measured by the same phase. Prints each K7 and K10
-stage's readings run by run (cold, device, host-enqueue, ms) and writes
-each run's rows as JSON under ``--out``.
+chip_smoke.py and tools/torch_kernel_bounds.py (copied over the other
+tree's) with the tree's own package and other tools, so both are measured
+by the same phase. Prints each K7, K8 and K10 stage's readings (and
+K5's) run by run (cold, device, host-enqueue, ms) and writes each run's
+rows as JSON under ``--out``.
 
     python tools/torch_probe_turns.py --other build/parent                 # other, this, this, other
     python tools/torch_probe_turns.py --other build/parent --order other   # the other tree alone
@@ -32,15 +33,17 @@ rows = cs.phase_probes(dev, smi)
 with open(sys.argv[1], "w") as f:
     json.dump({"smi": smi, "rows": rows}, f)
 """
-KERNELS = ("mmsel", "tapconv")
+KERNELS = ("mmsel", "tapconv", "matmul")
 
 
 def run(label, root, out_dir, k):
     """One process: this checkout's phase 12 on ``root``'s package; its
     JSON rows, its log under ``out_dir``."""
     root = Path(root).resolve()
-    if root != ROOT:
+    if root != ROOT:  # the measurement: this checkout's phase and bounds
         shutil.copy(ROOT / "chip_smoke.py", root / "chip_smoke.py")
+        shutil.copy(ROOT / "tools" / "torch_kernel_bounds.py",
+                    root / "tools" / "torch_kernel_bounds.py")
     out = out_dir / f"run{k}_{label}.json"
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", RUN, str(out)], cwd=root, capture_output=True,
@@ -65,7 +68,7 @@ def main(argv=None):
                    help="comma-separated runs (other / this), default other,this,this,other")
     p.add_argument("--out", default=str(ROOT / "chiprun_out" / "probe_turns"))
     args = p.parse_args(argv)
-    out_dir = Path(args.out)
+    out_dir = Path(args.out).resolve()
     out_dir.mkdir(parents=True, exist_ok=True)
     roots = {"other": args.other, "this": ROOT}
     order = args.order.split(",")
@@ -77,17 +80,23 @@ def main(argv=None):
           + " |")
     print("|---|" + "---|" * len(runs))
     for name in KERNELS:
-        stages = [r for r in runs[0][1]["rows"][name]["forms"]]
-        stages += runs[0][1]["rows"][name].get("k5_geometry", [])
-        for i, st in enumerate(stages):
-            cells = []
-            for _, res in runs:
-                rows = res["rows"][name]
-                row = (rows["forms"] + rows.get("k5_geometry", []))[i]
+        # each run's stages by label: a tree may time stages (yardsticks) the
+        # other has no entry for
+        by_run = [{r["tpu"]: r for r in res["rows"][name]["forms"]
+                   + res["rows"][name].get("k5_geometry", [])} for _, res in runs]
+        labels = list(dict.fromkeys(t for stages in by_run for t in stages))
+        for label in labels:
+            cells, st = [], None
+            for stages in by_run:
+                row = stages.get(label)
+                if row is None:
+                    cells.append("—")
+                    continue
+                st = row
                 cells.append(f"cold {fmt(row['cold_ms'])}, device {fmt(row['device_ms'])}, "
                              f"host {fmt(row['ms'])}; library cold {fmt(row['library_cold_ms'])},"
                              f" device {fmt(row['library_device_ms'])}")
-            print(f"| {name}: {st['tpu']} (bound {st['bound_ms']:.4f}, {st['bound_by']}) | "
+            print(f"| {name}: {label} (bound {st['bound_ms']:.4f}, {st['bound_by']}) | "
                   + " | ".join(cells) + " |")
     (out_dir / "summary.json").write_text(json.dumps(
         [{"run": k, "tree": label, **res} for k, (label, res) in enumerate(runs)]))
