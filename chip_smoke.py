@@ -21,7 +21,12 @@ Phases (any failure raises and the script exits non-zero):
    K6 (``window_copy_kernel``) spill nothing, K13's bulk-copy design
    (``ring_copy_kernel``) holds the bulk copy's SASS (``UBLKCP``), and
    ``ring_copy``'s shared memory at depths 0..9 is its wrapper's mirror's
-   (``probes.ring_schedule``) and fits;
+   (``probes.ring_schedule``) and fits; K10's int8 wgmma design
+   (``tapconv8_wg``, 4- and 8-row items) holds the integer warpgroup MMA
+   (``IGMMA``) and no ``mma.sync`` (``IMMA``) in each of its 2 device
+   functions, spills nothing, and its shared memory at the probe's 16 x
+   320 x 128 -> 128 is its wrapper's mirror's (``probes.tapconv8_schedule``);
+   K11 (``gather2_kernel``) spills nothing;
 3. each kernel against its plain PyTorch version at the main path's shapes
    (b=1, 720x1280, 64 channels), at b=4 on a smaller frame (256x448) and at
    ragged sizes (36x52; 40x56 for K1b, which needs multiples of 8), in
@@ -143,7 +148,12 @@ Phases (any failure raises and the script exits non-zero):
    functions on this run's shapes and, for K7, the non-zeros of its S and
    vm), each stage three ways (PROBE TIMING below); and K10 in bf16 and
    int8 at K5's geometry (720x1280, 64 -> 64) beside K5 and one cuDNN
-   conv, a measurement only;
+   conv, a measurement only. K10's int8 form counts apart
+   (``tapconv_int8``): it is held bitwise at ``TAPCONV8_EDGES`` (ragged
+   rows and columns, cin 32-320, cout 8-128), timed alone on k4's quantized
+   band at 16 x 320 (device time, its headline) and beside the ``mma.sync``
+   design it replaced (``pnp_tapconv`` with nm 0, the yardstick) there and
+   at K5's geometry;
 13. the probes that move data (B10b): ``tools/torch_warp_kernel_probe.py``
    and ``tools/torch_dma_probe.py`` (manual, then pipelined) at their JAX
    files' shapes on the card, the probe counts zeroed before and read
@@ -154,7 +164,11 @@ Phases (any failure raises and the script exits non-zero):
    write the array out), and beside its bound (K11's and K12's input bytes
    the distinct pixels this run's tables pick), each stage three ways
    (PROBE TIMING below); ``ring_copy`` also at depths 0 and 9 (split 4,
-   both outputs).
+   both outputs). K11 is also held bitwise on ``GATHER_EDGES`` (shifts
+   reaching -1, 34 and 35, xp as small as the wrapper takes) and timed
+   on the probe's first ``GATHER_L2_BANDS`` bands too, whose 39 MB fit the
+   L2, also warm (``warm_device_ms``: what the L2 allows; not held to the
+   bound).
 
    PROBE TIMING (phases 12 and 13). (i) ``ms``: the old method, CUDA
    events over the JAX file's n back-to-back calls on one input after a
@@ -419,8 +433,10 @@ PROBE_INFO = {
                ["tools/int8_probe.py:80", "tools/int8_probe.py:100"]),
     "absmax_quantize": ("pnp_vcve_torch/kernels/csrc/probe_matmul.cu", "tools/int8_probe.py:100",
                         ["tools/int8_probe.py:127"]),
-    "tapconv": ("pnp_vcve_torch/kernels/csrc/probe_tapconv.cu", "tools/int8_probe.py:148",
-                ["tools/int8_probe.py:127"]),
+    "tapconv": ("pnp_vcve_torch/kernels/csrc/probe_tapconv.cu", "tools/int8_probe.py:148", []),
+    # K10's int8 form, its own device function (tapconv8_wg) and count
+    "tapconv_int8": ("pnp_vcve_torch/kernels/csrc/probe_tapconv.cu", "tools/int8_probe.py:127",
+                     []),
     # phase 13: the probes that move data (B10b)
     "gather2": ("pnp_vcve_torch/kernels/csrc/probe_gather.cu", "tools/warp_kernel_probe.py:124",
                 []),
@@ -480,6 +496,12 @@ WG_SASS_NAMES = {"input_conv_wg": 2, "drt_block_wg": 4, "head_wg": 2, "conv3x3_w
 # the V and the H mode), K8 bf16 (csrc/probe_matmul.cu) and K10 bf16
 # (csrc/probe_tapconv.cu, 4- and 8-row items); the same gates
 PROBE_WG_SASS_NAMES = {"mmsel_wg": 2, "matmul_wg": 1, "tapconv_wg": 2}
+# K10's int8 wgmma design (csrc/probe_tapconv.cu, 4- and 8-row items): each
+# device function must hold the integer warpgroup MMA, no mma.sync (IMMA),
+# and spill nothing; K11's design (csrc/probe_gather.cu) must spill nothing
+INT8_WG_SASS_NAMES = {"tapconv8_wg": 2}
+INT8_WG_SASS_OP, INT8_SYNC_SASS_OP = "IGMMA", "IMMA"
+GATHER_NAMES = {"gather2_kernel": 1}
 # the probe kernels that only move data (K13's two, K6); K13's ring_copy
 # moves them with the bulk-copy engine
 COPY_NAMES = ("ring_copy_kernel", "stream_copy_kernel", "window_copy_kernel")
@@ -673,6 +695,7 @@ def phase_build():
         if len(ops) != len(BULK_SASS_NAMES) or not all(o.get(BULK_SASS_OP) for o in ops.values()):
             raise AssertionError(f"bulk-copy design without {BULK_SASS_OP}: "
                                  f"{ {fn: o.get(BULK_SASS_OP, 0) for fn, o in ops.items()} }")
+    _int8_and_gather_gates(lib, text, probes)
     ring_smem = [lib.lib.pnp_ring_copy_smem(128, d, 4) for d in range(probes.RING_MAX_DEPTH + 1)]
     mirror = [probes.ring_schedule((1, 8, 8, 128), 4, d, 1)["smem"]
               for d in range(probes.RING_MAX_DEPTH + 1)]
@@ -692,6 +715,41 @@ def phase_build():
     if off:
         raise AssertionError(f"launch.MAX_WIDTH / ONE_LAUNCH_WIDTH is not the widest block that "
                              f"fits: {off}")
+
+
+def _int8_and_gather_gates(lib, text, probes):
+    """K10's int8 wgmma design: IGMMA and no IMMA in each device function
+    (where cuobjdump is found), no spills, its shared memory at the probe
+    its mirror's; K11's design: no spills."""
+    from pnp_vcve_torch.kernels.launch import SMEM_MAX
+
+    if text is not None:
+        ops = _sass_ops(text, tuple(INT8_WG_SASS_NAMES))
+        for fn, o in ops.items():
+            mma = {k: v for k, v in o.items() if "MMA" in k}
+            print(f"[build] {fn}: matrix instructions {mma}")
+        bad = [fn for fn, o in ops.items()
+               if not o.get(INT8_WG_SASS_OP) or o.get(INT8_SYNC_SASS_OP)]
+        if bad or len(ops) != sum(INT8_WG_SASS_NAMES.values()):
+            raise AssertionError(f"int8 wgmma design: {len(ops)} device functions, without "
+                                 f"{INT8_WG_SASS_OP} or with {INT8_SYNC_SASS_OP}: {bad}")
+    smem = (lib.lib.pnp_tapconv8_smem(), probes.tapconv8_schedule(16, 320, 128, 128, 132)["smem"])
+    for names in (INT8_WG_SASS_NAMES, GATHER_NAMES):
+        rep = {fn: r for n in names for fn, r in _ptxas_report(lib.log, n).items()}
+        for fn, r in rep.items():
+            print(f"[build] {fn}: {r.get('registers')} registers at launch, stack "
+                  f"{r.get('stack')} B, spill stores {r.get('spill_stores')} B, spill loads "
+                  f"{r.get('spill_loads')} B")
+        count = sum(names.values())
+        spills = {fn: r for fn, r in rep.items() if r.get("spill_stores") or r.get("spill_loads")}
+        if len(rep) != count or spills:
+            raise AssertionError(f"{sorted(names)}: {len(rep)} device functions in the compiler's "
+                                 f"report (want {count}); spilling: {spills}")
+    print(f"[build] tapconv8_wg: {smem[0]} bytes of dynamic shared memory at the probe (mirror "
+          f"{smem[1]})")
+    if smem[0] != smem[1] or smem[0] > SMEM_MAX:
+        raise AssertionError(f"tapconv8_wg's shared memory (source, mirror) {smem} disagree or "
+                             f"pass {SMEM_MAX}")
 
 
 def _timed(fn, reps):
@@ -816,6 +874,21 @@ def _mma_sync_matmul(a, b):
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     call("matmul", "pnp_matmul_mma_sync", a.device, 1, a, b, None, out, m, n, k,
          counts={"matmul": 0})
+    return out
+
+
+def _mma_sync_tapconv(q, w, s, rows, cols):
+    """K10 int8 through its mma.sync design, the one the wgmma design
+    replaced (``pnp_tapconv`` with nm 0, grid 0): phase 12's yardstick. Its
+    launches count nowhere."""
+    import torch
+
+    from pnp_vcve_torch.kernels.launch import call
+
+    bh, bw, cin = q.shape
+    out = torch.empty((rows, cols, w.shape[3]), dtype=torch.float32, device=q.device)
+    call("tapconv_int8", "pnp_tapconv", q.device, 2, q, w, s, out, bh, bw, cin, w.shape[3], rows,
+         cols, 0, 0, counts={"tapconv_int8": 0})
     return out
 
 
@@ -2236,8 +2309,30 @@ def _probe_cases(int8, warp2, bisect):
         q, s = P.absmax_quantize_plain(a[0])
         return P.tapconv_plain(q, a[1], rows, cols, s)
 
-    add("tapconv", "k4 K9 + int8 tap conv (:127)", r, k4_plain, "bitwise", None, 50,
+    # K10 int8 alone on k4's quantized band (its headline), on device time;
+    # beside it the mma.sync design it replaced; then k4 as the probe runs it
+    q, s = P.absmax_quantize(band)
+
+    def k10_int8(q_, wq_, s_):
+        return P.tapconv(q_, wq_, rows, cols, s_)
+
+    add("tapconv_int8", "k4's int8 tap conv alone (:127), s given",
+        dict(out=k10_int8(q, wq, s), fn=k10_int8, args=(q, wq, s)),
+        lambda a: P.tapconv_plain(*a[:2], rows, cols, a[2]), "bitwise", None, 50,
+        kb.tapconv_work(rows, cols, c2, cout, "int8"))
+    cases[-1]["device"] = True
+
+    def yard(q_, wq_, s_):
+        return _mma_sync_tapconv(q_, wq_, s_, rows, cols)
+
+    add("tapconv_int8", "k4's int8 tap conv alone (:127), s given, the mma.sync yardstick",
+        dict(out=yard(q, wq, s), fn=yard, args=(q, wq, s)),
+        lambda a: P.tapconv_plain(*a[:2], rows, cols, a[2]), "bitwise", None, 50,
+        kb.tapconv_work(rows, cols, c2, cout, "int8"))
+    cases[-1].update(device=True, plain_timed=False)
+    add("tapconv_int8", "k4 K9 + int8 tap conv (:127)", r, k4_plain, "bitwise", None, 50,
         kb.quantized_tapconv_work(*band.shape[:2], rows, cols, c2, cout))
+    cases[-1]["device"] = True
     add("absmax_quantize", "k4's quantize (:127)", dict(fn=P.absmax_quantize, args=(band,)),
         lambda a: P.absmax_quantize_plain(*a), "bitwise", None, 50,
         kb.quantize_work(band.numel()), out=P.absmax_quantize(band))
@@ -2328,10 +2423,15 @@ def _k5_geometry_cases(dev):
         # the band's NCHW view, channels last; the bf16 output seen as (h, w, c)
         lambda a: F.conv2d(a[0].permute(2, 0, 1)[None], w_oihw)[0].permute(1, 2, 0),
         kb.tapconv_work(h, w, c, c, "bf16"), lib_of=lambda o: o)
-    add("tapconv", "K10 int8 (s given)", lambda q_, wq_, s_: P.tapconv(q_, wq_, h, w, s_),
+    add("tapconv_int8", "K10 int8 (s given)", lambda q_, wq_, s_: P.tapconv(q_, wq_, h, w, s_),
         (q, wq, s), lambda a: P.tapconv_plain(*a[:2], h, w, a[2]), "bitwise", None,
         kb.tapconv_work(h, w, c, c, "int8"))
-    add("tapconv", "K9 + K10 int8", k9_k10, (band, wq), k9_k10_plain, "bitwise", None,
+    add("tapconv_int8", "K10 int8 (s given), the mma.sync yardstick",
+        lambda q_, wq_, s_: _mma_sync_tapconv(q_, wq_, s_, h, w), (q, wq, s),
+        lambda a: P.tapconv_plain(*a[:2], h, w, a[2]), "bitwise", None,
+        kb.tapconv_work(h, w, c, c, "int8"))
+    cases[-1]["plain_timed"] = False
+    add("tapconv_int8", "K9 + K10 int8", k9_k10, (band, wq), k9_k10_plain, "bitwise", None,
         kb.quantized_tapconv_work(h + 2, w + 2, h, w, c, c))
     # K5 itself at b = 1 in both types, with its bias and gain: against its
     # plain version in float32 (TF32 off) by phase 3's bounds, timed cold
@@ -2402,13 +2502,40 @@ def phase_probes(dev, smi):
     print(f"[probes] launches of the three tools: {counts}")
     failed = [k for res in (int8, warp2, bisect) for k, v in res.items() if v["out"] is None]
     if failed or not all(counts[k] for k in ("window_copy", "mmsel", "matmul", "absmax_quantize",
-                                             "tapconv")):
+                                             "tapconv", "tapconv_int8")):
         raise AssertionError(f"probe stages failed: {failed}; launches {counts}")
+    _tapconv_int8_edges(dev)
     rows = _probe_rows(_probe_cases(int8, warp2, bisect), smi)
     k5 = _probe_rows(_k5_geometry_cases(dev), smi)
     out = _probe_summary(rows, counts, "phase12_launches")
     out["tapconv"]["k5_geometry"] = k5["tapconv"] + k5["conv3x3"]
+    out["tapconv_int8"]["k5_geometry"] = k5["tapconv_int8"]
     return out
+
+
+# K10 int8's edge shapes (rows, cols, cin, cout): ragged rows and columns,
+# cin 32, 96 (a chunk half past cin), 256 (four chunks, 4-row items) and
+# 320 (past the resident weights: the mma.sync design), cout 8-128
+TAPCONV8_EDGES = ((5, 18, 32, 8), (13, 45, 96, 72), (9, 33, 64, 128), (21, 70, 128, 24),
+                  (37, 100, 256, 64), (6, 40, 320, 16))
+
+
+def _tapconv_int8_edges(dev):
+    """K10 int8 bitwise against its plain version at ``TAPCONV8_EDGES``, the
+    band 3 rows and 5 columns larger than the output needs."""
+    import torch
+
+    from pnp_vcve_torch.kernels import probes as P
+
+    gen = torch.Generator().manual_seed(SEED + 21)
+    for rows, cols, cin, cout in TAPCONV8_EDGES:
+        q = torch.randint(-127, 128, (rows + 5, cols + 7, cin), generator=gen,
+                          dtype=torch.int8).to(dev)
+        w = torch.randint(-127, 128, (3, 3, cin, cout), generator=gen, dtype=torch.int8).to(dev)
+        s = torch.tensor([0.0123], device=dev)
+        _probe_check(f"tapconv_int8: edge {rows}x{cols}, {cin} -> {cout}",
+                     P.tapconv(q, w, rows, cols, s), P.tapconv_plain(q, w, rows, cols, s),
+                     "bitwise")
 
 
 L2_BYTES = 50 * 2**20     # the H100's L2
@@ -2489,7 +2616,12 @@ def _probe_rows(cases, smi):
     timed in turns beside the library call and the bound, by the old
     method, cold and on the device where each applies (PROBE TIMING in the
     module's notes); a kernel reading above ``BOUND_GATE`` times what its
-    bound allows fails: {kernel: [row]}."""
+    bound allows fails: {kernel: [row]}. A case with ``plain_timed`` False
+    (a yardstick: another design of the same kernel) is held to its plain
+    version but not timed beside it; one with ``warm`` is also timed on
+    device time over its one input set (``warm_device_ms``: its inputs and
+    outputs left in the L2 by the call before), a reading of the L2, not
+    held to the bound."""
     import torch
 
     import torch_kernel_bounds as kb
@@ -2503,21 +2635,23 @@ def _probe_rows(cases, smi):
         if c["lib_of"]:
             _probe_check(f"{tag}: library call", c["library"](args), c["lib_of"](c["out"]),
                          c["rule"])
+        plain = c["plain"] if c.get("plain_timed", True) else None
         # (i) the old method: back to back on one input, host enqueue included
-        p1, k1, k2, p2 = (_timed(lambda f=f: f(args), c["reps"])
-                          for f in (c["plain"], kern, kern, c["plain"]))
+        p1, k1, k2, p2 = (None if f is None else _timed(lambda f=f: f(args), c["reps"])
+                          for f in (plain, kern, kern, plain))
         lib = _timed(lambda: c["library"](args), c["reps"]) if c["library"] else None
         b_ms, by, t_bytes, t_ops = kb.bound(c["work"])
         in_bytes = _nbytes(args)
         sets = _rotation(args)
         cold = dict(cold_ms=None, plain_cold_ms=None, library_cold_ms=None)
         if in_bytes > L2_BYTES:  # (ii) cold, in turns
-            fns = {"plain": c["plain"], "kernel": kern, "library": c["library"]}
+            fns = {"plain": plain, "kernel": kern, "library": c["library"]}
             t = {n: [] for n in fns}
             for n in ("plain", "kernel", "library", "library", "kernel", "plain"):
                 if fns[n] is not None:
                     t[n].append(_rotated_ms(fns[n], sets, c["reps"]))
-            cold = dict(cold_ms=sum(t["kernel"]) / 2, plain_cold_ms=sum(t["plain"]) / 2,
+            cold = dict(cold_ms=sum(t["kernel"]) / 2,
+                        plain_cold_ms=sum(t["plain"]) / 2 if t["plain"] else None,
                         library_cold_ms=sum(t["library"]) / 2 if t["library"] else None)
         dev = dict(device_ms=None, library_device_ms=None)
         if min(k1, k2) < DEVICE_BELOW_MS or c.get("device"):  # (iii) the device's time
@@ -2529,9 +2663,12 @@ def _probe_rows(cases, smi):
                     print(f"[probes] {tag}: the library call in a CUDA graph failed: "
                           f"{repr(e)[:300]}; its device time not measured")
                     torch.cuda.synchronize()
+        if c.get("warm"):  # the L2's reading: one input set, left there by the call before
+            dev["warm_device_ms"] = _graph_ms(kern, [args], c["reps"])
         ncopies = len(sets)
         del sets
-        row = dict(tpu=c["tpu"], max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+        row = dict(tpu=c["tpu"], max_abs_err=err, ms=(k1 + k2) / 2,
+                   plain_ms=None if p1 is None else (p1 + p2) / 2,
                    bound_ms=b_ms, bound_by=by, library_ms=lib, **cold, **dev,
                    in_bytes=in_bytes, **c.get("extra", {}))
         rows.setdefault(c["kernel"], []).append(row)
@@ -2539,12 +2676,14 @@ def _probe_rows(cases, smi):
         def f4(v):
             return "not measured" if v is None else f"{v:.4f} ms"
 
+        warm = (f", warm device (its one input set in the L2) {f4(dev['warm_device_ms'])}"
+                if c.get("warm") else "")
         print(f"[time] {tag}: host-enqueue (warm, back to back) kernel {k1:.4f} / {k2:.4f} ms, "
-              f"plain {p1:.4f} / {p2:.4f} ms, library {f4(lib)}; cold (rotated over "
+              f"plain {f4(p1)} / {f4(p2)}, library {f4(lib)}; cold (rotated over "
               f"{ncopies} x {in_bytes / 1e6:.1f} MB) kernel "
               f"{f4(cold['cold_ms'])}, plain {f4(cold['plain_cold_ms'])}, library "
               f"{f4(cold['library_cold_ms'])}; device (CUDA graph) kernel "
-              f"{f4(dev['device_ms'])}, library {f4(dev['library_device_ms'])}; bound "
+              f"{f4(dev['device_ms'])}, library {f4(dev['library_device_ms'])}{warm}; bound "
               f"{b_ms:.4f} ms ({by}: bytes {t_bytes:.4f}, ops {t_ops:.4f}); {smi}")
         readings = [v for v in (cold["cold_ms"], dev["device_ms"]) if v is not None]
         over = [v for v in readings or [row["ms"]] if b_ms > BOUND_GATE * v]
@@ -2590,10 +2729,7 @@ def _probe_cases_b10b(wkp, dma):
         lambda a: torch.mul(a[0][:, a[3]:a[3] + a[1], a[4]:a[4] + a[2]], 2), 30,
         kb.copy_work(1, oh, oh, ow, src.shape[3]))
     # K11 and K12: the input bytes are the distinct pixels this run's tables pick
-    r = wkp["dense select (35H+35V)"]
-    xp, shidx, _, _, dyidx, _, _, sel_x0 = r["args"]
-    add("gather2", "probe_select (:124)", r, lambda a: P.gather2_plain(*a), None, 30,
-        kb.gather2_work(shidx.cpu().numpy(), dyidx.cpu().numpy(), *xp.shape[1:], sel_x0))
+    cases += _gather2_cases(wkp)
     r = wkp["per-block window DMAs (320/band)"]
     xp, sy, sx = r["args"][:3]
     add("block_windows", "probe_dma (:179)", r, lambda a: P.block_windows_plain(*a), None, 30,
@@ -2614,6 +2750,85 @@ def _probe_cases_b10b(wkp, dma):
             kb.chunk_copy_work(*z.shape[1:], write_out),
             extra=dict(chained_ms=res["ms"]))
     return cases
+
+
+GATHER_L2_BANDS = 12  # K11 on this many bands: its 39 MB of input and output fit the L2
+
+
+def _gather2_cases(wkp):
+    """K11's cases, as _probe_cases_b10b makes them: the probe's stage (the
+    headline), then the probe's tables on its first ``GATHER_L2_BANDS``
+    bands, whose input and output fit the L2, also timed warm (its
+    ``warm_device_ms``: what the L2 allows)."""
+    from pnp_vcve_torch.kernels import probes as P
+    import torch_kernel_bounds as kb
+
+    cases = []
+
+    def add(tpu, fn, args, work, **extra):
+        cases.append(dict(kernel="gather2", tpu=tpu, out=fn(*args), fn=fn, args=args,
+                          plain=lambda a: P.gather2_plain(*a), rule="bitwise", library=None,
+                          lib_of=None, reps=30, work=work, **extra))
+
+    r = wkp["dense select (35H+35V)"]
+    xp, shidx, wx0, wx1, dyidx, wy0, wy1, x0 = r["args"]
+    work = kb.gather2_work(shidx.cpu().numpy(), dyidx.cpu().numpy(), *xp.shape[1:], x0)
+    add("probe_select (:124)", r["fn"], r["args"], work)
+    nb = GATHER_L2_BANDS
+    small = (xp[:, :8 * (nb - 1) + P.GATHER_BAND].contiguous(),
+             *(t[:nb].contiguous() for t in (shidx, wx0, wx1, dyidx, wy0, wy1)), x0)
+    work = kb.gather2_work(small[1].cpu().numpy(), small[4].cpu().numpy(), *small[0].shape[1:], x0)
+    add(f"probe_select (:124), its first {nb} bands", r["fn"], small, work, warm=True)
+    return cases
+
+
+# K11's edge tables: (nb, w, c, x0), xp as small as the wrapper takes (hp = 8
+# nb + 34, wp = w + x0 + 34) and 6 rows / 30 columns larger; shifts drawn
+# from -2 .. 36 with -1, 34 and 35 set in every band
+GATHER_EDGES = ((3, 200, 24, 15), (5, 77, 8, 1), (2, 300, 64, 15))
+
+
+def _gather2_edges(dev):
+    """K11 bitwise against its plain version on ``GATHER_EDGES``."""
+    import torch
+
+    from pnp_vcve_torch.kernels import probes as P
+
+    gen = torch.Generator().manual_seed(SEED + 22)
+    for nb, w, c, x0 in GATHER_EDGES:
+        for pad_h, pad_w in ((0, 0), (6, 30)):
+            hp, wp = 8 * nb + 34 + pad_h, w + x0 + 34 + pad_w
+            xp = torch.randn((1, hp, wp, c), generator=gen).to(dev, torch.bfloat16)
+            tabs = [torch.randint(-2, 37, (nb, w), generator=gen, dtype=torch.int32)
+                    for _ in range(2)]
+            for t in tabs:
+                t[:, :3] = torch.tensor([-1, 34, 35], dtype=torch.int32)
+            shidx, dyidx = (t.to(dev) for t in tabs)
+            wts = [torch.rand((nb, w), generator=gen).to(dev) for _ in range(4)]
+            args = (xp, shidx, wts[0], wts[1], dyidx, wts[2], wts[3], x0)
+            _probe_check(f"gather2: edge tables, {nb} bands x {w}, {c} channels, xp {hp}x{wp}, "
+                         f"x0 {x0}", P.gather2(*args), P.gather2_plain(*args), "bitwise")
+
+
+def phase_gather2(dev, smi):
+    """K11 alone as phase 13 runs it (tools/torch_probe_turns.py): the warp
+    probe's three stages, K11's launches counted, its edge tables, then its
+    cases timed: {"gather2": its JSON row}."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_warp_kernel_probe
+
+    from pnp_vcve_torch.kernels import probes
+
+    probes.reset_launches()
+    wkp = torch_warp_kernel_probe.main([])
+    torch.cuda.synchronize()
+    counts = dict(probes.LAUNCHES)
+    if wkp["dense select (35H+35V)"]["out"] is None or not counts["gather2"]:
+        raise AssertionError(f"K11's stage failed; launches {counts}")
+    _gather2_edges(dev)
+    return _probe_summary(_probe_rows(_gather2_cases(wkp), smi), counts, "phase13_launches")
 
 
 def phase_probes_b10b(dev, smi):
@@ -2645,6 +2860,7 @@ def phase_probes_b10b(dev, smi):
     needed = ("window_copy", "gather2", "block_windows", "ring_copy", "stream_copy")
     if failed or not all(counts[k] for k in needed):
         raise AssertionError(f"probe stages failed: {failed}; launches {counts}")
+    _gather2_edges(dev)
     return _probe_summary(_probe_rows(_probe_cases_b10b(wkp, dma), smi), counts,
                           "phase13_launches")
 
@@ -4576,6 +4792,7 @@ def phase_sr_zoo(dev, smi):
 
 
 def main():
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     # deterministic cuBLAS for the resume check of phase 7; read when cuBLAS
     # starts, so set before any CUDA work
@@ -4585,14 +4802,14 @@ def main():
 
     fixture = start_main_fixture()
     try:
-        _phases(dev, smi, fixture)
+        _phases(dev, smi, fixture, t_start)
     finally:
         if fixture.poll() is None:
             fixture.kill()
         fixture.wait()
 
 
-def _phases(dev, smi, fixture):
+def _phases(dev, smi, fixture, t_start):
     import torch
 
     def phase(name, fn, *args):
@@ -4639,6 +4856,7 @@ def _phases(dev, smi, fixture):
              "exact_pipeline_launches": exact_counts, "cascade_launches": cascade_counts,
              "ddp_train_launches": ddp_counts, "kitti_launches": kitti_counts,
              "export_launches": export_counts, "sr_zoo_launches": zoo_counts}
+    print(f"[chip_smoke] every phase passed in {time.perf_counter() - t_start:.1f} s; {smi}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),

@@ -77,7 +77,7 @@ SIGNATURES = {
 # them): name -> whether it takes the dtype code; pnp_<name>_smem() that of a probe
 SMEM_REPORT = {"warp_block": False, "input_conv": True, "drt_block": True, "head": True,
                "conv3x3": True}
-PROBE_SMEM_REPORT = ("mmsel", "matmul", "tapconv")
+PROBE_SMEM_REPORT = ("mmsel", "matmul", "tapconv", "tapconv8")
 
 
 @dataclass

@@ -24,6 +24,20 @@
 // staged, nothing is shared. The eight threads of a pixel read its 64
 // channels (at c = 64) as one 128-byte run.
 //
+// Loads: a design that put each load behind its weight's test read as
+// slowly with its input in the L2 as from device memory (the first 12
+// bands, 39 MB, warm: 12/90 of its cold time), so neither the L2 nor device
+// memory set its pace, but each thread's loads waiting on one another: a
+// load behind its test went out after the ones before it. Here every tap is
+// loaded, with no test: a dead tap's weight is zero and the wrapper keeps
+// every live tap inside xp, so the address is clamped into xp (row and
+// column) and its finite value times the zero weight adds +0, as in the
+// plain version's clamped gather; a band row outside the 42 a V term can
+// read gives h = 0 after the load. The 18 loads of a thread issue
+// together, and only two h rows (packed bf16) stay live. The output is
+// stored with an evict-first hint. (Streaming the rows into the L2 ahead of
+// the bands, by bulk prefetches, measured slower and is not kept.)
+//
 // Bound: bytes. xp is read about once (neighbouring columns' taps overlap in
 // the cache), out written once, the tables read once; 2 x 17 FMAs an output
 // vector of 8 channels.
@@ -37,7 +51,19 @@ constexpr int GS_TAPS = GS_ROWS + 1;                   // h rows an output colum
 constexpr int GS_BAND = GS_SHIFTS - 1 + GS_ROWS;       // band rows the V pass can reach (42)
 constexpr int GS_THREADS = 256;
 
-__global__ void __launch_bounds__(GS_THREADS)
+// 16-byte loads of 8 bf16 channels and the bf16 h rows as packed pairs
+__device__ __forceinline__ uint4 ldg16(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+__device__ __forceinline__ float2 bf2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+__device__ __forceinline__ uint32_t pack_bf2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__global__ void __launch_bounds__(GS_THREADS, 2)
     gather2_kernel(const __nv_bfloat16* __restrict__ xp, const int* __restrict__ shidx,
                    const float* __restrict__ wx0, const float* __restrict__ wx1,
                    const int* __restrict__ dyidx, const float* __restrict__ wy0,
@@ -54,28 +80,49 @@ __global__ void __launch_bounds__(GS_THREADS)
   const float a1 = (k >= -1 && k < GS_SHIFTS - 1) ? wx1[t] : 0.f;
   const float b0 = (d >= 0 && d < GS_SHIFTS) ? wy0[t] : 0.f;
   const float b1 = (d >= -1 && d < GS_SHIFTS - 1) ? wy1[t] : 0.f;
-  const int col = x + k + x0;  // the a0 tap; the a1 tap is the next column
+  // the a0 and a1 taps' columns, clamped into xp (a live tap's never is)
+  const int pc = min(max(x + k + x0, 0), wp - 1), qc = min(max(x + k + x0 + 1, 0), wp - 1);
 
-  float hv[GS_TAPS][PN];  // h at band rows d .. d + 8, rounded to bf16
+  // every tap's load first, 18 in flight, at a clamped row and column: no
+  // load waits behind a test
+  const size_t rs = (size_t)wp * c;
+  const __nv_bfloat16* band = xp + (size_t)ri * GS_ROWS * rs + v * PN;
+  uint4 p[GS_TAPS], q[GS_TAPS];
 #pragma unroll
   for (int i = 0; i < GS_TAPS; ++i) {
-    const int j = d + i;
-    float p[PN] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, q[PN] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (j >= 0 && j < GS_BAND) {  // rows a live V term can read
-      const __nv_bfloat16* row = xp + ((size_t)ri * GS_ROWS + j) * wp * c + v * PN;
-      if (a0 != 0.f) load8(row + (size_t)col * c, p);
-      if (a1 != 0.f) load8(row + (size_t)(col + 1) * c, q);
-    }
-#pragma unroll
-    for (int n = 0; n < PN; ++n)
-      hv[i][n] = round_to<__nv_bfloat16>(__fmaf_rn(q[n], a1, __fmaf_rn(p[n], a0, 0.f)));
+    const __nv_bfloat16* row = band + (size_t)min(max(d + i, 0), GS_BAND - 1) * rs;
+    p[i] = ldg16(row + (size_t)pc * c);
+    q[i] = ldg16(row + (size_t)qc * c);
   }
+  // h at band row d + i as bf16 pairs, zero where the row lies outside the
+  // 42 a live V term can read; two rows live at a time
+  auto hrow = [&](int i, uint32_t (&h)[PN / 2]) {
+    const bool live = (unsigned)(d + i) < (unsigned)GS_BAND;
+    const uint32_t pw[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
+    const uint32_t qw[4] = {q[i].x, q[i].y, q[i].z, q[i].w};
+#pragma unroll
+    for (int n = 0; n < PN / 2; ++n) {
+      const float2 pf = bf2(pw[n]), qf = bf2(qw[n]);
+      h[n] = live ? pack_bf2(__fmaf_rn(qf.x, a1, __fmaf_rn(pf.x, a0, 0.f)),
+                             __fmaf_rn(qf.y, a1, __fmaf_rn(pf.y, a0, 0.f)))
+                  : 0u;
+    }
+  };
+  uint32_t h0[PN / 2], h1[PN / 2];
+  hrow(0, h0);
 #pragma unroll
   for (int r = 0; r < GS_ROWS; ++r) {
-    float o[PN];
+    hrow(r + 1, h1);
+    uint4 o;
+    uint32_t* ow = reinterpret_cast<uint32_t*>(&o);
 #pragma unroll
-    for (int n = 0; n < PN; ++n) o[n] = __fmaf_rn(hv[r + 1][n], b1, __fmaf_rn(hv[r][n], b0, 0.f));
-    store8(out + (((size_t)ri * GS_ROWS + r) * w + x) * c + v * PN, o);
+    for (int n = 0; n < PN / 2; ++n) {
+      const float2 f0 = bf2(h0[n]), f1 = bf2(h1[n]);
+      ow[n] = pack_bf2(__fmaf_rn(f1.x, b1, __fmaf_rn(f0.x, b0, 0.f)),
+                       __fmaf_rn(f1.y, b1, __fmaf_rn(f0.y, b0, 0.f)));
+      h0[n] = h1[n];
+    }
+    __stcs(reinterpret_cast<uint4*>(out + (((size_t)ri * GS_ROWS + r) * w + x) * c + v * PN), o);
   }
 }
 

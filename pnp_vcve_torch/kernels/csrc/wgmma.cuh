@@ -1,6 +1,7 @@
 // Hopper's asynchronous pieces for the wgmma designs of K2-K5
 // (input_conv.cu, drt_block.cu, head.cu, conv3x3.cu) and of the probes K7,
-// K8 and K10 (probe_mmsel.cu, probe_matmul.cu, probe_tapconv.cu): the
+// K8 and K10 (probe_mmsel.cu, probe_matmul.cu, probe_tapconv.cu; K10 int8
+// on the s8 form): the
 // mbarriers of a producer / consumer ring, bulk and cp.async copies that
 // complete on them,
 // shared-memory matrix descriptors and warpgroup matrix multiplies (wgmma)
@@ -102,6 +103,14 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
+// descriptor of a K-major, 64-byte swizzled operand at p: rows of 64 bytes
+// in atoms of 8 rows (512 bytes, 512-aligned) whose 16-byte chunk j of row
+// r sits at chunk j ^ ((r / 2) % 4); stride 512 bytes between 8-row groups
+// (K10 int8's resident weights: 64 input channels a row, two k-steps of 32)
+__device__ __forceinline__ uint64_t desc_sw64(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
 // descriptor of a K-major, 32-byte swizzled operand at p: rows of 32 bytes
 // (one k-step) in atoms of 8 rows (256 bytes, 256-aligned) whose 16-byte
 // chunk j of row r sits at chunk j ^ ((r / 4) % 2); stride 256 bytes between
@@ -157,6 +166,12 @@ __device__ __forceinline__ void hold(float (&r)[N]) {
 }
 template <int N>
 __device__ __forceinline__ void hold(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]));
+}
+
+template <int N>
+__device__ __forceinline__ void hold(int (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]));
 }
@@ -230,6 +245,27 @@ __device__ __forceinline__ void mma_bf16_ss_mn(float (&d)[32], uint64_t desc_a,
       : PNP_WG_D32
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
+#define PNP_WG_I32                                                                          \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),       \
+      "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), \
+      "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),          \
+      "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),          \
+      "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+// d (64 x 64, int32) += a (64 x 32 int8, registers: mma.sync's m16n8k32 A
+// fragments, which ldmatrix loads as for bf16) * B (32 x 64 int8 at desc,
+// K-major: the s8 form reads B K-major only); exact, wrapping
+__device__ __forceinline__ void mma_s8(int (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " PNP_WG_DREGS
+      "{%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : PNP_WG_I32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+#undef PNP_WG_I32
 #undef PNP_WG_D32
 #undef PNP_WG_DREGS
 

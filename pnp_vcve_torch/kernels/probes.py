@@ -1,9 +1,10 @@
 """The probe kernels K6-K13: the TPU micro-benchmarks of ``tools/`` as
-hand-written Hopper kernels (``csrc/probe_*.cu``; K7 and the bf16 forms of
-K8 and K10 on ``wgmma``, their operands copied by the tensor memory
-accelerator (``csrc/tma.cuh``), K7's and K10's through ``csrc/wg_conv.cuh``'s
-rings; K9 and the int8 forms of K8 and K10 on the ``mma.sync`` helpers of
-``csrc/mma.cuh``), with their plain PyTorch versions. K7-K10
+hand-written Hopper kernels (``csrc/probe_*.cu``; K7, both forms of K10
+and the bf16 form of K8 on ``wgmma``, their operands copied by the tensor
+memory accelerator (``csrc/tma.cuh``), K7's and K10's through
+``csrc/wg_conv.cuh``'s rings; K9 and the int8 form of K8 on the
+``mma.sync`` helpers of ``csrc/mma.cuh``), with their plain PyTorch
+versions. K7-K10
 multiply on the matrix unit; K6 and K11-K13 move data. No model path runs
 them; ``tools/torch_int8_probe.py``, ``tools/torch_warp_kernel_probe2.py``,
 ``tools/torch_warp_bisect.py``, ``tools/torch_warp_kernel_probe.py`` and
@@ -21,7 +22,7 @@ K7      ``mmsel_warp``,      ``csrc/probe_mmsel.cu``   warp_kernel_probe2.py ``p
 K8      ``matmul``           ``csrc/probe_matmul.cu``  int8_probe.py k1 (:70), k2 (:80), k3's
                                                        product (:100)
 K9      ``absmax_quantize``  ``csrc/probe_matmul.cu``  int8_probe.py k3's and k4's quantize
-K10     ``tapconv``          ``csrc/probe_tapconv.cu`` int8_probe.py k4 (:127), k5 (:148)
+K10     ``tapconv``          ``csrc/probe_tapconv.cu`` int8_probe.py k5 (:148); int8: k4 (:127)
 K11     ``gather2``          ``csrc/probe_gather.cu``  warp_kernel_probe.py ``probe_select`` (:124)
 K12     ``block_windows``    ``csrc/probe_blockdma.cu`` warp_kernel_probe.py ``probe_dma`` (:179)
 K13     ``ring_copy``,       ``csrc/probe_ring.cu``    dma_probe.py ``run`` (:104),
@@ -34,12 +35,14 @@ its kernel or raises. K13's persistent bulk-copy design takes its work as
 a list of items; :func:`ring_schedule` and :func:`stream_grid` compute what
 its wrappers hand the C entries, and :func:`ring_items` spells out the
 items as the kernel decodes them. K7's and K10's persistent wgmma designs
-do the same: :func:`mmsel_schedule` / :func:`mmsel_items` and
-:func:`tapconv_schedule` / :func:`tapconv_items`; :func:`matmul_tiles`
+do the same: :func:`mmsel_schedule` / :func:`mmsel_items`,
+:func:`tapconv_schedule` / :func:`tapconv_items` and, for K10's int8 form,
+:func:`tapconv8_schedule` / :func:`tapconv8_items`; :func:`matmul_tiles`
 spells out K8's blocks and their depth chunks. This module's
 ``LAUNCHES`` (apart from the model kernels' ``launch.LAUNCHES``) counts one
 per kernel call (K9's two passes are one call; K13 counts its two kernels
-apart); :func:`reset_launches` zeroes it.
+apart, K10 its bf16 and int8 forms, ``tapconv`` and ``tapconv_int8``);
+:func:`reset_launches` zeroes it.
 """
 
 from __future__ import annotations
@@ -61,7 +64,8 @@ __all__ = [
     "block_windows", "block_windows_plain", "ring_copy", "stream_copy", "ring_copy_plain",
     "timed", "bf16_from_numpy", "sm_count", "ring_schedule", "ring_items", "ring_stage_bytes",
     "stream_grid", "mmsel_schedule", "mmsel_items", "tapconv_schedule", "tapconv_items",
-    "matmul_tiles", "matmul_tile_shape",
+    "matmul_tiles", "matmul_tile_shape", "tapconv8_schedule", "tapconv8_items", "tapconv8_smem",
+    "gather2_items",
 ]
 
 TILE = 128       # output columns a tile of the selection matmul (rows of S)
@@ -79,6 +83,10 @@ TAPCONV_COLS = 32           # output columns an item
 TAPCONV_COUT = 64           # output channels an item
 TAPCONV_STAGES = 6          # weight stages of 64 x 64 bf16
 TAPCONV_BARRIERS = 2 * TAPCONV_STAGES + 4
+# K10's int8 wgmma design (csrc/probe_tapconv.cu: tapconv8_wg): 64-channel
+# (64-byte) chunks of the patch, each block's 64-channel output part of the
+# weights resident
+TAPCONV8_PIX = 64
 # K8's bf16 wgmma design, as csrc/probe_matmul.cu has it: out tiles of
 # MATMUL_TILE x MATMUL_TILE, the depth in chunks of MATMUL_CHUNK, a ring of
 # MATMUL_STAGES stages of two 8 KB boxes; a block's shared memory
@@ -98,7 +106,8 @@ RING_BAR_BYTES = 256    # K13's room for its mbarriers and the items its stages 
 STREAM_BLOCKS_PER_SM = 8
 
 LAUNCHES = {"window_copy": 0, "mmsel": 0, "matmul": 0, "absmax_quantize": 0, "tapconv": 0,
-            "gather2": 0, "block_windows": 0, "ring_copy": 0, "stream_copy": 0}
+            "tapconv_int8": 0, "gather2": 0, "block_windows": 0, "ring_copy": 0,
+            "stream_copy": 0}
 
 
 def reset_launches():
@@ -442,7 +451,12 @@ def tapconv_items(rows, cols, cin, cout, sms):
     """K10's bf16 items as the kernel decodes them, per block: ``(first row,
     first column, first output channel)`` of each, in the order the block
     takes them."""
-    sc = tapconv_schedule(rows, cols, cin, cout, sms)
+    return _tap_items(tapconv_schedule(rows, cols, cin, cout, sms))
+
+
+def _tap_items(sc):
+    """The items of a K10 schedule ``sc`` (either form's) as its kernel
+    decodes them: item it (the channel part fastest) to block it % grid."""
     blocks = [[] for _ in range(sc["grid"])]
     for it in range(sc["items"]):
         tt, cp = divmod(it, sc["ncp"])
@@ -450,6 +464,47 @@ def tapconv_items(rows, cols, cin, cout, sms):
         blocks[it % sc["grid"]].append((ty * sc["tile_rows"], tx * TAPCONV_COLS,
                                         cp * TAPCONV_COUT))
     return blocks
+
+
+def tapconv8_smem(nm, chunks):
+    """A block of K10's int8 wgmma design: alignment slack, the resident
+    weights (9 taps x ``chunks`` tiles of 64 x 64 int8), two patch buffers of
+    ``(4 nm + 2) x 34`` 64-byte pixels, the two consumer warpgroups' two
+    output boxes each (as :func:`tapconv_schedule`'s) and four barriers."""
+    patch = _ceil_div((4 * nm + 2) * (TAPCONV_COLS + 2) * TAPCONV8_PIX, 1024) * 1024
+    return (1024 + 9 * chunks * 64 * TAPCONV8_PIX + 2 * patch
+            + 4 * 2 * nm * TAPCONV_COLS * 128 + 8 * 4)
+
+
+def tapconv8_schedule(rows, cols, cin, cout, sms):
+    """K10's int8 work (csrc/probe_tapconv.cu: tapconv8_wg): items as
+    :func:`tapconv_schedule`'s (``4 nm`` rows x 32 columns x 64 output
+    channels, the part fastest), the input in ``chunks`` of 64 channels;
+    ``nm`` 2, or 1 where the nm = 2 items would leave SMs idle or their
+    block would pass ``SMEM_MAX``; ``grid`` persistent blocks, a multiple
+    of the ``ncp`` output parts, so that all a block's items share one part
+    and its weights stay resident. ``nm`` 0 where even nm = 1 does not fit
+    (cin above 256): the mma.sync design (``tapconv_kernel``), no grid."""
+    ntx, ncp, nch = _ceil_div(cols, TAPCONV_COLS), _ceil_div(cout, TAPCONV_COUT), _ceil_div(cin, 64)
+
+    def count(nm):
+        return ntx * _ceil_div(rows, 4 * nm) * ncp
+
+    fits = [nm for nm in (1, 2) if tapconv8_smem(nm, nch) <= SMEM_MAX]
+    if not fits:
+        return dict(nm=0, grid=0, ntx=ntx, ncp=ncp, chunks=nch, items=0, smem=0)
+    nm = 2 if 2 in fits and count(2) >= sms else 1
+    items = count(nm)
+    return dict(nm=nm, tile_rows=4 * nm, ntx=ntx, nty=_ceil_div(rows, 4 * nm), ncp=ncp,
+                chunks=nch, items=items, grid=min(items, max(1, sms // ncp) * ncp),
+                smem=tapconv8_smem(nm, nch))
+
+
+def tapconv8_items(rows, cols, cin, cout, sms):
+    """K10's int8 items as the kernel decodes them, per block, as
+    :func:`tapconv_items`: ``(first row, first column, first output
+    channel)`` in the order the block takes them."""
+    return _tap_items(tapconv8_schedule(rows, cols, cin, cout, sms))
 
 
 def tapconv(band, w, rows, cols, scale=None):
@@ -476,10 +531,11 @@ def tapconv(band, w, rows, cols, scale=None):
         raise ValueError(f"tapconv: need cin % {step} == 0, cout % 8 == 0 and one scale; got "
                          f"cin {cin}, cout {cout}")
     out = torch.empty((rows, cols, cout), dtype=torch.float32, device=dev)
-    sc = (tapconv_schedule(rows, cols, cin, cout, sm_count(dev)) if scale is None
-          else dict(nm=0, grid=0))  # int8: the mma.sync design takes no schedule
-    _call("tapconv", "pnp_tapconv", dev, _TYPE_CODE[band.dtype], band, w, scale, out, bh, bw, cin,
-          cout, rows, cols, sc["nm"], sc["grid"])
+    sched = tapconv_schedule if scale is None else tapconv8_schedule
+    sc = sched(rows, cols, cin, cout, sm_count(dev))
+    _call("tapconv" if scale is None else "tapconv_int8", "pnp_tapconv", dev,
+          _TYPE_CODE[band.dtype], band, w, scale, out, bh, bw, cin, cout, rows, cols, sc["nm"],
+          sc["grid"])
     return out
 
 
@@ -534,6 +590,20 @@ def gather2_plain(xp, shidx, wx0, wx1, dyidx, wy0, wy1, x0=15):
     h = torch.where(live, h, torch.zeros((), dtype=h.dtype, device=dev))
     out = _fma(h[:, 1:], b1, _fma(h[:, :-1], b0, zero)).to(torch.bfloat16)  # (nb, 8, w, c)
     return out.reshape(1, nb * BAND_ROWS, w, xp.shape[3])
+
+
+GATHER_THREADS = 256  # K11's block: one thread a (band, column, 8 channels), band-major
+
+
+def gather2_items(nb, w, c):
+    """K11's work as its kernel decodes it (csrc/probe_gather.cu:
+    gather2_kernel): per block, the ``(band, column, 8-channel vector)`` of
+    each of its threads, the vector fastest, then the column, then the band."""
+    nv = c // 8
+    n = nb * w * nv
+    return [[(i // nv // w, i // nv % w, i % nv)
+             for i in range(b * GATHER_THREADS, min(n, (b + 1) * GATHER_THREADS))]
+            for b in range(_ceil_div(n, GATHER_THREADS))]
 
 
 def gather2(xp, shidx, wx0, wx1, dyidx, wy0, wy1, x0=15):

@@ -540,7 +540,7 @@ def test_tapconv_kernel(cuda, case, form):
         scale = torch.tensor([0.0123], device=cuda)
     probes.reset_launches()
     got = probes.tapconv(band, w, rows, cols, scale)
-    _probe_launches("tapconv")
+    _probe_launches("tapconv" if form == "bf16" else "tapconv_int8")
     ref = probes.tapconv_plain(band, w, rows, cols, scale)
     torch.cuda.synchronize()
     if form == "bf16":

@@ -20,7 +20,8 @@ On the card (marker ``cuda``; ``python -m pytest -m cuda --noconftest
 tests/test_torch_port_probes_wg.py``): each kernel against its plain
 version with one counted launch, at the probes' shapes and ragged ones;
 K7 by phase 3's bf16 bounds, an output also allowed one bf16 ulp of its
-value, K10 bf16 within 1e-5 of max|ref|, K10 int8 bitwise.
+value, K10 bf16 within 1e-5 of max|ref|, K10 int8 bitwise (counted as
+``tapconv_int8``; its design's own checks: test_torch_port_wg_k10k11.py).
 
 The JAX parity of the plain versions is test_torch_port_probes.py's.
 """
@@ -179,9 +180,10 @@ def test_tapconv_hands_the_schedule_to_the_kernel(fake_card):
               torch.ones(1))
     (e1, a1), (e2, a2) = fake_card
     sc = P.tapconv_schedule(16, 320, 128, 128, 132)
+    sc8 = P.tapconv8_schedule(16, 320, 128, 128, 132)  # int8: its own wgmma design's
     assert e1 == e2 == "pnp_tapconv"
     assert a1[0] == 1 and a1[5:] == (24, 656, 128, 128, 16, 320, sc["nm"], sc["grid"])
-    assert a2[0] == 2 and a2[5:] == (24, 656, 128, 128, 16, 320, 0, 0)
+    assert a2[0] == 2 and a2[5:] == (24, 656, 128, 128, 16, 320, sc8["nm"], sc8["grid"])
 
 
 # ---- on the card ------------------------------------------------------------------------
@@ -282,7 +284,8 @@ def test_tapconv_kernel_wg(cuda, case, form):
         band = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(cuda)
         w = torch.randint(-127, 128, (3, 3, cin, cout), generator=gen, dtype=torch.int8).to(cuda)
         scale = torch.tensor([0.0123], device=cuda)
-    got = _one_launch("tapconv", lambda: P.tapconv(band, w, rows, cols, scale))
+    got = _one_launch("tapconv" if form == "bf16" else "tapconv_int8",
+                      lambda: P.tapconv(band, w, rows, cols, scale))
     ref = P.tapconv_plain(band, w, rows, cols, scale)
     assert got.dtype == ref.dtype and got.shape == ref.shape
     if form == "bf16":

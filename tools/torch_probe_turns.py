@@ -1,14 +1,16 @@
 #!/usr/bin/env python
 """Phase 12 of chip_smoke.py (the probe kernels K6-K10 at their TPU
-probes' shapes, and K10 and K5 at K5's 720p geometry beside cuDNN) on two
+probes' shapes, and K10 and K5 at K5's 720p geometry beside cuDNN) and
+phase 13's K11 cases (``chip_smoke.phase_gather2``: the warp probe's
+gather at 720p, its edge tables, its first 12 bands warm in the L2) on two
 trees in turns on one card, each run a process of its own: ``--other``, a
 checkout of another commit (``git archive`` of it unpacked under the
 git-ignored build/), and this checkout. Every run uses this checkout's
 chip_smoke.py and tools/torch_kernel_bounds.py (copied over the other
 tree's) with the tree's own package and other tools, so both are measured
-by the same phase. Prints each K7, K8 and K10 stage's readings (and
-K5's) run by run (cold, device, host-enqueue, ms) and writes each run's
-rows as JSON under ``--out``.
+by the same phase. Prints each K7, K8, K10 (both forms) and K11 stage's
+readings (and K5's) run by run (cold, device, host-enqueue, warm device
+where taken; ms) and writes each run's rows as JSON under ``--out``.
 
     python tools/torch_probe_turns.py --other build/parent                 # other, this, this, other
     python tools/torch_probe_turns.py --other build/parent --order other   # the other tree alone
@@ -28,12 +30,27 @@ RUN = """
 import json, sys
 sys.path.insert(0, ".")
 import chip_smoke as cs
+from pnp_vcve_torch.kernels import probes
+if "tapconv_int8" not in probes.LAUNCHES:
+    # a tree from before K10's int8 form was counted apart counts it under
+    # tapconv: count its int8 launches under tapconv_int8 too, as phase 12 reads
+    probes.LAUNCHES["tapconv_int8"] = 0
+    tapconv = probes.tapconv
+
+    def counted(band, w, rows, cols, scale=None):
+        out = tapconv(band, w, rows, cols, scale)
+        if scale is not None and band.is_cuda:
+            probes.LAUNCHES["tapconv_int8"] += 1
+        return out
+
+    probes.tapconv = counted
 dev, smi = cs.phase_device()
 rows = cs.phase_probes(dev, smi)
+rows.update(cs.phase_gather2(dev, smi))
 with open(sys.argv[1], "w") as f:
     json.dump({"smi": smi, "rows": rows}, f)
 """
-KERNELS = ("mmsel", "tapconv", "matmul")
+KERNELS = ("mmsel", "tapconv", "tapconv_int8", "matmul", "gather2")
 
 
 def run(label, root, out_dir, k):
@@ -93,9 +110,12 @@ def main(argv=None):
                     cells.append("—")
                     continue
                 st = row
+                warm = (f", warm device {fmt(row['warm_device_ms'])}"
+                        if "warm_device_ms" in row else "")
                 cells.append(f"cold {fmt(row['cold_ms'])}, device {fmt(row['device_ms'])}, "
-                             f"host {fmt(row['ms'])}; library cold {fmt(row['library_cold_ms'])},"
-                             f" device {fmt(row['library_device_ms'])}")
+                             f"host {fmt(row['ms'])}{warm}; library cold "
+                             f"{fmt(row['library_cold_ms'])}, device "
+                             f"{fmt(row['library_device_ms'])}")
             print(f"| {name}: {label} (bound {st['bound_ms']:.4f}, {st['bound_by']}) | "
                   + " | ".join(cells) + " |")
     (out_dir / "summary.json").write_text(json.dumps(
