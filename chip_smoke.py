@@ -153,7 +153,13 @@ Phases (any failure raises and the script exits non-zero):
    rows and columns, cin 32-320, cout 8-128), timed alone on k4's quantized
    band at 16 x 320 (device time, its headline) and beside the ``mma.sync``
    design it replaced (``pnp_tapconv`` with nm 0, the yardstick) there and
-   at K5's geometry;
+   at K5's geometry. K8's int8 form counts apart too (``matmul_int8``):
+   it and K9 are held bitwise at ``MATMUL8_EDGES`` (m 16-4112, n 8-136, k
+   32-288, and a depth past the s8 design's resident B: the mma.sync
+   design) and ``ABSMAX_EDGES`` (8 values, a vector count no block's slice
+   divides, all zeros, the max in the last value, exact ties, a re-read
+   part in every block), K8 int8 timed beside its mma.sync design (the
+   yardstick), K9 alone at k3's, k4's and K5's 720p geometry;
 13. the probes that move data (B10b): ``tools/torch_warp_kernel_probe.py``
    and ``tools/torch_dma_probe.py`` (manual, then pipelined) at their JAX
    files' shapes on the card, the probe counts zeroed before and read
@@ -227,7 +233,7 @@ Phases (any failure raises and the script exits non-zero):
    cascade, ``tools/torch_test.py --cascade`` with the serving config on
    the parity weights into vanilla BasicVSR++ at its published widths (64
    channels, 7 blocks, 16 deform groups, x4; seeded, offset heads seeded
-   non-zero, loaded through ``--cascade_ckpt``) on 2 clips x 8 frames at
+   non-zero, loaded through ``--cascade_ckpt``) on 1 clip x 4 frames at
    176x320 (REDS-LR's width; 176 rows because 'pf' needs sides that are
    multiples of 16) with a x4 GT written under build/chip_smoke/baselines:
    finite metrics, x4 PNGs, the launches of the flagship's frames plus
@@ -245,14 +251,15 @@ Phases (any failure raises and the script exits non-zero):
 17. data-parallel training and KITTI: (a) ``tools/torch_dist_train.sh``
    with 2 ranks sharing the card over gloo (5 samples each) and
    ``tools/torch_train.py`` in this process at 10 samples, phase 7's
-   fixture and published settings for 4 iterations, ``--deterministic``,
+   fixture and published settings for 2 iterations, ``--deterministic``,
    TF32 off in cuDNN and cuBLAS: the ranks' final weights and logged losses
    (unrounded, from each run's scalars.json) within 1e-5 of the one
    process's; (b) each rank's launches (rank 0 logs every rank's) and
-   the one process's equal phase 7's; (c) seconds per iteration of both
-   runs (iterations 2-4, from their logs) and rank 0's all-reduce time a
+   the one process's equal phase 7's an iteration; (c) seconds per
+   iteration of both runs (the second, from their logs) and rank 0's
+   all-reduce time a
    step (``--time-allreduce``); (d) ``tools/torch_test_kitti.py`` with the training config and the
-   parity weights on a KITTI-layout fixture of 2 sequences x 2 frames at
+   parity weights on a KITTI-layout fixture of 1 sequence x 2 frames at
    375x1242 (tools/data/make_kitti_fixture.py): finite metrics, frames/s,
    the launches of 2 frames a sequence, then the first pair kernel path
    against plain path (max|diff| <= 3e-3, float32, TF32 off);
@@ -262,8 +269,9 @@ Phases (any failure raises and the script exits non-zero):
    the eager forward, its launches for one window (K1b, K2, K3, K3s, K4
    through the registered ops ``torch.ops.pnp_vcve.*``) equal to the eager
    kernel path's, the export's and the save's seconds, the size, and both
-   paths' frames/s timed in turns; (b) the training config (K1) and
-   one_layer=False (K5), each cut to 2 blocks with seeded weights, exported
+   paths' frames/s timed in turns (one call a turn); (b) the training
+   config (K1) and one_layer=False (K5), each cut to 1 block with seeded
+   weights, exported
    at 256x448, each
    reloaded artifact launching its kernels and within 3e-3 of the plain
    path; (c) ``tools/torch_deploy_test.py`` with (a)'s artifact on clip 000
@@ -429,8 +437,10 @@ PROBE_INFO = {
                      "tools/warp_kernel_probe.py:69"]),
     "mmsel": ("pnp_vcve_torch/kernels/csrc/probe_mmsel.cu", "tools/warp_kernel_probe2.py:126",
               ["tools/warp_bisect.py:105"]),
-    "matmul": ("pnp_vcve_torch/kernels/csrc/probe_matmul.cu", "tools/int8_probe.py:70",
-               ["tools/int8_probe.py:80", "tools/int8_probe.py:100"]),
+    "matmul": ("pnp_vcve_torch/kernels/csrc/probe_matmul.cu", "tools/int8_probe.py:70", []),
+    # K8's int8 form, its own device function (matmul8_wg) and count
+    "matmul_int8": ("pnp_vcve_torch/kernels/csrc/probe_matmul.cu", "tools/int8_probe.py:80",
+                    ["tools/int8_probe.py:100"]),
     "absmax_quantize": ("pnp_vcve_torch/kernels/csrc/probe_matmul.cu", "tools/int8_probe.py:100",
                         ["tools/int8_probe.py:127"]),
     "tapconv": ("pnp_vcve_torch/kernels/csrc/probe_tapconv.cu", "tools/int8_probe.py:148", []),
@@ -460,22 +470,28 @@ PIPE_DEPTHS, STREAM_B, STREAM_D = (2, 4), 3, 2
 FULL_T, FULL_CHUNK_T, FULL_MOTION = 100, 20, (2, 1)
 DIST_CLIPS, DIST_HW, DIST_RANKS, DIST_RTOL = 3, (256, 256), 2, 1e-6
 # phase 17: data-parallel training against one process on the global batch
-# (the bound of the 5-step Adam test against JAX), KITTI's frame size
-DDP_RANKS, DDP_TOL = 2, 1e-5
-KITTI_HW, KITTI_SEQS = (375, 1242), ("000000", "000001")
+# (the bound of the 5-step Adam test against JAX) for DDP_ITERS iterations
+# (the first holds the warm-up: seconds per iteration from the second on),
+# KITTI's frame size, one sequence (phase 17 was cut from 4 iterations and 2
+# sequences to keep chip_smoke.py's run well inside its limit)
+DDP_RANKS, DDP_TOL, DDP_ITERS = 2, 1e-5, 2
+KITTI_HW, KITTI_SEQS = (375, 1242), ("000000",)
 PARITY_WEIGHTS = ROOT / "tests" / "fixtures" / "parity" / "state_dict.npz"
 # phase 18: the exported program's fixed window (JAX's t), the small size of
 # the training config's and the block form's exports and their depth, timed
 # calls a path. Export time grows with the depth (the sweeps unroll): on the
 # card 31.2 s for the training config at 8 blocks after phases 1-17, 27.5 s
-# for one_layer=False at 8 (8.4 s at 2)
-EXPORT_T, EXPORT_SMALL_HW, EXPORT_SMALL_BLOCKS, EXPORT_REPS = 3, (256, 448), 2, 3
+# for one_layer=False at 8 (8.4 s at 2); cut to 1 block and 1 timed call a
+# path to keep chip_smoke.py's run well inside its limit
+EXPORT_T, EXPORT_SMALL_HW, EXPORT_SMALL_BLOCKS, EXPORT_REPS = 3, (256, 448), 1, 1
 # phase 16: the eval entry point's last modes. The cascade: the serving
 # config into vanilla BasicVSR++ at its published widths on REDS-LR-width
 # clips (176 rows: 'pf' needs sides that are multiples of 16, REDS-LR's 180
 # is not) with a x4 GT; BasicVSR++ PQF v2 (the port's config) and the MFQE
-# joint protocol (nf 32) on one 720p clip; the joint gate on a crop
-CASCADE_CLIPS, CASCADE_HW = 2, (176, 320)
+# joint protocol (nf 32) on one 720p clip; the joint gate on a crop. The
+# cascade runs one clip of CASCADE_T frames (cut from 2 clips of 8 to keep
+# chip_smoke.py's run well inside its limit)
+CASCADE_CLIPS, CASCADE_T, CASCADE_HW = 1, 4, (176, 320)
 BVPP = dict(type="BasicVSRPlusPlus", mid_channels=64, num_blocks=7, deform_groups=16,
             is_low_res_input=True)
 BVPP_OFFSET_SCALE = 0.01  # conv_offset.6 (zero at init): offsets of about a pixel
@@ -496,12 +512,15 @@ WG_SASS_NAMES = {"input_conv_wg": 2, "drt_block_wg": 4, "head_wg": 2, "conv3x3_w
 # the V and the H mode), K8 bf16 (csrc/probe_matmul.cu) and K10 bf16
 # (csrc/probe_tapconv.cu, 4- and 8-row items); the same gates
 PROBE_WG_SASS_NAMES = {"mmsel_wg": 2, "matmul_wg": 1, "tapconv_wg": 2}
-# K10's int8 wgmma design (csrc/probe_tapconv.cu, 4- and 8-row items): each
-# device function must hold the integer warpgroup MMA, no mma.sync (IMMA),
-# and spill nothing; K11's design (csrc/probe_gather.cu) must spill nothing
-INT8_WG_SASS_NAMES = {"tapconv8_wg": 2}
+# the int8 wgmma designs, K10's (csrc/probe_tapconv.cu, 4- and 8-row items)
+# and K8's (csrc/probe_matmul.cu, int32 and scaled out): each device
+# function must hold the integer warpgroup MMA, no mma.sync (IMMA), and
+# spill nothing; K11's design (csrc/probe_gather.cu) and K9's one launch
+# (csrc/probe_matmul.cu) must spill nothing
+INT8_WG_SASS_NAMES = {"tapconv8_wg": 2, "matmul8_wg": 2}
 INT8_WG_SASS_OP, INT8_SYNC_SASS_OP = "IGMMA", "IMMA"
 GATHER_NAMES = {"gather2_kernel": 1}
+K9_NAMES = {"absmax_quantize_kernel": 1}
 # the probe kernels that only move data (K13's two, K6); K13's ring_copy
 # moves them with the bulk-copy engine
 COPY_NAMES = ("ring_copy_kernel", "stream_copy_kernel", "window_copy_kernel")
@@ -718,9 +737,10 @@ def phase_build():
 
 
 def _int8_and_gather_gates(lib, text, probes):
-    """K10's int8 wgmma design: IGMMA and no IMMA in each device function
-    (where cuobjdump is found), no spills, its shared memory at the probe
-    its mirror's; K11's design: no spills."""
+    """The int8 wgmma designs of K10 and K8: IGMMA and no IMMA in each
+    device function (where cuobjdump is found), no spills, their shared
+    memory at the probe their mirrors'; K11's design and K9's one launch:
+    no spills."""
     from pnp_vcve_torch.kernels.launch import SMEM_MAX
 
     if text is not None:
@@ -733,8 +753,10 @@ def _int8_and_gather_gates(lib, text, probes):
         if bad or len(ops) != sum(INT8_WG_SASS_NAMES.values()):
             raise AssertionError(f"int8 wgmma design: {len(ops)} device functions, without "
                                  f"{INT8_WG_SASS_OP} or with {INT8_SYNC_SASS_OP}: {bad}")
-    smem = (lib.lib.pnp_tapconv8_smem(), probes.tapconv8_schedule(16, 320, 128, 128, 132)["smem"])
-    for names in (INT8_WG_SASS_NAMES, GATHER_NAMES):
+    smem = {"tapconv8_wg": (lib.lib.pnp_tapconv8_smem(),
+                            probes.tapconv8_schedule(16, 320, 128, 128, 132)["smem"]),
+            "matmul8_wg": (lib.lib.pnp_matmul8_smem(128), probes.matmul8_smem(128))}
+    for names in (INT8_WG_SASS_NAMES, GATHER_NAMES, K9_NAMES):
         rep = {fn: r for n in names for fn, r in _ptxas_report(lib.log, n).items()}
         for fn, r in rep.items():
             print(f"[build] {fn}: {r.get('registers')} registers at launch, stack "
@@ -745,11 +767,13 @@ def _int8_and_gather_gates(lib, text, probes):
         if len(rep) != count or spills:
             raise AssertionError(f"{sorted(names)}: {len(rep)} device functions in the compiler's "
                                  f"report (want {count}); spilling: {spills}")
-    print(f"[build] tapconv8_wg: {smem[0]} bytes of dynamic shared memory at the probe (mirror "
-          f"{smem[1]})")
-    if smem[0] != smem[1] or smem[0] > SMEM_MAX:
-        raise AssertionError(f"tapconv8_wg's shared memory (source, mirror) {smem} disagree or "
-                             f"pass {SMEM_MAX}")
+    print(f"[build] int8 wgmma designs' dynamic shared memory at the probe (source, mirror): "
+          f"{smem}; K9 {lib.lib.pnp_absmax_smem()} bytes a block (mirror {probes.AQ_SMEM}), "
+          f"{lib.lib.pnp_absmax_blocks_per_sm()} blocks an SM")
+    off = {n: v for n, v in smem.items() if v[0] != v[1] or v[0] > SMEM_MAX}
+    if off or lib.lib.pnp_absmax_smem() != probes.AQ_SMEM:
+        raise AssertionError(f"int8 wgmma designs' or K9's shared memory (source, mirror) "
+                             f"disagree or pass {SMEM_MAX}: {off}")
 
 
 def _timed(fn, reps):
@@ -874,6 +898,21 @@ def _mma_sync_matmul(a, b):
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     call("matmul", "pnp_matmul_mma_sync", a.device, 1, a, b, None, out, m, n, k,
          counts={"matmul": 0})
+    return out
+
+
+def _mma_sync_matmul8(a, b, s=None):
+    """K8 int8 through its mma.sync design, the one the s8 wgmma design
+    replaced (``pnp_matmul_mma_sync`` with dtype 2): phase 12's yardstick.
+    Its launches count nowhere."""
+    import torch
+
+    from pnp_vcve_torch.kernels.launch import call
+
+    (m, k), n = a.shape, b.shape[1]
+    out = torch.empty((m, n), dtype=torch.int32 if s is None else torch.float32, device=a.device)
+    call("matmul_int8", "pnp_matmul_mma_sync", a.device, 2, a, b, s, out, m, n, k,
+         counts={"matmul_int8": 0})
     return out
 
 
@@ -2271,24 +2310,45 @@ def _probe_cases(int8, warp2, bisect):
             lambda a: P.matmul_plain(*a), "rel", lambda a: torch.matmul(*a), 100,
             kb.matmul_work(m, k, n, "bf16"))
         cases[-1]["device"] = True
+    # K8 int8 (its own count): k2 beside torch._int_mm and the mma.sync
+    # design it replaced, k3's scaled product alone, then k3 as the probe
+    # runs it (K9, then K8 int8 scaled)
     r = int8["int8 matmul"]
-    add("matmul", "k2 int8 matmul (:80)", r, lambda a: P.matmul_plain(*a), "bitwise",
+    add("matmul_int8", "k2 int8 matmul (:80)", r, lambda a: P.matmul_plain(*a), "bitwise",
         lambda a: torch._int_mm(*a), 100, kb.matmul_work(m, k, n, "int8", out_bytes=4),
         lib_of=lambda o: o)
     cases[-1]["device"] = True
+    aq, bq = r["args"]
+    add("matmul_int8", "k2 int8 matmul (:80), the mma.sync yardstick",
+        dict(out=_mma_sync_matmul8(aq, bq), fn=_mma_sync_matmul8, args=(aq, bq)),
+        lambda a: P.matmul_plain(*a), "bitwise", None, 100,
+        kb.matmul_work(m, k, n, "int8", out_bytes=4))
+    cases[-1].update(device=True, plain_timed=False)
     r = int8["quantize-in-kernel + int8 matmul"]
     a3, _ = r["args"]
+    q3, s3 = P.absmax_quantize(a3)
+    add("matmul_int8", "k3's scaled int8 matmul alone (:100), s given",
+        dict(out=P.matmul(q3, bq, s3), fn=P.matmul, args=(q3, bq, s3)),
+        lambda a: P.matmul_plain(*a), "bitwise", None, 100,
+        kb.matmul_work(m, k, n, "int8", out_bytes=4))
+    cases[-1]["device"] = True
+    add("matmul_int8", "k3's scaled int8 matmul alone (:100), s given, the mma.sync yardstick",
+        dict(out=_mma_sync_matmul8(q3, bq, s3), fn=_mma_sync_matmul8, args=(q3, bq, s3)),
+        lambda a: P.matmul_plain(*a), "bitwise", None, 100,
+        kb.matmul_work(m, k, n, "int8", out_bytes=4))
+    cases[-1].update(device=True, plain_timed=False)
 
     def k3_plain(a):
         q, s = P.absmax_quantize_plain(a[0])
         return P.matmul_plain(q, a[1], s)
 
-    add("matmul", "k3 K9 + int8 matmul (:100)", r, k3_plain, "bitwise", None, 100,
+    add("matmul_int8", "k3 K9 + int8 matmul (:100)", r, k3_plain, "bitwise", None, 100,
         kb.quantized_matmul_work(m, k, n))
     cases[-1]["device"] = True
     res_q = dict(fn=P.absmax_quantize, args=(a3,), out=None)
     add("absmax_quantize", "k3's quantize (:100)", res_q, lambda a: P.absmax_quantize_plain(*a),
         "bitwise", None, 100, kb.quantize_work(a3.numel()), out=P.absmax_quantize(a3))
+    cases[-1]["device"] = True
     r = int8["bf16 tap-conv (same geometry)"]  # K10's headline: it has a library call
     band_bf, w_bf = r["args"]
     c2 = band_bf.shape[2]
@@ -2336,6 +2396,7 @@ def _probe_cases(int8, warp2, bisect):
     add("absmax_quantize", "k4's quantize (:127)", dict(fn=P.absmax_quantize, args=(band,)),
         lambda a: P.absmax_quantize_plain(*a), "bitwise", None, 50,
         kb.quantize_work(band.numel()), out=P.absmax_quantize(band))
+    cases[-1]["device"] = True
     # tools/warp_kernel_probe2.py
     r = warp2["band DMA floor (128-lane)"]
     src, oh, ow, y0, x0 = r["args"]
@@ -2433,6 +2494,8 @@ def _k5_geometry_cases(dev):
     cases[-1]["plain_timed"] = False
     add("tapconv_int8", "K9 + K10 int8", k9_k10, (band, wq), k9_k10_plain, "bitwise", None,
         kb.quantized_tapconv_work(h + 2, w + 2, h, w, c, c))
+    add("absmax_quantize", "K9 alone", P.absmax_quantize, (band,),
+        lambda a: P.absmax_quantize_plain(*a), "bitwise", None, kb.quantize_work(band.numel()))
     # K5 itself at b = 1 in both types, with its bias and gain: against its
     # plain version in float32 (TF32 off) by phase 3's bounds, timed cold
     # and on device time (the wrapper's weight repacking included) beside
@@ -2501,15 +2564,17 @@ def phase_probes(dev, smi):
     counts = dict(probes.LAUNCHES)
     print(f"[probes] launches of the three tools: {counts}")
     failed = [k for res in (int8, warp2, bisect) for k, v in res.items() if v["out"] is None]
-    if failed or not all(counts[k] for k in ("window_copy", "mmsel", "matmul", "absmax_quantize",
-                                             "tapconv", "tapconv_int8")):
+    if failed or not all(counts[k] for k in ("window_copy", "mmsel", "matmul", "matmul_int8",
+                                             "absmax_quantize", "tapconv", "tapconv_int8")):
         raise AssertionError(f"probe stages failed: {failed}; launches {counts}")
     _tapconv_int8_edges(dev)
+    _matmul8_absmax_edges(dev)
     rows = _probe_rows(_probe_cases(int8, warp2, bisect), smi)
     k5 = _probe_rows(_k5_geometry_cases(dev), smi)
     out = _probe_summary(rows, counts, "phase12_launches")
     out["tapconv"]["k5_geometry"] = k5["tapconv"] + k5["conv3x3"]
     out["tapconv_int8"]["k5_geometry"] = k5["tapconv_int8"]
+    out["absmax_quantize"]["k5_geometry"] = k5["absmax_quantize"]
     return out
 
 
@@ -2536,6 +2601,56 @@ def _tapconv_int8_edges(dev):
         _probe_check(f"tapconv_int8: edge {rows}x{cols}, {cin} -> {cout}",
                      P.tapconv(q, w, rows, cols, s), P.tapconv_plain(q, w, rows, cols, s),
                      "bitwise")
+
+
+# K8 int8's edge shapes: m 16, 48 and 4112 (past the probe's 64 tiles), n
+# 8, 72 and 136 (a ragged last tile, one output box or two), k 32, 96, 160
+# and 288 (part of a 128-byte chunk, several chunks); then a depth past the
+# resident B (2080: the mma.sync design)
+MATMUL8_EDGES = tuple((m, n, k) for m in (16, 48, 4112) for n in (8, 72, 136)
+                      for k in (32, 96, 160, 288)) + ((64, 64, 2080),)
+# K9's edge inputs by count of values: 8; 70,001 vectors (odd: no block's
+# slice divides it); 3,000,001 vectors (every block re-reads, the last ends
+# on an odd vector); plus all zeros, the max in the last value, exact ties
+ABSMAX_EDGES = (8, 8 * 70_001, 8 * 3_000_001)
+
+
+def _matmul8_absmax_edges(dev):
+    """K8 int8 (int32 and scaled out) bitwise against its plain version at
+    ``MATMUL8_EDGES``; K9 (q and s) bitwise at ``ABSMAX_EDGES`` on normal
+    values, on all zeros, with the largest |x| in the last value alone, and
+    on values whose x / s are exact ties (k + 0.5)."""
+    import torch
+
+    from pnp_vcve_torch.kernels import probes as P
+
+    gen = torch.Generator().manual_seed(SEED + 22)
+    for m, n, k in MATMUL8_EDGES:
+        a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).to(dev)
+        b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8).to(dev)
+        s = torch.tensor([0.0123], device=dev)
+        for sc in (None, s):
+            got, want = P.matmul(a, b, sc), P.matmul_plain(a, b, sc)
+            torch.cuda.synchronize()
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(f"matmul_int8: edge {m}x{k} @ {k}x{n} "
+                                     f"({'scaled' if sc is not None else 'int32'}) disagrees")
+    print(f"[probes] matmul_int8: {len(MATMUL8_EDGES)} edge shapes x (int32, scaled): bitwise")
+    for count in ABSMAX_EDGES:
+        x = torch.randn(count, generator=gen).to(dev, torch.bfloat16)
+        last = x.clone()
+        last[-1] = 9.5  # past every other |x| of a standard normal draw
+        # s = 127 / 127 = 1 from the max 127; the others x.5 ties or integers
+        ties = ((torch.randint(-253, 254, (count,), generator=gen) / 2.0).to(dev, torch.bfloat16))
+        ties[0] = 127.0
+        for tag, v in (("normal", x), ("zeros", torch.zeros_like(x)), ("max last", last),
+                       ("ties", ties)):
+            got, want = P.absmax_quantize(v), P.absmax_quantize_plain(v)
+            torch.cuda.synchronize()
+            if not all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"absmax_quantize: edge {count} values ({tag}) disagrees")
+    print(f"[probes] absmax_quantize: {len(ABSMAX_EDGES)} edge sizes x (normal, zeros, max "
+          f"last, ties): q and s bitwise")
 
 
 L2_BYTES = 50 * 2**20     # the H100's L2
@@ -3522,7 +3637,7 @@ def phase_baselines(dev, smi):
     """The eval entry point's last modes (phase 16), float32, TF32 off: (a)
     the cascade through tools/torch_test.py --cascade (the serving config on
     the parity weights into vanilla BasicVSR++ at its published widths,
-    seeded, offset heads non-zero) on CASCADE_CLIPS clips of FRAMES frames
+    seeded, offset heads non-zero) on CASCADE_CLIPS clips of CASCADE_T frames
     at CASCADE_HW with a x4 GT; kernel path vs plain path, each stage's f/s,
     a profile and peak memory; (b) the port's BasicVSR++ PQF v2 config as
     the main model on one 720p clip; (c) the MFQE joint protocol (nf 32,
@@ -3578,27 +3693,28 @@ def phase_baselines(dev, smi):
 
     # (a) the cascade: serving config -> vanilla BasicVSR++, x4 GT
     h, w = CASCADE_HW
+    tc = CASCADE_T
     t0 = time.perf_counter()
-    write_fixture(work / "data", clips=REDS4_CLIPS[:CASCADE_CLIPS], frames=t, height=h,
+    write_fixture(work / "data", clips=REDS4_CLIPS[:CASCADE_CLIPS], frames=tc, height=h,
                   width=w, crf=15, seed=SEED + 16, quiet=True)
     for f in sorted((work / "data" / "sharp" / "png").glob("*/*.png")):
         out = work / "data" / "x4" / "png" / f.parent.name / f.name
         out.parent.mkdir(parents=True, exist_ok=True)
         Image.open(f).resize((4 * w, 4 * h), Image.BICUBIC).save(out)
     cfg = _fixture_cfg(work / "serving.py", CONFIGS / "HR_davis_LR_128x128_serving.py",
-                       work / "data", "x4/png", t)
+                       work / "data", "x4/png", tc)
     vsr_cfg = work / "bvpp.py"
     vsr_cfg.write_text(f"model = dict(type='BasicVSR', generator={BVPP!r})\n"
                        "test_cfg = dict(metrics=['PSNR', 'SSIM'], crop_border=0)\n")
     vsr_ckpt = work / "bvpp.pth"
     vsr = _seed_offset_heads(build_generator(BVPP, device="cpu", seed=SEED + 16), SEED + 16)
     torch.save(vsr.state_dict(), vsr_ckpt)
-    print(f"[cascade16] fixture: {CASCADE_CLIPS} clips x {t} frames at {h}x{w}, x4 GT, "
+    print(f"[cascade16] fixture: {CASCADE_CLIPS} clips x {tc} frames at {h}x{w}, x4 GT, "
           f"in {time.perf_counter() - t0:.1f} s")
     parity = str(ROOT / "tests/fixtures/parity/state_dict.npz")
     gen_cfg = Config.fromfile(cfg).model["generator"]
-    expected = _launches_per_pass(CASCADE_CLIPS * t, gen_cfg["num_blocks"], "pf")
-    expected["warp"] = _bvpp_launches(CASCADE_CLIPS, t)
+    expected = _launches_per_pass(CASCADE_CLIPS * tc, gen_cfg["num_blocks"], "pf")
+    expected["warp"] = _bvpp_launches(CASCADE_CLIPS, tc)
     reset_launches()
     t0 = time.perf_counter()
     metrics = torch_test.main([str(cfg), parity, "--device", dev.type, "--cascade",
@@ -3613,7 +3729,7 @@ def phase_baselines(dev, smi):
           f"(expected {expected})")
     if (counts != expected or set(metrics) != {"PSNR", "SSIM"}
             or not all(np.isfinite(v) for v in metrics.values())
-            or len(pngs) != CASCADE_CLIPS * t or shape != (4 * h, 4 * w, 3)):
+            or len(pngs) != CASCADE_CLIPS * tc or shape != (4 * h, 4 * w, 3)):
         raise AssertionError("the cascade through tools/torch_test.py: launches, metrics or frames")
 
     flagship, _ = _flagship_generator("HR_davis_LR_128x128_serving.py", dev)
@@ -3626,18 +3742,18 @@ def phase_baselines(dev, smi):
         flagship.ops = vsr.ops = PLAIN
         want = vsr(flagship(**inputs))
         flagship.ops = vsr.ops = KERNELS
-        per_clip = _launches_per_pass(t, gen_cfg["num_blocks"], "pf")
-        per_clip["warp"] = _bvpp_launches(1, t)
-        err = check(f"cascade, {t} frames {h}x{w} -> {4 * h}x{4 * w}", got, want, counts,
+        per_clip = _launches_per_pass(tc, gen_cfg["num_blocks"], "pf")
+        per_clip["warp"] = _bvpp_launches(1, tc)
+        err = check(f"cascade, {tc} frames {h}x{w} -> {4 * h}x{4 * w}", got, want, counts,
                     per_clip)
         del got, want
         torch.cuda.reset_peak_memory_stats()
         enhanced, wall_f = timed(lambda: flagship(**inputs))
         _, wall_v = timed(lambda: vsr(enhanced))
         peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"[cascade16] {smi}: flagship ('pf') {t / wall_f:.3f} f/s ({wall_f:.4f} s), "
-              f"BasicVSR++ 64/7/16 {t / wall_v:.3f} f/s ({wall_v:.4f} s), the cascade "
-              f"{t / (wall_f + wall_v):.3f} f/s at {h}x{w} -> {4 * h}x{4 * w}, float32; peak "
+        print(f"[cascade16] {smi}: flagship ('pf') {tc / wall_f:.3f} f/s ({wall_f:.4f} s), "
+              f"BasicVSR++ 64/7/16 {tc / wall_v:.3f} f/s ({wall_v:.4f} s), the cascade "
+              f"{tc / (wall_f + wall_v):.3f} f/s at {h}x{w} -> {4 * h}x{4 * w}, float32; peak "
               f"device memory {peak:.3f} GiB")
         reset_launches()
         _cascade_profile(flagship, vsr, inputs, lambda: dict(LAUNCHES))
@@ -3773,8 +3889,8 @@ def phase_ddp_train(dev, smi):
     """Phase 17: (a) tools/torch_dist_train.sh with DDP_RANKS ranks on the
     card (gloo; on a machine with more cards, a rank a card over NCCL)
     against one process (tools/torch_train.py in this process)
-    on the global batch, both at the published settings for TRAIN_ITERS
-    iterations with --deterministic and TF32 off (the ranks through
+    on the global batch, both at the published settings (phase 7's) for
+    DDP_ITERS iterations with --deterministic and TF32 off (the ranks through
     NVIDIA_TF32_OVERRIDE=0): the weights and the logged losses within
     DDP_TOL; (b) each rank's
     launches equal phase 7's one-process counts, and so do the one
@@ -3818,7 +3934,7 @@ def phase_ddp_train(dev, smi):
     t = cfg.data["train"][0]["dataset"]["num_input_frames"]
     b = cfg.data["train_dataloader"]["samples_per_gpu"]
     per_iter = {k: 2 * v for k, v in _launches_per_pass(t, gen_cfg["num_blocks"]).items()}
-    want = {k: TRAIN_ITERS * v for k, v in per_iter.items()}  # phase 7's counts
+    want = {k: DDP_ITERS * v for k, v in per_iter.items()}  # phase 7's counts an iteration
     n = max(DDP_RANKS, torch.cuda.device_count())
     shared = "sharing the card" if n > torch.cuda.device_count() else "a card each"
 
@@ -3827,8 +3943,8 @@ def phase_ddp_train(dev, smi):
     # and no TF32 in cuDNN and cuBLAS (the kernels' float32 is 3xTF32
     # regardless), so what differs is the batch split and the order of the
     # gradient sums
-    opts = ["--device", dev.type, "--total-iters", str(TRAIN_ITERS), "--deterministic",
-            "--cfg-options", "log_config.interval=1", f"checkpoint_config.interval={TRAIN_ITERS}"]
+    opts = ["--device", dev.type, "--total-iters", str(DDP_ITERS), "--deterministic",
+            "--cfg-options", "log_config.interval=1", f"checkpoint_config.interval={DDP_ITERS}"]
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.synchronize()
@@ -3852,7 +3968,7 @@ def phase_ddp_train(dev, smi):
         raise AssertionError(f"tools/torch_dist_train.sh exited {proc.returncode}")
     backend = [ln for ln in proc.stdout.splitlines() if ln.startswith("[dist]")]
     runs = ("one", "ranks")
-    one, ranks = (torch.load(work / tag / "ckpt" / f"{TRAIN_ITERS}.pth", weights_only=True)
+    one, ranks = (torch.load(work / tag / "ckpt" / f"{DDP_ITERS}.pth", weights_only=True)
                   for tag in ("one", "ranks"))
     diff = max(float((one["model"][k] - v).abs().max()) for k, v in ranks["model"].items())
     scale = max(float(v.abs().max()) for v in one["model"].values())
@@ -3866,13 +3982,13 @@ def phase_ddp_train(dev, smi):
           f"{digest}; first loss {losses['one'][0]!r} (one process), {losses['ranks'][0]!r} "
           f"(ranks)")
     print(f"[ddp17] (a) {backend}; {n} ranks x {b} samples against one process x "
-          f"{n * b}, {t} frames, 128x128 crops, {TRAIN_ITERS} iterations, "
+          f"{n * b}, {t} frames, 128x128 crops, {DDP_ITERS} iterations, "
           f"deterministic, TF32 off: max|dw| {diff:.4g} (<= {DDP_TOL}; largest weight "
           f"{scale:.4g}); logged losses {losses['ranks']} against {losses['one']}: "
           f"max|dloss| {dloss:.4g} (<= {DDP_TOL})")
-    if diff > DDP_TOL or not ranks["step"] == one["step"] == TRAIN_ITERS:
+    if diff > DDP_TOL or not ranks["step"] == one["step"] == DDP_ITERS:
         raise AssertionError("the ranks' weights differ from one process's on the global batch")
-    if len(losses["ranks"]) != TRAIN_ITERS or len(losses["one"]) != TRAIN_ITERS \
+    if len(losses["ranks"]) != DDP_ITERS or len(losses["one"]) != DDP_ITERS \
             or dloss > DDP_TOL:
         raise AssertionError("the ranks' logged losses differ from one process's")
 
@@ -3890,7 +4006,7 @@ def phase_ddp_train(dev, smi):
     it = {tag: _log_iterations(work / tag / "train.log")[1:] for tag in runs}
     sec = {tag: sum(s for s, _ in v) / len(v) for tag, v in it.items()}
     red = sum(r for _, r in it["ranks"]) / len(it["ranks"])
-    print(f"[ddp17] (c) {smi}: seconds per iteration over iterations 2-{TRAIN_ITERS}: "
+    print(f"[ddp17] (c) {smi}: seconds per iteration over iterations 2-{DDP_ITERS}: "
           f"{n} ranks {shared} {sec['ranks']:.4f} s (global batch "
           f"{n * b}), one process {sec['one']:.4f} s (batch {n * b}); rank 0's "
           f"all-reduce {red:.4f} s an iteration = {red / sec['ranks']:.4f} of it (flat float32 "

@@ -62,8 +62,10 @@ SIGNATURES = {
     "pnp_matmul": [_I] + [_P] * 4 + [_I] * 3 + [_P],
     # K8's mma.sync design for bf16 too (chip_smoke.py's yardstick)
     "pnp_matmul_mma_sync": [_I] + [_P] * 4 + [_I] * 3 + [_P],
-    "pnp_absmax_quantize": [_P, _L, _P, _P, _P, _P],
-    "pnp_absmax_parts": [],
+    "pnp_absmax_quantize": [_P, _L, _P, _P, _P, _I, _I, _P],
+    "pnp_absmax_blocks_per_sm": [],
+    "pnp_absmax_smem": [],
+    "pnp_matmul8_smem": [_I],
     "pnp_tapconv": [_I] + [_P] * 4 + [_I] * 8 + [_P],
     "pnp_gather2": [_P] * 8 + [_I] * 6 + [_P],
     "pnp_block_windows": [_P] * 4 + [_I] * 4 + [_P],

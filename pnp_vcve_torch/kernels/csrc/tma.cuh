@@ -42,7 +42,7 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// map: a tensor of `type` (bf16 or float32) at base of `rank` dimensions,
+// map: a tensor of `type` (bf16, float32, int32 or uint8) at base of `rank` dimensions,
 // dims[0] innermost and contiguous, strides[i] the bytes between steps of
 // dimension i + 1 (each a multiple of 16), boxes of box[0] x ... elements,
 // swizzled by `swizzle` bytes (0, 64 or 128; box[0] elements at most that)
@@ -93,6 +93,15 @@ __device__ __forceinline__ void load_4d(void* dst, const CUtensorMap* map, int c
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
+      : "memory");
+}
+// the box of `map` at (c0, c1) from src, in this thread's open bulk group
+// (bulk.cuh: commit, wait_read); parts outside the tensor are not written
+__device__ __forceinline__ void store_2d(const CUtensorMap* map, int c0, int c1, const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
 }
 // the box of `map` at (c0, c1, c2) from src, in this thread's open bulk

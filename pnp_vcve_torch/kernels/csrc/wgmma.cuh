@@ -5,8 +5,8 @@
 // mbarriers of a producer / consumer ring, bulk and cp.async copies that
 // complete on them,
 // shared-memory matrix descriptors and warpgroup matrix multiplies (wgmma)
-// with A from registers (K8: from shared memory too) and B from shared
-// memory.
+// with A from registers (K8: from shared memory too, in bf16 and in int8)
+// and B from shared memory.
 //
 // wgmma (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply-Accumulate"):
 // the four warps of a warpgroup multiply a 64-row A by a B of N columns. With
@@ -264,6 +264,20 @@ __device__ __forceinline__ void mma_s8(int (&d)[32], const uint32_t (&a)[4], uin
       "}\n"
       : PNP_WG_I32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+// d (64 x 64, int32) += A (64 x 32 int8 at desc_a, K-major: desc_sw128) * B
+// (32 x 64 int8 at desc_b, K-major: desc_sw128), both from shared memory
+// (K8 int8); exact, wrapping
+__device__ __forceinline__ void mma_s8_ss(int (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " PNP_WG_DREGS
+      "%32, %33, p;\n"
+      "}\n"
+      : PNP_WG_I32
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 #undef PNP_WG_I32
 #undef PNP_WG_D32

@@ -1,10 +1,9 @@
 """The probe kernels K6-K13: the TPU micro-benchmarks of ``tools/`` as
-hand-written Hopper kernels (``csrc/probe_*.cu``; K7, both forms of K10
-and the bf16 form of K8 on ``wgmma``, their operands copied by the tensor
-memory accelerator (``csrc/tma.cuh``), K7's and K10's through
-``csrc/wg_conv.cuh``'s rings; K9 and the int8 form of K8 on the
-``mma.sync`` helpers of ``csrc/mma.cuh``), with their plain PyTorch
-versions. K7-K10
+hand-written Hopper kernels (``csrc/probe_*.cu``; K7, both forms of K8
+and of K10 on ``wgmma``, their operands copied by the tensor memory
+accelerator (``csrc/tma.cuh``), K7's and K10's through
+``csrc/wg_conv.cuh``'s rings; K9 one cooperative launch that reads its
+input once), with their plain PyTorch versions. K7-K10
 multiply on the matrix unit; K6 and K11-K13 move data. No model path runs
 them; ``tools/torch_int8_probe.py``, ``tools/torch_warp_kernel_probe2.py``,
 ``tools/torch_warp_bisect.py``, ``tools/torch_warp_kernel_probe.py`` and
@@ -38,11 +37,13 @@ items as the kernel decodes them. K7's and K10's persistent wgmma designs
 do the same: :func:`mmsel_schedule` / :func:`mmsel_items`,
 :func:`tapconv_schedule` / :func:`tapconv_items` and, for K10's int8 form,
 :func:`tapconv8_schedule` / :func:`tapconv8_items`; :func:`matmul_tiles`
-spells out K8's blocks and their depth chunks. This module's
-``LAUNCHES`` (apart from the model kernels' ``launch.LAUNCHES``) counts one
-per kernel call (K9's two passes are one call; K13 counts its two kernels
-apart, K10 its bf16 and int8 forms, ``tapconv`` and ``tapconv_int8``);
-:func:`reset_launches` zeroes it.
+spells out K8's blocks and their depth chunks, :func:`absmax_schedule` /
+:func:`absmax_walk` K9's grid, its blocks' slices and the order in which
+each reads them. This module's ``LAUNCHES`` (apart from the model kernels'
+``launch.LAUNCHES``) counts one per kernel call (K13 counts its two
+kernels apart, K8 and K10 their bf16 and int8 forms, ``matmul`` and
+``matmul_int8``, ``tapconv`` and ``tapconv_int8``); :func:`reset_launches`
+zeroes it.
 """
 
 from __future__ import annotations
@@ -64,8 +65,8 @@ __all__ = [
     "block_windows", "block_windows_plain", "ring_copy", "stream_copy", "ring_copy_plain",
     "timed", "bf16_from_numpy", "sm_count", "ring_schedule", "ring_items", "ring_stage_bytes",
     "stream_grid", "mmsel_schedule", "mmsel_items", "tapconv_schedule", "tapconv_items",
-    "matmul_tiles", "matmul_tile_shape", "tapconv8_schedule", "tapconv8_items", "tapconv8_smem",
-    "gather2_items",
+    "matmul_tiles", "matmul_tile_shape", "matmul8_smem", "tapconv8_schedule", "tapconv8_items",
+    "tapconv8_smem", "gather2_items", "absmax_schedule", "absmax_walk",
 ]
 
 TILE = 128       # output columns a tile of the selection matmul (rows of S)
@@ -94,6 +95,23 @@ MATMUL_TILE = 64
 MATMUL_CHUNK = 64
 MATMUL_STAGES = 4
 MATMUL_SMEM = 1024 + MATMUL_STAGES * 2 * MATMUL_TILE * 128 + 2 * MATMUL_STAGES * 8
+# K8's int8 wgmma design (csrc/probe_matmul.cu: matmul8_wg): the same out
+# tiles, the depth in chunks of MATMUL8_CHUNK bytes, A through a ring of
+# MATMUL_STAGES 8 KB boxes, B's K-major image resident up to MATMUL8_MAXK
+# (past it the mma.sync design's 128 x 64 tiles)
+MATMUL8_CHUNK = 128
+MATMUL8_MAXK = 2048
+# K9 (csrc/probe_matmul.cu: absmax_quantize_kernel): blocks of AQ_THREADS,
+# a block's slice in 16-byte vectors of 8 values, the first AQ_HOLD of it
+# held in shared memory in chunks of AQ_CHUNK (a pair of vectors a
+# thread), the rest read again in iterations of AQ_STEP; a block takes at
+# least AQ_MIN_VECS vectors where the tensor allows
+AQ_THREADS = 512
+AQ_CHUNK = 2 * AQ_THREADS
+AQ_HOLD = 7 * AQ_CHUNK
+AQ_SMEM = 16 * AQ_HOLD
+AQ_STEP = 2 * AQ_THREADS * 2
+AQ_MIN_VECS = 512
 _TYPE_CODE = {torch.bfloat16: 1, torch.int8: 2}
 
 GATHER_SHIFTS = 35  # K11: the TPU kernel's masked sums run over 35 shifts a pass
@@ -105,8 +123,8 @@ RING_STAGE_MAX = 49152  # K13: a stage's bytes at most
 RING_BAR_BYTES = 256    # K13's room for its mbarriers and the items its stages hold
 STREAM_BLOCKS_PER_SM = 8
 
-LAUNCHES = {"window_copy": 0, "mmsel": 0, "matmul": 0, "absmax_quantize": 0, "tapconv": 0,
-            "tapconv_int8": 0, "gather2": 0, "block_windows": 0, "ring_copy": 0,
+LAUNCHES = {"window_copy": 0, "mmsel": 0, "matmul": 0, "matmul_int8": 0, "absmax_quantize": 0,
+            "tapconv": 0, "tapconv_int8": 0, "gather2": 0, "block_windows": 0, "ring_copy": 0,
             "stream_copy": 0}
 
 
@@ -334,12 +352,16 @@ def matmul_plain(a, b, scale=None):
     return acc if scale is None else acc.float() * scale
 
 
-def matmul_tile_shape(dtype):
+def matmul_tile_shape(dtype, k=0):
     """K8's ``(rows, columns, depth chunk)`` of a block's out tile: bf16 the
-    wgmma design's (csrc/probe_matmul.cu: matmul_wg), int8 the mma.sync
-    design's (``matmul_kernel``: 128 x 64, 128 bytes of depth a chunk)."""
+    wgmma design's (csrc/probe_matmul.cu: matmul_wg, 64 x 64, 64 deep), int8
+    up to a depth of ``MATMUL8_MAXK`` the s8 wgmma design's (``matmul8_wg``:
+    64 x 64, 128 bytes deep), past it the mma.sync design's
+    (``matmul_kernel``: 128 x 64, 128 bytes)."""
     if dtype == torch.bfloat16:
         return MATMUL_TILE, MATMUL_TILE, MATMUL_CHUNK
+    if k <= MATMUL8_MAXK:
+        return MATMUL_TILE, MATMUL_TILE, MATMUL8_CHUNK
     return 128, 64, 128
 
 
@@ -347,17 +369,28 @@ def matmul_tiles(m, n, k, dtype=torch.bfloat16):
     """K8's blocks as its kernel takes them: ``[((m0, n0), [k0 of each depth
     chunk])]``, a block the out rows ``[m0, m0 + rows)`` and columns ``[n0,
     n0 + columns)`` of :func:`matmul_tile_shape`, its depth in chunks from
-    each k0; zeros past m, n and k (bf16: the tensor maps' fill)."""
-    tm, tn, kc = matmul_tile_shape(dtype)
+    each k0; zeros past m, n and k (the tensor maps' fill; int8's B image
+    zeroed there)."""
+    tm, tn, kc = matmul_tile_shape(dtype, k)
     chunks = list(range(0, k, kc))
     return [((m0, n0), chunks) for m0 in range(0, m, tm) for n0 in range(0, n, tn)]
+
+
+def matmul8_smem(k):
+    """The int8 wgmma design's dynamic shared memory a block at depth k: the
+    alignment slack, A's ring of 8 KB boxes, B's resident K-major image (8
+    KB a 128-deep chunk), the two 8 KB output boxes, the barriers (as
+    csrc/probe_matmul.cu: m8::smem)."""
+    chunk = MATMUL_TILE * MATMUL8_CHUNK
+    return (1024 + MATMUL_STAGES * chunk + _ceil_div(k, MATMUL8_CHUNK) * chunk
+            + 2 * MATMUL_TILE * 128 + 2 * MATMUL_STAGES * 8)
 
 
 def matmul(a, b, scale=None):
     """K8. ``a (m, k)``, ``b (k, n)`` both bfloat16 (float32 out; the wgmma
     design) or both int8 (int32 out, or float32 with a float32 ``scale`` of
-    one element in device memory; the mma.sync design); m % 16 == 0, n % 8
-    == 0, k % 16 (bf16) or % 32 (int8)."""
+    one element in device memory; the s8 wgmma design, counted under
+    ``matmul_int8``); m % 16 == 0, n % 8 == 0, k % 16 (bf16) or % 32 (int8)."""
     if on_cpu(a):
         return matmul_plain(a, b, scale)
     if a.dtype not in _TYPE_CODE or b.dtype != a.dtype:
@@ -373,7 +406,8 @@ def matmul(a, b, scale=None):
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
     int_out = a.dtype == torch.int8 and scale is None
     out = torch.empty((m, n), dtype=torch.int32 if int_out else torch.float32, device=dev)
-    _call("matmul", "pnp_matmul", dev, _TYPE_CODE[a.dtype], a, b, scale, out, m, n, k)
+    name = "matmul" if a.dtype == torch.bfloat16 else "matmul_int8"
+    _call(name, "pnp_matmul", dev, _TYPE_CODE[a.dtype], a, b, scale, out, m, n, k)
     return out
 
 
@@ -389,18 +423,71 @@ def absmax_quantize_plain(x):
     return q, s.reshape(1)
 
 
+def absmax_schedule(n, sms, blocks_per_sm):
+    """K9's one launch over ``n`` values (n % 8 == 0): ``grid`` blocks, all
+    resident (at most ``blocks_per_sm`` x ``sms``), each at least
+    ``AQ_MIN_VECS`` vectors of 8 values where n allows; block b takes the
+    ``per`` vectors from b per (even, so that a thread's pair of vectors
+    lies in one block; the last block what remains, none empty); ``vectors``
+    the tensor's 16-byte vectors, ``held`` a full block's vectors in shared
+    memory."""
+    n16 = n // 8
+    grid = max(1, min(sms * blocks_per_sm, _ceil_div(n16, AQ_MIN_VECS)))
+    per = _ceil_div(n16, grid)
+    per += per % 2
+    grid = _ceil_div(n16, per)
+    return dict(grid=grid, per=per, vectors=n16, held=min(per, AQ_HOLD))
+
+
+def absmax_walk(n, grid, per):
+    """K9's blocks as its kernel decodes them, one dict a block: ``slice``
+    ``(first, end)`` of its vectors; ``held`` the first ``min(len, AQ_HOLD)``
+    in chunks of ``AQ_CHUNK`` (``[(first, count)]``, one bulk copy each);
+    ``pass1`` the re-read vectors in the order pass one reads them
+    (iterations of ``AQ_STEP`` forward), ``pass2`` the order pass two reads
+    them again (the iterations backwards); within an iteration thread t's
+    pair u is vectors base + 2 (u AQ_THREADS + t), + 1."""
+    n16 = n // 8
+    blocks = []
+    for b in range(grid):
+        v0 = b * per
+        length = min(v0 + per, n16) - v0
+        nheld = min(length, AQ_HOLD)
+        chunks = [(v0 + c, min(AQ_CHUNK, nheld - c)) for c in range(0, nheld, AQ_CHUNK)]
+        r0, end = v0 + nheld, v0 + length
+        iters = [[p + e for u in range(2) for t in range(AQ_THREADS)
+                  for p in [r0 + it * AQ_STEP + 2 * (u * AQ_THREADS + t)] for e in (0, 1)
+                  if p + e < end]
+                 for it in range(_ceil_div(end - r0, AQ_STEP))]
+        blocks.append(dict(slice=(v0, end), held=chunks, pass1=[v for i in iters for v in i],
+                           pass2=[v for i in reversed(iters) for v in i]))
+    return blocks
+
+
+@functools.cache
+def _absmax_blocks_per_sm(index):
+    """K9's blocks an SM of device ``index`` holds at its shared memory."""
+    with torch.cuda.device(index):
+        blocks = library().lib.pnp_absmax_blocks_per_sm()
+    if blocks < 1:
+        raise RuntimeError("absmax_quantize: the occupancy query failed or no block fits an SM")
+    return blocks
+
+
 def absmax_quantize(x):
-    """K9. ``x`` bfloat16, numel % 8 == 0 on the card -> ``(q, s)`` as
-    :func:`absmax_quantize_plain`, s in device memory."""
+    """K9, one launch. ``x`` bfloat16, numel % 8 == 0 on the card -> ``(q,
+    s)`` as :func:`absmax_quantize_plain`, s in device memory."""
     if on_cpu(x):
         return absmax_quantize_plain(x)
     dev = _cuda_args("absmax_quantize", [x], [torch.bfloat16])
     if x.numel() == 0 or x.numel() % 8:
         raise ValueError(f"absmax_quantize: need a multiple of 8 values, got {x.numel()}")
-    parts = torch.empty(library().lib.pnp_absmax_parts(), dtype=torch.float32, device=dev)
+    sc = absmax_schedule(x.numel(), sm_count(dev), _absmax_blocks_per_sm(dev.index or 0))
+    parts = torch.empty(sc["grid"], dtype=torch.float32, device=dev)
     q = torch.empty(x.shape, dtype=torch.int8, device=dev)
     s = torch.empty(1, dtype=torch.float32, device=dev)
-    _call("absmax_quantize", "pnp_absmax_quantize", dev, x, x.numel(), parts, q, s)
+    _call("absmax_quantize", "pnp_absmax_quantize", dev, x, x.numel(), parts, q, s, sc["grid"],
+          sc["per"])
     return q, s
 
 

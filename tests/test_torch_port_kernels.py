@@ -491,7 +491,7 @@ def test_matmul_kernel(cuda, case, form):
         scale = torch.tensor([0.0123], device=cuda) if form == "int8_scaled" else None
     probes.reset_launches()
     got = probes.matmul(a, b, scale)
-    _probe_launches("matmul")
+    _probe_launches("matmul" if form == "bf16" else "matmul_int8")
     ref = probes.matmul_plain(a, b, scale)
     torch.cuda.synchronize()
     assert got.dtype == ref.dtype and got.shape == ref.shape

@@ -280,7 +280,7 @@ def _k8_inputs(dtype, m, k, n, seed):
 @pytest.mark.parametrize("shape", list(MATMUL_SHAPES))
 def test_k8_tiles_compute_the_product(form, shape):
     """K8's blocks and depth chunks (bf16: the wgmma design's 64 x 64 tiles
-    and 64-deep chunks; int8: the mma.sync design's 128 x 64 and 128), each
+    and 64-deep chunks; int8: the s8 wgmma design's 64 x 64 and 128), each
     output written once, give ``matmul_plain``: int8 bitwise (with and
     without the scale), bf16 within 1e-5 of max|ref|."""
     m, k, n = MATMUL_SHAPES[shape]
@@ -300,10 +300,11 @@ def test_k8_tiles_compute_the_product(form, shape):
 def test_k8_tiles_fill_the_card_in_one_wave():
     """At the probe's 4096 x 128 x 128 the bf16 design runs 128 blocks (one
     wave on 132 SMs), each the whole depth in two chunks, both in flight in
-    its ring; the int8 design 64."""
+    its ring; the int8 design 128 too, each the whole depth in one chunk."""
     tiles = P.matmul_tiles(4096, 128, 128, BF16)
     assert len(tiles) == 128 and all(len(ch) == 2 for _, ch in tiles)
-    assert 2 <= P.MATMUL_STAGES and len(P.matmul_tiles(4096, 128, 128, torch.int8)) == 64
+    tiles8 = P.matmul_tiles(4096, 128, 128, torch.int8)
+    assert 2 <= P.MATMUL_STAGES and len(tiles8) == 128 and all(len(ch) == 1 for _, ch in tiles8)
     assert P.MATMUL_SMEM <= kl.SMEM_MAX
 
 
@@ -322,7 +323,8 @@ def test_k8_wrapper_hands_the_entry(monkeypatch, form):
         name=name, entry=entry, args=args))
     out = P.matmul(a, b, scale)
     code, ga, gb, gs, gout, *sizes = seen["args"]
-    assert seen["name"] == "matmul" and seen["entry"] == "pnp_matmul"
+    assert seen["name"] == ("matmul" if dtype == BF16 else "matmul_int8")
+    assert seen["entry"] == "pnp_matmul"
     assert code == (1 if dtype == BF16 else 2) and ga is a and gb is b and gs is scale
     assert gout is out and out.shape == (m, n)
     assert out.dtype == (torch.int32 if form == "int8" else F32)
@@ -419,7 +421,8 @@ def test_matmul_kernel_forms(cuda, form, shape):
     P.reset_launches()
     got = P.matmul(a, b, scale)
     torch.cuda.synchronize()
-    assert P.LAUNCHES["matmul"] == 1 and sum(P.LAUNCHES.values()) == 1
+    assert P.LAUNCHES["matmul" if dtype == BF16 else "matmul_int8"] == 1
+    assert sum(P.LAUNCHES.values()) == 1
     want = P.matmul_plain(a, b, scale)
     if dtype == BF16:
         tol = 1e-5 * float(want.abs().max())

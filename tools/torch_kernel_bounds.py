@@ -264,8 +264,14 @@ def probes():
         ("B10", "tools/int8_probe.py:70 k1 (bf16 matmul)", matmul_work(M, K, N_, "bf16"), "K8"),
         ("B10", "tools/int8_probe.py:80 k2 (int8 matmul)",
          matmul_work(M, K, N_, "int8", out_bytes=I32), "K8"),
+        ("B10", "tools/int8_probe.py:100 k3's scaled int8 matmul alone (s given)",
+         matmul_work(M, K, N_, "int8"), "K8"),
+        ("B10", "tools/int8_probe.py:100 k3's quantize alone", quantize_work(M * K), "K9"),
         ("B10", "tools/int8_probe.py:100 k3 (quantize + int8 matmul)",
          quantized_matmul_work(M, K, N_), "K9 + K8"),
+        ("B10", "tools/int8_probe.py:127 k4's quantize alone", quantize_work(BH * BW * C2), "K9"),
+        ("B10", "K9 alone at K5's 720p geometry (722 x 1282 x 64 bf16)",
+         quantize_work(722 * 1282 * 64), "K9"),
         ("B10", "tools/int8_probe.py:127 k4 (int8 tap conv)",
          quantized_tapconv_work(BH, BW, ROWS, COLS, C2, C2), "K9 + K10"),
         ("B10", "tools/int8_probe.py:148 k5 (bf16 tap conv)",

@@ -8,8 +8,8 @@ checkout of another commit (``git archive`` of it unpacked under the
 git-ignored build/), and this checkout. Every run uses this checkout's
 chip_smoke.py and tools/torch_kernel_bounds.py (copied over the other
 tree's) with the tree's own package and other tools, so both are measured
-by the same phase. Prints each K7, K8, K10 (both forms) and K11 stage's
-readings (and K5's) run by run (cold, device, host-enqueue, warm device
+by the same phase. Prints each K7, K8 (both forms), K9, K10 (both forms)
+and K11 stage's readings (and K5's) run by run (cold, device, host-enqueue, warm device
 where taken; ms) and writes each run's rows as JSON under ``--out``.
 
     python tools/torch_probe_turns.py --other build/parent                 # other, this, this, other
@@ -29,6 +29,7 @@ ROOT = Path(__file__).resolve().parents[1]
 RUN = """
 import json, sys
 sys.path.insert(0, ".")
+import torch
 import chip_smoke as cs
 from pnp_vcve_torch.kernels import probes
 if "tapconv_int8" not in probes.LAUNCHES:
@@ -44,13 +45,28 @@ if "tapconv_int8" not in probes.LAUNCHES:
         return out
 
     probes.tapconv = counted
+if "matmul_int8" not in probes.LAUNCHES:
+    # a tree from before K8's int8 form was counted apart counts it under
+    # matmul: move its int8 launches to matmul_int8, as phase 12 reads
+    probes.LAUNCHES["matmul_int8"] = 0
+    matmul = probes.matmul
+
+    def counted8(a, b, scale=None):
+        out = matmul(a, b, scale)
+        if a.dtype == torch.int8 and a.is_cuda:
+            probes.LAUNCHES["matmul"] -= 1
+            probes.LAUNCHES["matmul_int8"] += 1
+        return out
+
+    probes.matmul = counted8
 dev, smi = cs.phase_device()
 rows = cs.phase_probes(dev, smi)
 rows.update(cs.phase_gather2(dev, smi))
 with open(sys.argv[1], "w") as f:
     json.dump({"smi": smi, "rows": rows}, f)
 """
-KERNELS = ("mmsel", "tapconv", "tapconv_int8", "matmul", "gather2")
+KERNELS = ("mmsel", "tapconv", "tapconv_int8", "matmul", "matmul_int8", "absmax_quantize",
+           "gather2")
 
 
 def run(label, root, out_dir, k):
